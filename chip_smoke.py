@@ -1,0 +1,624 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``emfusion_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+1. Builds the port's CUDA kernels from ``emfusion_tpu_torch/csrc``.
+2. Fuses an analytic scene, with depth noise drawn from ``--seed``
+   (default 0), at the reference's published size
+   (``configs/default.cfg``: 640x480, 512^3 at 1 cm) and holds every
+   kernel against its plain PyTorch version on the card, at the shapes of
+   the main path. A kernel's time is its device time: a CUDA graph of
+   back-to-back calls, replayed between CUDA events. The plain version is
+   timed by CUDA events around back-to-back calls.
+3. Runs the main path, ``EMFusionPipeline.process_frame`` without
+   objects, over 24 frames of a smooth ground-truth camera path; fails
+   unless every kernel of the path was launched in that run and the
+   camera ATE is under 1 voxel.
+4. Profiles three more frames with ``torch.profiler``: the device's busy
+   share of the wall time and the device ops that took most of it (the
+   full table goes to ``chiprun_out/profile_ops.txt``).
+5. Runs a small scene through the pipeline on the card and on the CPU
+   (plain versions) and compares the camera poses.
+
+Kernel K6 (the projective warp) is not on the main path: the port's
+fusion kernel makes its nearest-pixel pick per voxel. Step 2 holds it
+against its plain version at the main path's image and grid sizes.
+
+Prints the card's name and power limit, one JSON line with the numbers
+of every kernel of the main path, and as its last line
+``{"ok": true, "device": ...}``.
+Exits non-zero, without that line, when there is no CUDA device or any
+phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM published memory rate
+F32_OPS_PER_S = 67e12         # H100 SXM published float32 rate (no TC)
+VOXEL_CUT = 0.01              # ATE limit: one voxel of the 1 cm volume
+N_FRAMES = 24                 # frames of the main path run
+PROFILE_FRAMES = 3            # frames of the profiled window
+GRID = (600, 896)             # K6's reference-plane grid at 640x480
+
+# (name, kernel source, TPU kernel it replaces)
+KERNEL_ROWS = [
+    ("fusion", "emfusion_tpu_torch/csrc/fusion.cu",
+     "emfusion_tpu/ops/pallas/fusion_pencil_pallas.py:388"),
+    ("sample", "emfusion_tpu_torch/csrc/sample.cu",
+     "emfusion_tpu/ops/pallas/sweep_pallas.py:246"),
+    ("capture", "emfusion_tpu_torch/csrc/capture.cu",
+     "emfusion_tpu/ops/pallas/band_pallas.py:307"),  # + the band at :132
+    ("raycast", "emfusion_tpu_torch/csrc/raycast.cu",
+     "emfusion_tpu/ops/pallas/sweep_pallas.py:246"),
+    ("bilateral", "emfusion_tpu_torch/csrc/bilateral.cu",
+     "emfusion_tpu/ops/pallas/bilateral_pallas.py:74"),
+]
+PATH_KERNELS = [row[0] for row in KERNEL_ROWS]
+
+
+# ---------------------------------------------------------------------
+# analytic scene: a numpy copy of the tests' ray-sphere/plane renderer
+class Scene:
+    def __init__(self, H, W, f, spheres, planes, max_depth=4.0):
+        self.H, self.W, self.f = H, W, f
+        self.cx, self.cy = W / 2 - 0.5, H / 2 - 0.5
+        self.spheres = spheres          # [(centre (3,), radius)]
+        self.planes = planes            # [(unit normal (3,), point (3,))]
+        self.max_depth = max_depth
+
+    def render(self, cam_pose):
+        """Depth (H, W) float32 of the scene seen from camera-to-world
+        ``cam_pose``; 0 where nothing is hit within ``max_depth``."""
+        Tinv = np.linalg.inv(cam_pose)
+        R, t = Tinv[:3, :3], Tinv[:3, 3]
+        ys, xs = np.mgrid[0:self.H, 0:self.W]
+        d = np.stack([(xs - self.cx) / self.f, (ys - self.cy) / self.f,
+                      np.ones_like(xs, np.float64)], -1)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        best = np.full((self.H, self.W), np.inf)
+        for c_w, r in self.spheres:
+            c = R @ c_w + t
+            b = -2 * (d @ c)
+            disc = b * b - 4 * (c @ c - r * r)
+            ts = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / 2,
+                          np.inf)
+            best = np.minimum(best, np.where(ts > 0, ts, np.inf))
+        for n_w, p_w in self.planes:
+            n_c, p_c = R @ n_w, R @ p_w + t
+            den = d @ n_c
+            tp = np.where(np.abs(den) > 1e-9, (p_c @ n_c) / den, np.inf)
+            best = np.minimum(best, np.where(tp > 0, tp, np.inf))
+        depth = np.where(np.isfinite(best), best * d[..., 2], 0.0)
+        return np.where(depth > self.max_depth, 0.0, depth).astype(
+            np.float32)
+
+
+def sensor_depth(depth, rng):
+    """Depth as a structured-light sensor gives it: axial noise growing
+    with range (sigma = 1.2 mm + 1.9 mm (z - 0.4 m)^2, Nguyen et al.,
+    3DIMPVT 2012) and 1% of the pixels dropped."""
+    sigma = 0.0012 + 0.0019 * (depth - 0.4) ** 2
+    noisy = depth + sigma * rng.standard_normal(depth.shape)
+    keep = (depth > 0) & (rng.random(depth.shape) >= 0.01)
+    return np.where(keep, noisy, 0.0).astype(np.float32)
+
+
+def make_scene(H, W, f):
+    return Scene(H, W, f,
+                 spheres=[(np.array([-0.45, 0.05, 1.4]), 0.35),
+                          (np.array([0.5, -0.3, 1.7]), 0.3),
+                          (np.array([0.1, 0.35, 2.3]), 0.4)],
+                 planes=[(np.array([0.0, 1.0, 0.0]),
+                          np.array([0.0, 0.8, 0.0])),
+                         (np.array([0.0, 0.0, 1.0]),
+                          np.array([0.0, 0.0, 3.4]))])
+
+
+def gt_pose(i):
+    """Smooth camera path: yaw 0.25 deg, 6 mm sideways, 3 mm down and
+    4 mm forward per frame (camera-to-world, world = frame-0 camera)."""
+    th = 0.0044 * i
+    c, s = np.cos(th), np.sin(th)
+    return np.array([[c, 0, s, 0.006 * i],
+                     [0, 1, 0, -0.003 * i],
+                     [-s, 0, c, 0.004 * i],
+                     [0, 0, 0, 1]], np.float32)
+
+
+# ---------------------------------------------------------------------
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters, warmup=2):
+    """Mean ms per call over ``iters`` back-to-back calls, from CUDA
+    events: the host's work between launches counts."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters):
+    """Device ms per call: ``iters`` calls captured in one CUDA graph and
+    replayed between CUDA events, so the host's work per call (argument
+    packing, the ctypes call, output allocation) is not in the time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved, ops):
+    t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / F32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def distinct(torch, idx):
+    return int(torch.unique(idx.reshape(-1)).numel())
+
+
+def max_err(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+# ---------------------------------------------------------------------
+def kernel_phases(torch, pipe, depth_raw, report):
+    """Every kernel against its plain version at the main path's shapes,
+    on the state ``pipe`` has fused so far. Returns the kernel rows."""
+    from emfusion_tpu_torch.geometry.camera import (
+        bilateral_filter, bilateral_filter_plain,
+    )
+    from emfusion_tpu_torch.geometry.capture import (
+        capture_neighborhoods, capture_neighborhoods_plain,
+    )
+    from emfusion_tpu_torch.geometry.sampling import (
+        sample_volume_at_points, sample_volume_at_points_plain,
+        transform_to_grid, trilinear_cell,
+    )
+    from emfusion_tpu_torch.geometry.se3 import pose_inverse
+    from emfusion_tpu_torch.ops.fusion import (
+        integrate_tsdf, integrate_tsdf_plain,
+    )
+    from emfusion_tpu_torch.ops.raycast import (
+        raycast_volume, raycast_volume_plain,
+    )
+    from emfusion_tpu_torch.ops.warp import (
+        grid_index_homography, select_grid_at_pixels, warp_homography_plain,
+        warp_image_to_grid,
+    )
+
+    p = pipe.params
+    s = pipe.state
+    H, W = pipe.H, pipe.W
+    HW = H * W
+    Z, Y, X = s.bg_tsdf.shape
+    V = Z * Y * X
+    vs, td = pipe.voxel, pipe.trunc
+    rows = {}
+    raw = torch.as_tensor(depth_raw).cuda()
+
+    # K5 bilateral (tolerance 1e-5 m: both sum the same 49 taps in the
+    # same order with the same expf; any difference is a fault)
+    args = (p.bilateral_kernel_size, p.bilateral_sigma_depth,
+            p.bilateral_sigma_spatial)
+    k = bilateral_filter(raw, *args)
+    q = bilateral_filter_plain(raw, *args)
+    taps = p.bilateral_kernel_size ** 2
+    rows["bilateral"] = dict(
+        max_abs_err=max_err(k, q), tol=1e-5,
+        ms=graph_ms(torch, lambda: bilateral_filter(raw, *args), 50),
+        plain_ms=time_ms(torch, lambda: bilateral_filter_plain(raw, *args),
+                         5),
+        bound=bound(8 * HW + 4 * taps, 12 * taps * HW), library_ms=None)
+
+    depth, points = pipe.preprocess(depth_raw)
+    rel = pose_inverse(s.bg_pose) @ s.cam_pose
+    R, t = rel[:3, :3], rel[:3, 3]
+    Rd, tdv = R.cuda(), t.cuda()
+
+    # K2 psi sample (tolerance 1e-6 and the same exact zeros: same
+    # arithmetic in the same order, built without FMA contraction)
+    k = sample_volume_at_points(s.bg_tsdf, points, R, t, vs, 1)
+    q = sample_volume_at_points_plain(s.bg_tsdf, points, Rd, tdv, vs, 1)
+    zero_mismatch = int(((k == 0) != (q == 0)).sum())
+    pts = points.reshape(3, -1)
+    vx, vy, vz, pz = transform_to_grid(pts, Rd, tdv, vs, (Z, Y, X))
+    ok = (q.reshape(-1) != 0)
+    base, _, _, _ = trilinear_cell((Z, Y, X), vx[ok], vy[ok], vz[ok])
+    corners = torch.cat([base + (dz * Y + dy) * X + dx for dz in (0, 1)
+                         for dy in (0, 1) for dx in (0, 1)])
+    n_vox = distinct(torch, corners)
+    gx = vx / (X - 1) * 2 - 1
+    gy = vy / (Y - 1) * 2 - 1
+    gz = vz / (Z - 1) * 2 - 1
+    grid = torch.stack([gx, gy, gz], -1).reshape(1, 1, 1, -1, 3)
+    vol5 = s.bg_tsdf[None, None]
+    gs = torch.nn.functional.grid_sample
+    rows["sample"] = dict(
+        max_abs_err=max_err(k, q) if zero_mismatch == 0 else float("inf"),
+        tol=1e-6,
+        ms=graph_ms(torch, lambda: sample_volume_at_points(
+            s.bg_tsdf, points, R, t, vs, 1), 50),
+        plain_ms=time_ms(torch, lambda: sample_volume_at_points_plain(
+            s.bg_tsdf, points, Rd, tdv, vs, 1), 5),
+        bound=bound(16 * HW + 4 * n_vox, 40 * HW),
+        library_ms=graph_ms(torch, lambda: gs(
+            vol5, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True), 50))
+    report["sample_zero_mismatch"] = zero_mismatch
+
+    # K3 capture (exact: the same voxel reads and the same anchors)
+    vols = (s.bg_tsdf, s.bg_weights)
+    kc, ka = capture_neighborhoods(vols, pts, R, t, vs)
+    qc, qa = capture_neighborhoods_plain(vols, pts, Rd, tdv, vs)
+    anchor_mismatch = int((ka != qa).sum())
+    N = pts.shape[1]
+    ax, ay, az = qa[0].long(), qa[1].long(), qa[2].long()
+    win = torch.arange(6, device=ax.device)
+    zc = torch.clamp(az[:, None] + win, 0, Z - 1)
+    yc = torch.clamp(ay[:, None] + win, 0, Y - 1)
+    xc = torch.clamp(ax[:, None] + win, 0, X - 1)
+    # the distinct voxels the windows read, marked in chunks of points
+    seen = torch.zeros(V, dtype=torch.bool, device=ax.device)
+    for c0 in range(0, N, 32768):
+        sl = slice(c0, c0 + 32768)
+        idx = ((zc[sl, :, None, None] * Y + yc[sl, None, :, None]) * X
+               + xc[sl, None, None, :])
+        seen[idx.reshape(-1)] = True
+    n_vox = int(seen.sum())
+    del seen
+    rows["capture"] = dict(
+        max_abs_err=(max_err(kc, qc) if anchor_mismatch == 0
+                     else float("inf")), tol=0.0,
+        ms=graph_ms(torch, lambda: capture_neighborhoods(
+            vols, pts, R, t, vs), 10),
+        plain_ms=time_ms(torch, lambda: capture_neighborhoods_plain(
+            vols, pts, Rd, tdv, vs), 3),
+        bound=bound(12 * N + 2 * 216 * 4 * N + 12 * N + 8 * n_vox,
+                    20 * N),
+        library_ms=None)
+    report["capture_anchor_mismatch"] = anchor_mismatch
+
+    # K4 raycast (mask must agree on >= 99.99% of pixels; raylengths,
+    # vertices and normals within 1e-4 where both hit: the same
+    # arithmetic, but a ray's outcome is a chain of hundreds of
+    # dependent steps)
+    kr = raycast_volume(s.bg_tsdf, s.bg_weights, R, t, pipe.intr, vs, td,
+                        H, W, p.raycast_max_steps)
+    st = {}
+    qr = raycast_volume_plain(s.bg_tsdf, s.bg_weights, Rd, tdv, pipe.intr,
+                              vs, td, H, W, p.raycast_max_steps, stats=st)
+    both = kr["mask"] & qr["mask"]
+    mask_mismatch = int((kr["mask"] != qr["mask"]).sum())
+    err = max(max_err(kr["raylengths"][both], qr["raylengths"][both]),
+              max_err(kr["vertices"][:, both], qr["vertices"][:, both]),
+              max_err(kr["normals"][:, both], qr["normals"][:, both]))
+    hits = qr["mask"].reshape(-1)
+    vstar = [(pt / vs + (n - 1) / 2.0) for pt, n in
+             zip((qr["vertices"].reshape(3, -1)[:, hits].T @ Rd.T
+                  + tdv).T, (X, Y, Z))]
+    base, _, _, _ = trilinear_cell((Z, Y, X), *vstar)
+    corners = torch.cat([base + (dz * Y + dy) * X + dx for dz in (0, 1)
+                         for dy in (0, 1) for dx in (0, 1)])
+    n_vox = distinct(torch, corners)
+    rows["raycast"] = dict(
+        max_abs_err=err if mask_mismatch <= 1e-4 * HW else float("inf"),
+        tol=1e-4,
+        ms=graph_ms(torch, lambda: raycast_volume(
+            s.bg_tsdf, s.bg_weights, R, t, pipe.intr, vs, td, H, W,
+            p.raycast_max_steps), 20),
+        plain_ms=time_ms(torch, lambda: raycast_volume_plain(
+            s.bg_tsdf, s.bg_weights, Rd, tdv, pipe.intr, vs, td, H, W,
+            p.raycast_max_steps), 1, warmup=0),
+        bound=bound(29 * HW + 8 * n_vox, 80 * st["steps"]),
+        library_ms=None)
+    report["raycast_mask_mismatch"] = mask_mismatch
+    report["raycast_steps"] = st["steps"]
+    report["raycast_hits"] = int(hits.sum())
+
+    # K1 fusion (tolerance 1e-5: same arithmetic, no FMA contraction)
+    inv = pose_inverse(s.cam_pose) @ s.bg_pose
+    Ro, to = inv[:3, :3], inv[:3, 3]
+    fargs = (depth, s.bg_assoc, Ro, to, pipe.intr, vs, td,
+             p.tsdfParams.maxTSDFWeight, *pipe.carve_args())
+    kt, kw = s.bg_tsdf.clone(), s.bg_weights.clone()
+    integrate_tsdf(kt, kw, *fargs)
+    qt, qw = s.bg_tsdf.clone(), s.bg_weights.clone()
+    integrate_tsdf_plain(qt, qw, *fargs)
+    rows["fusion"] = dict(
+        max_abs_err=max(max_err(kt, qt), max_err(kw, qw)), tol=1e-5,
+        ms=graph_ms(torch, lambda: integrate_tsdf(kt, kw, *fargs), 10),
+        plain_ms=time_ms(torch, lambda: integrate_tsdf_plain(
+            qt, qw, *fargs), 2, warmup=1),
+        bound=bound(16 * V + 8 * HW, 50 * V), library_ms=None)
+    del kt, kw, qt, qw
+    torch.cuda.empty_cache()
+
+    # K6 warp, both ways (exact: the same picks of the same float32
+    # values): the filtered depth onto the reference-plane grid of the
+    # volume's centre slice (as the TPU fusion warps it), and that grid
+    # back onto the pixels (as the TPU raycast warps its t* grid back)
+    nS, nL = GRID
+    Bmat = centre_slice_homography(torch, Ro, to, pipe.intr, vs, (Z, Y, X))
+    plane = (-0.5, -0.5, float(X), float(Y))
+    kg = warp_image_to_grid(depth, Bmat, H, W, *plane, nS, nL)
+    qg = warp_homography_plain(depth, Bmat, nS, nL, plane)
+    rows["warp_to_grid"] = dict(
+        max_abs_err=max_err(kg, qg), tol=0.0,
+        ms=graph_ms(torch, lambda: warp_image_to_grid(
+            depth, Bmat, H, W, *plane, nS, nL), 50),
+        plain_ms=time_ms(torch, lambda: warp_homography_plain(
+            depth, Bmat, nS, nL, plane), 20),
+        bound=bound(4 * HW + 4 * nS * nL, 25 * nS * nL), library_ms=None)
+    Binv = torch.linalg.inv(Bmat)
+    M = grid_index_homography(Binv, *plane, nS, nL)
+    kp = select_grid_at_pixels(kg, Binv, *plane, H, W)
+    qp = warp_homography_plain(kg, M, H, W, None, round_half=False,
+                               mask_oob=False)
+    rows["warp_to_pixels"] = dict(
+        max_abs_err=max_err(kp, qp), tol=0.0,
+        ms=graph_ms(torch, lambda: select_grid_at_pixels(
+            kg, Binv, *plane, H, W), 50),
+        plain_ms=time_ms(torch, lambda: warp_homography_plain(
+            kg, M, H, W, None, round_half=False, mask_oob=False), 20),
+        bound=bound(4 * nS * nL + 4 * HW, 20 * HW), library_ms=None)
+    report["warp_grid_cells_seen"] = float((qg > 0).float().mean())
+    return rows
+
+
+def centre_slice_homography(torch, rel_rot_oc, rel_trans_oc, intr, vs,
+                            shape):
+    """Voxel indices (x, y, 1) of the volume's centre z-slice -> the
+    homogeneous pixel, ``K [r1 vs, r2 vs, t - vs (r1 ox + r2 oy)]``: the
+    reference plane of the TPU fusion (``fusion_pencil._pencil_setup``)."""
+    Z, Y, X = shape
+    K = torch.as_tensor(intr, dtype=torch.float32)
+    r1, r2 = rel_rot_oc[:, 0], rel_rot_oc[:, 1]
+    t0 = rel_trans_oc - vs * (r1 * (X - 1) / 2.0 + r2 * (Y - 1) / 2.0)
+    return K @ torch.stack([r1 * vs, r2 * vs, t0], dim=1)
+
+
+def main_path(torch, params, scene, n_frames, rng, report):
+    """The port's main path, through the entry points a user calls."""
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch.eval.ate import evaluate_ate
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    frames = [sensor_depth(scene.render(gt_pose(i)), rng)
+              for i in range(n_frames)]
+    pipe = EMFusionPipeline(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    e2e = []
+    for i, depth in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process_frame(None, depth, timestamp=float(i))
+        torch.cuda.synchronize()
+        e2e.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    poses = {float(f): q for f, q in pipe.poses.items()}
+    gt = {float(i): gt_pose(i) for i in range(n_frames)}
+    ate = evaluate_ate(poses, gt, max_difference=0.5)
+    phases = pipe.timer.ms_per_call()
+    report["main_path"] = dict(
+        frames=n_frames, e2e_ms_per_frame=float(np.mean(e2e[1:])),
+        e2e_ms_frame0=e2e[0], phase_ms_per_call=phases,
+        max_memory_allocated=peak, launches=launches, ate=ate,
+        lm_last=pipe.last_track_stats and {
+            k: v for k, v in pipe.last_track_stats.items()
+            if not torch.is_tensor(v)})
+    print(f"main path: {n_frames} frames 640x480 into 512^3, "
+          f"e2e {np.mean(e2e[1:]):.3f} ms/frame (frames 1..), "
+          f"frame 0 {e2e[0]:.3f} ms", flush=True)
+    print("phase ms per call: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
+    print(f"peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
+          f"ATE rmse {ate['rmse'] * 1e3:.3f} mm", flush=True)
+    missing = [k for k in PATH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"main path never launched kernels {missing}")
+    if not ate["rmse"] < VOXEL_CUT:
+        raise RuntimeError(f"ATE {ate['rmse']} m >= {VOXEL_CUT} m")
+    return launches, pipe
+
+
+def profile_frames(torch, pipe, scene, n, rng, report):
+    """torch.profiler over ``n`` more frames of the main path's pipeline:
+    the device's busy share of the wall time, and the device ops that
+    took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    first = pipe.frame
+    frames = [sensor_depth(scene.render(gt_pose(first + i)), rng)
+              for i in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for depth in frames:
+            pipe.process_frame(None, depth)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    ev = prof.key_averages()
+    phases = set(pipe.timer.counts)
+
+    def dev_ms(e):
+        return e.self_device_time_total / 1e3 / n       # us -> ms/frame
+
+    # device-side rows: kernels and copies (a phase's range also shows on
+    # the device, as an annotation; it is not work)
+    work = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in phases]
+    busy = sum(dev_ms(e) for e in work)
+    ops = sum(e.count for e in work) / n
+    top = sorted(((dev_ms(e), e.key, e.count / n) for e in work),
+                 reverse=True)[:6]
+    report["profile"] = dict(frames=n, wall_ms_per_frame=wall_ms,
+                             device_busy_ms_per_frame=busy,
+                             device_busy_share=busy / wall_ms,
+                             device_ops_per_frame=ops, top_device_ops=top)
+    print(f"profile: {n} frames, wall {wall_ms:.3f} ms/frame (the profiler "
+          f"slows the host), device busy {busy:.3f} ms/frame "
+          f"({100 * busy / wall_ms:.1f}%) in {ops:.0f} kernels and copies "
+          f"per frame", flush=True)
+    for ms, key, calls in top:
+        print(f"  {ms:8.3f} ms/frame {calls:7.1f} calls/frame  {key[:70]}",
+              flush=True)
+    with open(os.path.join(HERE, "chiprun_out", "profile_ops.txt"),
+              "w") as f:
+        f.write(ev.table(sort_by="self_device_time_total", row_limit=60))
+
+
+def small_reference(torch, rng, report):
+    """The same small scene through the pipeline on the card (kernels)
+    and on the CPU (plain versions): per-frame camera positions agree to
+    0.1 voxel."""
+    from emfusion_tpu_torch.config import Params
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    scene = make_scene(120, 160, 130.0)
+    params = Params(frameSize=(160, 120), fx=130.0, fy=130.0, cx=79.5,
+                    cy=59.5, globalVolumeDims=(64, 64, 64),
+                    globalVoxelSize=5.12 / 64, volumePose=(0.0, 0.0, 2.56),
+                    maxTrackingIter=50, raycast_max_steps=512)
+    frames = [sensor_depth(scene.render(gt_pose(2 * i)), rng)
+              for i in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pipe = EMFusionPipeline(params, device=dev)
+        for depth in frames:
+            pipe.process_frame(None, depth)
+        out[dev] = np.stack([pipe.poses[f] for f in range(4)])
+    diff = float(np.abs(out["cuda"][:, :3, 3] - out["cpu"][:, :3, 3]).max())
+    report["small_reference_max_translation_diff"] = diff
+    print(f"small scene, card vs CPU: max camera translation difference "
+          f"{diff:.3e} m (limit {0.1 * 5.12 / 64:.3e})", flush=True)
+    if not diff < 0.1 * 5.12 / 64:
+        raise RuntimeError("card and CPU pipelines disagree")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the depth noise")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch.config import load_config
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    card = card_line()
+    report = {"card": card}
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    t0 = time.perf_counter()
+    build_s = kernels.build()
+    print(f"kernels built in {build_s:.1f} s", flush=True)
+    for name, log in kernels.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+    report["build_s"] = build_s
+
+    params = load_config(os.path.join(HERE, "configs", "default.cfg"))
+    scene = make_scene(params.height, params.width, params.fx)
+    rng = np.random.default_rng(args.seed)
+    report["seed"] = args.seed
+
+    # a fused volume for the kernel phases: three frames of the scene
+    warm = EMFusionPipeline(params)
+    for i in range(3):
+        warm.process_frame(None, sensor_depth(scene.render(gt_pose(i)),
+                                              rng))
+    rows = kernel_phases(torch, warm,
+                         sensor_depth(scene.render(gt_pose(3)), rng), report)
+    del warm
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        print(f"{name}: max_abs_err {r['max_abs_err']:.3e} (tol "
+              f"{r['tol']:.0e}), {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})", flush=True)
+
+    launches, pipe = main_path(torch, params, scene, N_FRAMES, rng, report)
+    profile_frames(torch, pipe, scene, PROFILE_FRAMES, rng, report)
+    del pipe
+    torch.cuda.empty_cache()
+    small_reference(torch, rng, report)
+
+    bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]]
+    table = []
+    for name, src, replaces in KERNEL_ROWS:
+        r = rows[name]
+        table.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"]})
+    report["kernels"] = table
+    report["k6_warp"] = {n: rows[n] for n in ("warp_to_grid",
+                                              "warp_to_pixels")}
+    report["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions: "
+                           f"{bad}")
+    print(card, flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,199 @@
+"""Per-point neighbourhood capture + tent-product resampling for the LM.
+
+Port of ``emfusion_tpu/geometry/capture.py``. Each tracking point's 6^3
+voxel window of the tsdf and weight volumes is gathered once
+(:func:`capture_neighborhoods`, kernel K3, ``csrc/capture.cu``); every LM
+iteration then evaluates its trilinear samples from the cache with
+separable tent weights,
+
+    trilerp(vol, v) == sum_d cache[d] * tent(v_local - d),
+    tent(t) = max(0, 1 - |t|),
+
+exact while ``v_local`` stays inside the window. A drift check
+(:func:`drift_ok`) tells the LM when to re-capture. Caches are
+``(C, 6, 6, 6, N)`` with the point index minor; anchors ``(3, N)`` int32
+(x, y, z), unclipped.
+
+:func:`capture_neighborhoods` on a CUDA tensor launches K3; on a CPU
+tensor it takes :func:`capture_neighborhoods_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from emfusion_tpu_torch import kernels
+from emfusion_tpu_torch.geometry.sampling import transform_to_grid
+
+WIN = 6          # cached window size per axis
+_ANCHOR_OFF = 2  # anchor = floor(v) - _ANCHOR_OFF -> v_local in [2, 3)
+
+
+def capture_neighborhoods_plain(vols, points_cam: torch.Tensor, rel_rot,
+                                rel_trans, voxel_size):
+    """Plain PyTorch version of K3. ``vols``: the (Z, Y, X) volumes to
+    capture, as a sequence or a channel-first stack; ``points_cam`` (3, N).
+    Returns ``(cache (C, 6, 6, 6, N) f32, anchor (3, N) int32)``; window
+    reads are clipped to the volume."""
+    Z, Y, X = vols[0].shape
+    dev = vols[0].device
+    vx, vy, vz, _ = transform_to_grid(points_cam, rel_rot, rel_trans,
+                                      voxel_size, (Z, Y, X))
+    ax = torch.floor(vx).to(torch.int32) - _ANCHOR_OFF
+    ay = torch.floor(vy).to(torch.int32) - _ANCHOR_OFF
+    az = torch.floor(vz).to(torch.int32) - _ANCHOR_OFF
+    anchor = torch.stack([ax, ay, az])
+    d = torch.arange(WIN, dtype=torch.int32, device=dev)[:, None]
+    zc = torch.clamp(az[None] + d, 0, Z - 1).long()        # (W, N)
+    yc = torch.clamp(ay[None] + d, 0, Y - 1).long()
+    xc = torch.clamp(ax[None] + d, 0, X - 1).long()
+    flat = ((zc[:, None, None] * Y + yc[None, :, None]) * X
+            + xc[None, None])                               # (W, W, W, N)
+    cache = torch.stack([v.reshape(-1)[flat].to(torch.float32)
+                         for v in vols])
+    return cache, anchor
+
+
+def capture_neighborhoods(vols, points_cam: torch.Tensor, rel_rot,
+                          rel_trans, voxel_size):
+    """Kernel K3 wrapper (see :func:`capture_neighborhoods_plain`). The
+    kernel takes two float32 volumes, ``(tsdf, weights)``, which need not
+    be stacked (a stack of two 512^3 volumes would copy 1 GB)."""
+    if not vols[0].is_cuda:
+        return capture_neighborhoods_plain(vols, points_cam, rel_rot,
+                                           rel_trans, voxel_size)
+    if len(vols) != 2:
+        raise ValueError("capture_neighborhoods: the CUDA kernel takes two "
+                         "volumes (tsdf, weights)")
+    tsdf, wts = vols[0].contiguous(), vols[1].contiguous()
+    Z, Y, X = tsdf.shape
+    pts = points_cam.contiguous()
+    N = pts.shape[1]
+    cache = torch.empty((2, WIN, WIN, WIN, N), dtype=torch.float32,
+                        device=tsdf.device)
+    anchor = torch.empty((3, N), dtype=torch.int32, device=tsdf.device)
+    kernels.check_cuda("capture_neighborhoods", tsdf, wts, pts, cache,
+                       anchor)
+    kernels.launch("capture", tsdf.data_ptr(), wts.data_ptr(),
+                   pts.data_ptr(), cache.data_ptr(), anchor.data_ptr(),
+                   N, Z, Y, X, *kernels.pose_args(rel_rot, rel_trans),
+                   float(voxel_size))
+    return cache, anchor
+
+
+def _tents(vl: torch.Tensor) -> torch.Tensor:
+    """(WIN, N) hat-function weights: tent(vl - d)."""
+    d = torch.arange(WIN, dtype=torch.float32, device=vl.device)[:, None]
+    return torch.clamp(1.0 - torch.abs(vl[None, :] - d), min=0.0)
+
+
+def _local_coords(anchor, points_cam, rel_rot, rel_trans, voxel_size,
+                  shape):
+    vx, vy, vz, pz = transform_to_grid(points_cam, rel_rot, rel_trans,
+                                       voxel_size, shape)
+    lx = vx - anchor[0].to(torch.float32)
+    ly = vy - anchor[1].to(torch.float32)
+    lz = vz - anchor[2].to(torch.float32)
+    return (vx, vy, vz, pz), (lx, ly, lz)
+
+
+def _relevant(vx, vy, vz, pz, shape):
+    """In front of the camera and within one voxel of the volume."""
+    Z, Y, X = shape
+    return (pz > 0) & (vx >= -1) & (vy >= -1) & (vz >= -1) \
+        & (vx < X) & (vy < Y) & (vz < Z)
+
+
+def _window_ok(lx, ly, lz):
+    """Local coords (incl. the +1-shifted system tents) stay inside the
+    cached window; drifted points drop out here."""
+    hi = WIN - 2.0
+    return ((lx >= 0) & (lx <= hi) & (ly >= 0) & (ly <= hi)
+            & (lz >= 0) & (lz <= hi))
+
+
+def out_of_window_count(anchor, points_cam, rel_rot, rel_trans, voxel_size,
+                        shape) -> torch.Tensor:
+    """Number of relevant points outside their cached windows at this
+    pose (0-d int tensor)."""
+    (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
+        anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
+    rel = _relevant(vx, vy, vz, pz, shape)
+    return torch.sum(rel & ~_window_ok(lx, ly, lz))
+
+
+def drift_ok(anchor, points_cam, rel_rot, rel_trans, voxel_size, shape,
+             tol: float = 0.01) -> torch.Tensor:
+    """True (0-d bool tensor) iff at most ``tol`` of the relevant points
+    left their windows (``vl`` outside [0, WIN-2] on an axis)."""
+    (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
+        anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
+    rel = _relevant(vx, vy, vz, pz, shape)
+    hi = WIN - 2.0
+    bad = (lx < 0) | (lx > hi) | (ly < 0) | (ly > hi) \
+        | (lz < 0) | (lz > hi)
+    nrel = torch.clamp(torch.sum(rel.to(torch.float32)), min=1.0)
+    nbad = torch.sum((rel & bad).to(torch.float32))
+    return nbad <= tol * nrel
+
+
+def sample_value_from_cache(cache: torch.Tensor, anchor, points_cam,
+                            rel_rot, rel_trans, voxel_size, shape,
+                            margin: int = 1) -> torch.Tensor:
+    """Cache equivalent of ``sample_volume_at_points`` (same validity).
+    ``cache`` (C, W, W, W, N) -> (C, N)."""
+    Z, Y, X = shape
+    (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
+        anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
+    valid = (pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0) \
+        & (vx + margin < X) & (vy + margin < Y) & (vz + margin < Z) \
+        & _window_ok(lx, ly, lz)
+    cx = torch.sum(cache * _tents(lx)[None, None, None], dim=3)
+    cy = torch.sum(cx * _tents(ly)[None, None], dim=2)
+    out = torch.sum(cy * _tents(lz)[None], dim=1)
+    return torch.where(valid[None], out, 0.0)
+
+
+def sample_system_from_cache(cache_t: torch.Tensor, anchor, points_cam,
+                             rel_rot, rel_trans, voxel_size, shape):
+    """Cache equivalent of ``sample_system_at_points``: residual psi
+    (margin-1 validity) and the finite-difference gradient (margin 2, with
+    the direct sampler's per-shift validity). ``cache_t`` is the TSDF
+    channel (W, W, W, N). Returns (psi (N,), g3 (3, N))."""
+    Z, Y, X = shape
+    (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
+        anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
+    tx, tx1 = _tents(lx), _tents(lx + 1.0)
+    ty, ty1 = _tents(ly), _tents(ly + 1.0)
+    tz, tz1 = _tents(lz), _tents(lz + 1.0)
+
+    cx = torch.sum(cache_t * tx[None, None], dim=2)          # (W, W, N)
+    cx1 = torch.sum(cache_t * tx1[None, None], dim=2)
+    cy = torch.sum(cx * ty[None], dim=1)                     # (W, N)
+    cy1 = torch.sum(cx * ty1[None], dim=1)
+    cy_x1 = torch.sum(cx1 * ty[None], dim=1)
+
+    base_val = torch.sum(cy * tz, dim=0)                     # (N,)
+    sx = torch.sum(cy_x1 * tz, dim=0)
+    sy = torch.sum(cy1 * tz, dim=0)
+    sz = torch.sum(cy * tz1, dim=0)
+
+    inside = (pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0) \
+        & _window_ok(lx, ly, lz)
+    valid1 = inside & (vx + 1 < X) & (vy + 1 < Y) & (vz + 1 < Z)
+    valid2 = inside & (vx + 2 < X) & (vy + 2 < Y) & (vz + 2 < Z)
+    psi = torch.where(valid1, base_val, 0.0)
+    base = torch.where(valid2, base_val, 0.0)
+
+    def vld(ex, ey, ez):
+        return ((pz > 0)
+                & (vx + ex >= 0.0) & (vy + ey >= 0.0) & (vz + ez >= 0.0)
+                & (vx + ex + 2 < X) & (vy + ey + 2 < Y)
+                & (vz + ez + 2 < Z))
+
+    sx = torch.where(vld(1, 0, 0), sx, 0.0)
+    sy = torch.where(vld(0, 1, 0), sy, 0.0)
+    sz = torch.where(vld(0, 0, 1), sz, 0.0)
+    g3 = torch.stack([sx - base, sy - base, sz - base]) \
+        / torch.as_tensor(voxel_size, dtype=torch.float32).to(cache_t.device)
+    return psi, g3

@@ -1,0 +1,164 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/*.cu`` file is a kernel for Hopper (``sm_90a``) with a plain
+C entry point. At first use every source is compiled by its own ``nvcc``
+process, all started together, into a shared library under ``build/``
+(listed in ``.gitignore``); the file name carries a hash of the sources
+and flags, so an edit rebuilds. The libraries are loaded with ``ctypes``.
+No PyTorch header is compiled, which keeps a cold build to seconds.
+
+The kernels are built with ``--fmad=false``: each product and sum rounds
+on its own, as in the plain PyTorch versions beside the wrappers, so a
+kernel and its plain version agree bit for bit on the same inputs (pixel
+rounding and window anchors would otherwise move at boundaries).
+
+``launches`` counts, per kernel, the launches that reached the card;
+:func:`launch` is the only place that adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_POSE = [_F] * 12   # r00 .. r22, t0, t1, t2
+
+# kernel name -> (source, C entry, argument types without the stream)
+KERNELS = {
+    "fusion": ("fusion.cu", "emf_fusion",
+               [_P, _P, _P, _P] + [_I] * 5 + _POSE + [_F] * 8
+               + [_I, _F, _I, _F]),
+    "sample": ("sample.cu", "emf_sample",
+               [_P, _P, _P] + [_I] * 4 + _POSE + [_F, _I]),
+    "capture": ("capture.cu", "emf_capture",
+                [_P] * 5 + [_I] * 4 + _POSE + [_F]),
+    "raycast": ("raycast.cu", "emf_raycast",
+                [_P] * 6 + [_I] * 5 + _POSE + [_F] * 6 + [_I]),
+    "bilateral": ("bilateral.cu", "emf_bilateral",
+                  [_P, _P, _P, _I, _I, _I, _F]),
+    "warp": ("warp.cu", "emf_warp", [_P, _P] + [_I] * 4 + [_F] * 13
+             + [_I] * 3),
+}
+
+launches = {name: 0 for name in KERNELS}
+build_log: dict = {}
+_fns: dict = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _library_path(name: str) -> str:
+    src = os.path.join(CSRC, KERNELS[name][0])
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> float:
+    """Compile the kernels that are not built yet, one ``nvcc`` each, all
+    at once. Returns the seconds it took; raises with the compiler's
+    output if one fails."""
+    names = list(KERNELS) if names is None else list(names)
+    todo = [(n, _library_path(n)) for n in names]
+    todo = [(n, so) for n, so in todo if not os.path.exists(so)]
+    t0 = time.perf_counter()
+    if not todo:
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, so in todo:
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, KERNELS[name][0])]
+        procs.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, so, tmp, proc in procs:
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {name} ---\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        so = _library_path(name)
+        if not os.path.exists(so):
+            build([name])
+        fn = getattr(ctypes.CDLL(so), KERNELS[name][1])
+        fn.argtypes = list(KERNELS[name][2]) + [_P]
+        fn.restype = _I
+        _fns[name] = fn
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on PyTorch's current stream and count it.
+    Pointers are passed as ``tensor.data_ptr()``; raises if the launch
+    was refused."""
+    fn = _fn(name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name!r} failed to launch "
+                           f"(cudaError {err})")
+    launches[name] += 1
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel takes contiguous float32 (or int32/bool outputs) tensors
+    on one CUDA device; anything else raises."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or not t.is_cuda:
+            raise ValueError(f"{name}: all tensors must be on one CUDA "
+                             f"device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.dtype not in (torch.float32, torch.int32, torch.bool):
+            raise ValueError(f"{name}: unsupported dtype {t.dtype}")
+
+
+def pose_args(rot, trans) -> list:
+    """The 12 floats of a rigid transform as the kernels take them."""
+    r = torch.as_tensor(rot, dtype=torch.float32).detach().cpu().reshape(9)
+    t = torch.as_tensor(trans, dtype=torch.float32).detach().cpu().reshape(3)
+    return [float(v) for v in r.tolist()] + [float(v) for v in t.tolist()]

@@ -1,0 +1,173 @@
+"""Projective TSDF fusion + gradient volume.
+
+Port of ``emfusion_tpu/ops/fusion.py`` (``integrate_tsdf``,
+``compute_gradients``). :func:`integrate_tsdf` wraps kernel K1
+(``csrc/fusion.cu``): a CUDA tensor launches the kernel, a CPU tensor
+takes :func:`integrate_tsdf_plain`.
+
+Unlike the JAX version, both update ``tsdf`` and ``weights`` IN PLACE and
+return them: a 512^3 float32 volume is 537 MB, and a second copy of each
+would double the fusion's memory and traffic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from emfusion_tpu_torch import kernels
+from emfusion_tpu_torch.geometry.camera import intrinsics
+from emfusion_tpu_torch.geometry.sampling import scalar
+
+# voxels per z-chunk of the plain version (bounds its temporaries)
+_PLAIN_CHUNK_VOXELS = 1 << 24
+
+
+def _carve_flags(truncdist, carve_dist, carve_weight_cap, carve_margin):
+    carve = truncdist if carve_dist is None else carve_dist
+    has_cap = carve_weight_cap is not None
+    has_margin = has_cap and carve_margin is not None
+    return (float(carve), has_cap,
+            float(carve_weight_cap) if has_cap else 0.0,
+            has_margin, float(carve_margin) if has_margin else 0.0)
+
+
+def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
+                         depth: torch.Tensor, assoc_weights: torch.Tensor,
+                         rel_rot_oc, rel_trans_oc, intr, voxel_size,
+                         truncdist, max_weight: float, carve_dist=None,
+                         carve_weight_cap=None, carve_margin=None):
+    """Plain PyTorch version of K1, ``kernel_updateTSDF`` semantics
+    (``TSDF.cu:327-427``), in place, a z-chunk at a time:
+
+    * a voxel behind the camera, or projecting to a pixel without depth,
+      with weight 0: tsdf reset to 0;
+    * ``sdf < -truncdist`` with weight 0: tsdf set to -1;
+    * inside the band: running weighted average with the pixel's
+      association weight (1.0 for ``sdf >= carve_dist``, default
+      ``truncdist``), the weight capped at ``max_weight``;
+    * ``carve_weight_cap``: on carve votes the stored weight entering the
+      average is clamped to it, only where ``tsdf_meas - tsdf`` exceeds
+      ``carve_margin`` when that is given (see the JAX docstring).
+    """
+    Z, Y, X = tsdf.shape
+    H, W = depth.shape
+    dev = tsdf.device
+    fx, fy, cx, cy = intrinsics(intr)
+    fx_t, fy_t = scalar(fx, tsdf), scalar(fy, tsdf)
+    vs = scalar(voxel_size, tsdf)
+    td = scalar(truncdist, tsdf)
+    carve, has_cap, cap, has_margin, margin = _carve_flags(
+        truncdist, carve_dist, carve_weight_cap, carve_margin)
+    R = torch.as_tensor(rel_rot_oc, dtype=torch.float32).to(dev)
+    t = torch.as_tensor(rel_trans_oc, dtype=torch.float32).to(dev)
+    dflat = depth.reshape(-1)
+    aflat = assoc_weights.reshape(-1)
+
+    xs = (torch.arange(X, dtype=torch.float32, device=dev)
+          - (X - 1) / 2.0) * vs
+    ys = (torch.arange(Y, dtype=torch.float32, device=dev)
+          - (Y - 1) / 2.0) * vs
+    step = max(1, _PLAIN_CHUNK_VOXELS // (Y * X))
+    for z0 in range(0, Z, step):
+        z1 = min(Z, z0 + step)
+        zs = (torch.arange(z0, z1, dtype=torch.float32, device=dev)
+              - (Z - 1) / 2.0) * vs
+        px, py, pz = xs[None, None, :], ys[None, :, None], zs[:, None, None]
+        ccx = R[0, 0] * px + R[0, 1] * py + R[0, 2] * pz + t[0]
+        ccy = R[1, 0] * px + R[1, 1] * py + R[1, 2] * pz + t[1]
+        ccz = R[2, 0] * px + R[2, 1] * py + R[2, 2] * pz + t[2]
+
+        in_front = ccz > 0.0
+        zsafe = torch.where(in_front, ccz, 1.0)
+        pix_x = torch.round(ccx * fx / zsafe + cx).to(torch.int32)
+        pix_y = torch.round(ccy * fy / zsafe + cy).to(torch.int32)
+        in_frame = (pix_x >= 0) & (pix_x < W) & (pix_y >= 0) & (pix_y < H)
+        pix = (torch.clamp(pix_y, 0, H - 1).long() * W
+               + torch.clamp(pix_x, 0, W - 1))
+        depth_val = dflat[pix]
+        assoc_val = aflat[pix]
+        valid = in_front & in_frame & (depth_val > 0.0)
+
+        ux = (pix_x.to(torch.float32) - cx) / fx_t
+        uy = (pix_y.to(torch.float32) - cy) / fy_t
+        lam = torch.sqrt(ux * ux + uy * uy + 1.0)
+        norm_cam = torch.sqrt(ccx * ccx + ccy * ccy + ccz * ccz)
+        sdf = depth_val - norm_cam / lam
+
+        t_old = tsdf[z0:z1]
+        w_old = weights[z0:z1]
+        in_band = valid & (sdf >= -td)
+        tsdf_meas = torch.sign(sdf) * torch.clamp(torch.abs(sdf) / td,
+                                                  max=1.0)
+        carving = valid & (sdf >= carve)
+        new_w = torch.where(carving, 1.0, assoc_val)
+        w_eff = w_old
+        if has_cap:
+            capped = carving
+            if has_margin:
+                capped = carving & (tsdf_meas - t_old > margin)
+            w_eff = torch.where(capped, torch.clamp(w_old, max=cap), w_old)
+        denom = w_eff + new_w
+        do_update = in_band & (denom > 0.0)
+        fused = (w_eff * t_old + new_w * tsdf_meas) \
+            / torch.where(do_update, denom, 1.0)
+        t_out = torch.where(do_update, fused, t_old)
+        w_out = torch.where(do_update, torch.clamp(denom, max=max_weight),
+                            w_old)
+        unseen = w_old == 0.0
+        t_out = torch.where(valid & (sdf < -td) & unseen, -1.0, t_out)
+        reset = unseen & ((in_frame & in_front & (depth_val <= 0.0))
+                          | ~in_front)
+        t_out = torch.where(reset, 0.0, t_out)
+        tsdf[z0:z1] = t_out
+        weights[z0:z1] = w_out
+    return tsdf, weights
+
+
+def integrate_tsdf(tsdf: torch.Tensor, weights: torch.Tensor,
+                   depth: torch.Tensor, assoc_weights: torch.Tensor,
+                   rel_rot_oc, rel_trans_oc, intr, voxel_size, truncdist,
+                   max_weight: float, carve_dist=None,
+                   carve_weight_cap=None, carve_margin=None):
+    """Kernel K1 wrapper (see :func:`integrate_tsdf_plain`); updates
+    ``tsdf`` and ``weights`` in place and returns them."""
+    if not tsdf.is_cuda:
+        return integrate_tsdf_plain(tsdf, weights, depth, assoc_weights,
+                                    rel_rot_oc, rel_trans_oc, intr,
+                                    voxel_size, truncdist, max_weight,
+                                    carve_dist, carve_weight_cap,
+                                    carve_margin)
+    Z, Y, X = tsdf.shape
+    H, W = depth.shape
+    depth = depth.contiguous()
+    assoc_weights = assoc_weights.to(torch.float32).contiguous()
+    kernels.check_cuda("integrate_tsdf", tsdf, weights, depth,
+                       assoc_weights)
+    if tsdf.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise ValueError("integrate_tsdf: the CUDA kernel takes float32 "
+                         "volumes")
+    fx, fy, cx, cy = intrinsics(intr)
+    carve, has_cap, cap, has_margin, margin = _carve_flags(
+        truncdist, carve_dist, carve_weight_cap, carve_margin)
+    kernels.launch("fusion", tsdf.data_ptr(), weights.data_ptr(),
+                   depth.data_ptr(), assoc_weights.data_ptr(),
+                   Z, Y, X, H, W, *kernels.pose_args(rel_rot_oc,
+                                                     rel_trans_oc),
+                   fx, fy, cx, cy, float(voxel_size), float(truncdist),
+                   float(max_weight), carve, int(has_cap), cap,
+                   int(has_margin), margin)
+    return tsdf, weights
+
+
+def compute_gradients(tsdf: torch.Tensor) -> torch.Tensor:
+    """Forward-difference gradient volume, channel-first (3, Z, Y, X) with
+    channels (gx, gy, gz) in voxel units; the last slice along each axis
+    is zero (``kernel_computeTSDFGrads``, ``TSDF.cu:429-464``). The raycast
+    computes these on the fly; this is for tests and exports."""
+    Z, Y, X = tsdf.shape
+    g = torch.zeros((3, Z, Y, X), dtype=tsdf.dtype, device=tsdf.device)
+    inner = tsdf[:-1, :-1, :-1]
+    g[0, :-1, :-1, :-1] = tsdf[:-1, :-1, 1:] - inner
+    g[1, :-1, :-1, :-1] = tsdf[:-1, 1:, :-1] - inner
+    g[2, :-1, :-1, :-1] = tsdf[1:, :-1, :-1] - inner
+    return g

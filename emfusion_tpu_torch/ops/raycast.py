@@ -1,0 +1,209 @@
+"""Volume raycasting.
+
+Port of ``emfusion_tpu/ops/raycast.py`` (reference ``kernel_raycastTSDF``,
+``TSDF.cu:466-601``). :func:`raycast_volume` wraps kernel K4
+(``csrc/raycast.cu``): a CUDA tensor launches the kernel (one thread per
+ray), a CPU tensor takes :func:`raycast_volume_plain`, which marches all
+rays in lock-step with per-ray masks as the JAX version does.
+
+Both keep the reference's adaptive steps (truncdist -> voxel -> half a
+voxel near the surface), the t* interpolation of the zero crossing with
+the weight check at t*, the back-face early-out, the margins and the
+per-phase ``max_steps`` budgets. Normals are the trilinear sample at t* of
+the forward-difference gradient of ``ops.fusion.compute_gradients``; both
+versions compute it at the 8 corners from the TSDF, so no gradient volume
+is needed (the JAX function takes one as ``grads_vol``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from emfusion_tpu_torch import kernels
+from emfusion_tpu_torch.geometry.camera import intrinsics
+from emfusion_tpu_torch.geometry.sampling import (
+    lerp8, scalar, trilinear_cell, trilinear_sample,
+)
+
+
+def _safe_dir(d):
+    return torch.where(torch.abs(d) < 1e-12,
+                       torch.where(d < 0, -1e-12, 1e-12), d)
+
+
+def _gradient_sample(tsdf: torch.Tensor, vx, vy, vz, valid):
+    """Trilinear sample of the forward-difference gradient (3, ...) with
+    compute_gradients' zero outer slab, from the 8 corners' differences."""
+    Z, Y, X = tsdf.shape
+    base, fx, fy, fz = trilinear_cell((Z, Y, X), vx, vy, vz)
+    flat = tsdf.reshape(-1)
+    xc = base % X
+    yc = (base // X) % Y
+    zc = base // (X * Y)
+
+    def grad(axis_stride):
+        def corner(dz, dy, dx):
+            idx = base + ((dz * Y + dy) * X + dx)
+            inner = (zc + dz < Z - 1) & (yc + dy < Y - 1) & (xc + dx < X - 1)
+            nxt = torch.clamp(idx + axis_stride, max=flat.numel() - 1)
+            return torch.where(inner, flat[nxt] - flat[idx], 0.0)
+        return lerp8(corner, fx, fy, fz)
+
+    g = torch.stack([grad(1), grad(X), grad(X * Y)])
+    return torch.where(valid[None], g, 0.0)
+
+
+def _rotate_back(R, a):
+    """R^T a for a (3, ...) stack, summed left to right."""
+    return torch.stack([R[0, i] * a[0] + R[1, i] * a[1] + R[2, i] * a[2]
+                        for i in range(3)])
+
+
+def raycast_volume_plain(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
+                         rel_rot_co, rel_trans_co, intr, voxel_size,
+                         truncdist, height: int, width: int,
+                         max_steps: int = 2048, stats: dict | None = None):
+    """Plain PyTorch version of K4. ``rel_rot_co``/``rel_trans_co``: the
+    camera-to-volume transform. Returns a dict with ``raylengths`` (t*
+    where hit, else 0), ``vertices`` and ``normals`` (3, H, W) in camera
+    coordinates, and the bool ``mask`` (H, W). ``stats``, if given,
+    receives ``steps``: the march steps taken over all rays."""
+    Z, Y, X = tsdf_vol.shape
+    dev = tsdf_vol.device
+    fx, fy, cx, cy = intrinsics(intr)
+    vs = scalar(voxel_size, tsdf_vol)
+    td = scalar(truncdist, tsdf_vol)
+    R = torch.as_tensor(rel_rot_co, dtype=torch.float32).to(dev)
+    campos = torch.as_tensor(rel_trans_co, dtype=torch.float32).to(dev)
+    res = [float(X), float(Y), float(Z)]
+
+    xs = torch.arange(width, dtype=torch.float32, device=dev)
+    ys = torch.arange(height, dtype=torch.float32, device=dev)
+    ux = ((xs[None, :] - cx) / scalar(fx, tsdf_vol)).expand(height, width)
+    uy = ((ys[:, None] - cy) / scalar(fy, tsdf_vol)).expand(height, width)
+    ray = torch.stack([R[i, 0] * ux + R[i, 1] * uy + R[i, 2] * 1.0
+                       for i in range(3)])
+    norm = torch.sqrt(ray[0] * ray[0] + ray[1] * ray[1] + ray[2] * ray[2])
+    dirs = ray / norm
+
+    d = _safe_dir(dirs)
+    t_enter = t_exit = None
+    for i in range(3):
+        box = (res[i] - 1.0) / 2.0 * vs
+        lo = torch.where(d[i] > 0, -box, box)
+        hi = torch.where(d[i] > 0, box, -box)
+        te = (lo - campos[i]) / d[i]
+        tx = (hi - campos[i]) / d[i]
+        t_enter = te if t_enter is None else torch.maximum(t_enter, te)
+        t_exit = tx if t_exit is None else torch.minimum(t_exit, tx)
+    raylength = t_enter + vs
+    max_raylength = t_exit - vs
+    alive = raylength < max_raylength
+
+    def grid_at(t):
+        return [(campos[i] + dirs[i] * t) / vs + (res[i] - 1.0) / 2.0
+                for i in range(3)]
+
+    def inside(v, margin):
+        vx, vy, vz = v
+        return ((vx >= 0.0) & (vx + margin < res[0])
+                & (vy >= 0.0) & (vy + margin < res[1])
+                & (vz >= 0.0) & (vz + margin < res[2]))
+
+    # phase 1: skip ahead at truncdist steps until inside (margin 1)
+    for _ in range(max_steps):
+        need = alive & ~inside(grid_at(raylength), 1.0) \
+            & (raylength < max_raylength)
+        if not bool(need.any()):
+            break
+        raylength = torch.where(need, raylength + td, raylength)
+
+    v0 = grid_at(raylength)
+    cur = trilinear_sample(tsdf_vol, *v0, inside(v0, 1.0))
+    raystep = torch.full_like(raylength, float(truncdist))
+    raystep = torch.where(torch.abs(cur) < 1.0, vs, raystep)
+    raystep = torch.where(torch.abs(cur) < 0.8, 0.5 * vs, raystep)
+
+    # phase 2: adaptive march
+    active = alive
+    hit = torch.zeros_like(alive)
+    t_star = torch.zeros_like(raylength)
+    steps = 0
+    for _ in range(max_steps):
+        n_active = int(active.sum())
+        if n_active == 0:
+            break
+        steps += n_active
+        t_new = torch.where(active, raylength + raystep, raylength)
+        in_budget = t_new <= max_raylength
+        v = grid_at(t_new)
+        do_sample = active & in_budget & inside(v, 2.0)
+        nxt = trilinear_sample(tsdf_vol, *v, do_sample)
+        w = trilinear_sample(weights_vol, *v, do_sample)
+        backface = do_sample & (cur < 0) & (nxt > 0) & (w > 0)
+        step_new = torch.where(do_sample & (torch.abs(nxt) < 1.0), vs,
+                               raystep)
+        step_new = torch.where(do_sample & (torch.abs(nxt) < 0.8),
+                               0.5 * vs, step_new)
+        step_new = torch.where(backface, raystep, step_new)
+        crossing = do_sample & ~backface & (cur > 0) & (nxt < 0)
+        denom = nxt - cur
+        denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+        ts = t_new - step_new * cur / denom
+        vstar = grid_at(ts)
+        vstar_inb = inside(vstar, 2.0)
+        wstar = trilinear_sample(weights_vol, *vstar, crossing & vstar_inb)
+        hit_now = crossing & vstar_inb & (wstar > 0)
+        skip_update = crossing & ~vstar_inb
+        cur = torch.where(do_sample & ~backface & ~skip_update, nxt, cur)
+        active = active & in_budget & ~backface & ~hit_now
+        hit = hit | hit_now
+        t_star = torch.where(hit_now, ts, t_star)
+        raylength = t_new
+        raystep = step_new
+    if stats is not None:
+        stats["steps"] = steps
+
+    vstar = grid_at(t_star)
+    grad = _gradient_sample(tsdf_vol, *vstar, hit)
+    gnorm = torch.sqrt(grad[0] * grad[0] + grad[1] * grad[1]
+                       + grad[2] * grad[2])
+    grad = grad / torch.where(gnorm > 0, gnorm, 1.0)
+    vertices = _rotate_back(R, dirs * t_star[None])
+    normals = _rotate_back(R, grad)
+    return {
+        "raylengths": torch.where(hit, t_star, 0.0),
+        "vertices": torch.where(hit[None], vertices, 0.0),
+        "normals": torch.where(hit[None], normals, 0.0),
+        "mask": hit,
+    }
+
+
+def raycast_volume(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
+                   rel_rot_co, rel_trans_co, intr, voxel_size, truncdist,
+                   height: int, width: int, max_steps: int = 2048):
+    """Kernel K4 wrapper (see :func:`raycast_volume_plain`)."""
+    if not tsdf_vol.is_cuda:
+        return raycast_volume_plain(tsdf_vol, weights_vol, rel_rot_co,
+                                    rel_trans_co, intr, voxel_size,
+                                    truncdist, height, width, max_steps)
+    Z, Y, X = tsdf_vol.shape
+    dev = tsdf_vol.device
+    f32 = torch.float32
+    rl = torch.empty((height, width), dtype=f32, device=dev)
+    verts = torch.empty((3, height, width), dtype=f32, device=dev)
+    norms = torch.empty((3, height, width), dtype=f32, device=dev)
+    mask = torch.empty((height, width), dtype=torch.bool, device=dev)
+    tsdf_vol = tsdf_vol.contiguous()
+    weights_vol = weights_vol.contiguous()
+    kernels.check_cuda("raycast_volume", tsdf_vol, weights_vol, rl, verts,
+                       norms, mask)
+    fx, fy, cx, cy = intrinsics(intr)
+    kernels.launch("raycast", tsdf_vol.data_ptr(), weights_vol.data_ptr(),
+                   rl.data_ptr(), verts.data_ptr(), norms.data_ptr(),
+                   mask.data_ptr(), Z, Y, X, height, width,
+                   *kernels.pose_args(rel_rot_co, rel_trans_co),
+                   fx, fy, cx, cy, float(voxel_size), float(truncdist),
+                   int(max_steps))
+    return {"raylengths": rl, "vertices": verts, "normals": norms,
+            "mask": mask}

@@ -26,3 +26,9 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's kernels); skips "
+        "without one")
