@@ -10,7 +10,9 @@
    kernel against its plain PyTorch version on the card, at the shapes of
    the main path. A kernel's time is its device time: a CUDA graph of
    back-to-back calls, replayed between CUDA events. The plain version is
-   timed by CUDA events around back-to-back calls.
+   timed by CUDA events around back-to-back calls. Also reports the
+   raycast's march (steps per ray, lane use of 32-ray warps, shares of
+   zero-corner and weight samples) from its plain version's counts.
 3. Runs the main path, ``EMFusionPipeline.process_frame`` without
    objects, over 24 frames of a smooth ground-truth camera path; fails
    unless every kernel of the path was launched in that run and the
@@ -26,7 +28,7 @@ fusion kernel makes its nearest-pixel pick per voxel. Step 2 holds it
 against its plain version at the main path's image and grid sizes.
 
 Prints the card's name and power limit, one JSON line with the numbers
-of every kernel of the main path, and as its last line
+of every kernel (K6 with 0 launches), and as its last line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
@@ -46,25 +48,34 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM published memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM published float32 rate (no TC)
+# special-function unit: 16 results per clock per SM (Hopper white paper),
+# 132 SMs at the 1.98 GHz boost clock; an accurate expf takes one
+SFU_PER_S = 16 * 132 * 1.98e9
 VOXEL_CUT = 0.01              # ATE limit: one voxel of the 1 cm volume
 N_FRAMES = 24                 # frames of the main path run
 PROFILE_FRAMES = 3            # frames of the profiled window
 GRID = (600, 896)             # K6's reference-plane grid at 640x480
 
-# (name, kernel source, TPU kernel it replaces)
+# (row name, kernel source, TPU kernel it replaces, kernel launched)
 KERNEL_ROWS = [
     ("fusion", "emfusion_tpu_torch/csrc/fusion.cu",
-     "emfusion_tpu/ops/pallas/fusion_pencil_pallas.py:388"),
+     "emfusion_tpu/ops/pallas/fusion_pencil_pallas.py:388", "fusion"),
     ("sample", "emfusion_tpu_torch/csrc/sample.cu",
-     "emfusion_tpu/ops/pallas/sweep_pallas.py:246"),
+     "emfusion_tpu/ops/pallas/sweep_pallas.py:246", "sample"),
     ("capture", "emfusion_tpu_torch/csrc/capture.cu",
-     "emfusion_tpu/ops/pallas/band_pallas.py:307"),  # + the band at :132
+     "emfusion_tpu/ops/pallas/band_pallas.py:307", "capture"),  # + :132
     ("raycast", "emfusion_tpu_torch/csrc/raycast.cu",
-     "emfusion_tpu/ops/pallas/sweep_pallas.py:246"),
+     "emfusion_tpu/ops/pallas/sweep_pallas.py:246", "raycast"),
     ("bilateral", "emfusion_tpu_torch/csrc/bilateral.cu",
-     "emfusion_tpu/ops/pallas/bilateral_pallas.py:74"),
+     "emfusion_tpu/ops/pallas/bilateral_pallas.py:74", "bilateral"),
+    ("warp_to_grid", "emfusion_tpu_torch/csrc/warp.cu",
+     "emfusion_tpu/ops/pallas/warp_pallas.py:180", "warp"),
+    ("warp_to_pixels", "emfusion_tpu_torch/csrc/warp.cu",
+     "emfusion_tpu/ops/pallas/warp_pallas.py:180", "warp"),
 ]
-PATH_KERNELS = [row[0] for row in KERNEL_ROWS]
+# K6 (warp) is not on the main path: the fusion kernel makes its pick
+PATH_KERNELS = [row[3] for row in KERNEL_ROWS if row[3] != "warp"]
+STEP_EDGES = [0] + [2 ** i for i in range(13)]   # march-step histogram
 
 
 # ---------------------------------------------------------------------
@@ -145,6 +156,23 @@ def card_line():
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(build_log):
+    """One line per compiled kernel function from ``-Xptxas=-v``: its
+    registers and its stack and spills."""
+    lines = []
+    for name, log in build_log.items():
+        entry, spill = "?", ""
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                regs = line.split(":", 1)[1].strip()
+                lines.append(f"{name} {entry}: {regs}; {spill}")
+    return lines
 
 
 def time_ms(torch, fn, iters, warmup=2):
@@ -248,6 +276,8 @@ def kernel_phases(torch, pipe, depth_raw, report):
         plain_ms=time_ms(torch, lambda: bilateral_filter_plain(raw, *args),
                          5),
         bound=bound(8 * HW + 4 * taps, 12 * taps * HW), library_ms=None)
+    # one expf per tap on the special-function unit: the kernel's floor
+    report["bilateral_expf_floor_ms"] = 1e3 * taps * HW / SFU_PER_S
 
     depth, points = pipe.preprocess(depth_raw)
     rel = pose_inverse(s.bg_pose) @ s.cam_pose
@@ -348,11 +378,12 @@ def kernel_phases(torch, pipe, depth_raw, report):
         plain_ms=time_ms(torch, lambda: raycast_volume_plain(
             s.bg_tsdf, s.bg_weights, Rd, tdv, pipe.intr, vs, td, H, W,
             p.raycast_max_steps), 1, warmup=0),
-        bound=bound(29 * HW + 8 * n_vox, 80 * st["steps"]),
+        bound=bound(29 * HW + 8 * n_vox,
+                    raycast_ops(st, HW, int(hits.sum()))),
         library_ms=None)
     report["raycast_mask_mismatch"] = mask_mismatch
-    report["raycast_steps"] = st["steps"]
     report["raycast_hits"] = int(hits.sum())
+    report["raycast_march"] = march_stats(st)
 
     # K1 fusion (tolerance 1e-5: same arithmetic, no FMA contraction)
     inv = pose_inverse(s.cam_pose) @ s.bg_pose
@@ -402,6 +433,65 @@ def kernel_phases(torch, pipe, depth_raw, report):
         bound=bound(4 * nS * nL + 4 * HW, 20 * HW), library_ms=None)
     report["warp_grid_cells_seen"] = float((qg > 0).float().mean())
     return rows
+
+
+def raycast_ops(st, n_rays, n_hits):
+    """The float32 operations K4's function needs on this run's data, from
+    the plain version's counts (a division, a floor, a compare or a square
+    root counts one; integer index arithmetic and work fixed per launch
+    are left out, as are the steps and crossings not counted below, so
+    this is a lower bound):
+    - per ray, 56: ux, uy (4), R (u, v, 1) (15), its norm (6) and the
+      three divisions by it, the slab test (safe directions 6, entry and
+      exit 15, max/min 4) and t, t_max and alive (3);
+    - per phase-1 step, 23: grid_at (12: o + d t, / vs, + (res-1)/2 per
+      axis), the margin test (9), the budget test and t + truncdist;
+    - per phase-2 step, 2: t + step and the budget test; and for each of
+      them that samples, 58 more: grid_at (12), the margin test (9), the
+      cell (6: floor and fraction per axis), one trilinear sample (24:
+      three 1 - f and seven lerps of two products and a sum), |nxt| < 1,
+      < 0.8 (3), the back-face and crossing signs (4);
+    - per back-face test that needs the weights, 25: one sample in the
+      same cell and w > 0;
+    - per hit, 209: its crossing (t*: 6, grid_at, margin test, cell, the
+      weight sample and its test: 58) and the outputs (grid_at and cell
+      at t* 18, the 8 corners' forward differences 24, three trilinear
+      samples 66, the gradient's norm 7 and 3 divisions, the vertex 3,
+      two rotations by R^T 30)."""
+    return (56 * n_rays + 23 * int(st["steps_phase1"].sum())
+            + 2 * st["steps"] + 58 * st["samples"]
+            + 25 * st["weight_samples"] + 209 * n_hits)
+
+
+def march_stats(st):
+    """K4's march on this state, from the plain version's counts: steps
+    per ray of each phase (mean, percentiles, max, histogram over
+    ``STEP_EDGES``), and the shares of the phase-2 samples that read 8
+    zero corners and that needed the weight sample. Prints one line."""
+    out = {"steps": st["steps"], "hist_edges": STEP_EDGES}
+    for ph in ("phase1", "phase2"):
+        s = st[f"steps_{ph}"].reshape(-1).cpu().numpy()
+        p50, p90, p99 = np.percentile(s, [50, 90, 99])
+        out[ph] = dict(mean=float(s.mean()), p50=float(p50),
+                       p90=float(p90), p99=float(p99), max=int(s.max()),
+                       hist=np.histogram(s, STEP_EDGES)[0].tolist())
+    # a warp of 32 neighbouring rays in a row runs as long as its longest
+    s2 = st["steps_phase2"].reshape(-1, st["steps_phase2"].shape[-1])
+    rows = np.pad(s2.cpu().numpy(), ((0, 0), (0, -s2.shape[1] % 32)))
+    longest = rows.reshape(rows.shape[0], -1, 32).max(-1).sum()
+    n = max(st["samples"], 1)
+    out.update(samples=st["samples"], zero_share=st["zero_samples"] / n,
+               weight_share=st["weight_samples"] / n,
+               warp_lane_use=float(rows.sum() / max(32 * longest, 1)))
+    print("raycast march, steps per ray: " + "; ".join(
+        f"phase {ph[-1]} mean {out[ph]['mean']:.2f} p50 {out[ph]['p50']:.0f}"
+        f" p90 {out[ph]['p90']:.0f} p99 {out[ph]['p99']:.0f} max "
+        f"{out[ph]['max']}" for ph in ("phase1", "phase2"))
+        + f"; samples {st['samples']}, 8 zero corners "
+        f"{100 * out['zero_share']:.2f}%, weight needed "
+        f"{100 * out['weight_share']:.5f}%; lane use of 32-ray row warps "
+        f"{100 * out['warp_lane_use']:.1f}%", flush=True)
+    return out
 
 
 def centre_slice_homography(torch, rel_rot_oc, rel_trans_oc, intr, vs,
@@ -559,10 +649,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = kernels.build()
     print(f"kernels built in {build_s:.1f} s", flush=True)
-    for name, log in kernels.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+    report["ptxas"] = ptxas_lines(kernels.build_log)
+    for line in report["ptxas"]:
+        print(f"  {line}", flush=True)
     report["build_s"] = build_s
 
     params = load_config(os.path.join(HERE, "configs", "default.cfg"))
@@ -593,18 +682,16 @@ def main() -> int:
 
     bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]]
     table = []
-    for name, src, replaces in KERNEL_ROWS:
+    for name, src, replaces, kernel in KERNEL_ROWS:
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches[kernel],
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})
     report["kernels"] = table
-    report["k6_warp"] = {n: rows[n] for n in ("warp_to_grid",
-                                              "warp_to_pixels")}
     report["seconds"] = time.perf_counter() - t0
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:

@@ -52,12 +52,16 @@ def _spatial_terms(kernel_size: int, sigma_spatial: float) -> list:
             for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
 
 
+# the largest window K5 takes (EMF_MAX_R in csrc/bilateral.cu)
+MAX_KERNEL_SIZE = 15
+
+
 @functools.lru_cache(maxsize=None)
-def _spatial_table(kernel_size: int, sigma_spatial: float,
-                   device: torch.device) -> torch.Tensor:
-    """The kernel's table of spatial terms, uploaded once per device."""
+def _spatial_table(kernel_size: int, sigma_spatial: float) -> torch.Tensor:
+    """The kernel's float32 spatial terms, a host table the launch copies
+    into the kernel's parameters."""
     return torch.tensor(_spatial_terms(kernel_size, sigma_spatial),
-                        dtype=torch.float32, device=device)
+                        dtype=torch.float32)
 
 
 def bilateral_filter_plain(depth: torch.Tensor, kernel_size: int = 7,
@@ -98,11 +102,13 @@ def bilateral_filter(depth: torch.Tensor, kernel_size: int = 7,
     r = kernel_size // 2
     if r >= H or r >= W:
         raise ValueError("bilateral_filter: image smaller than the window")
+    if kernel_size > MAX_KERNEL_SIZE:
+        raise ValueError(f"bilateral_filter: the CUDA kernel takes windows "
+                         f"up to {MAX_KERNEL_SIZE}, got {kernel_size}")
     depth = depth.contiguous()
     out = torch.empty_like(depth)
-    spatial = _spatial_table(int(kernel_size), float(sigma_spatial),
-                             depth.device)
-    kernels.check_cuda("bilateral_filter", depth, out, spatial)
+    spatial = _spatial_table(int(kernel_size), float(sigma_spatial))
+    kernels.check_cuda("bilateral_filter", depth, out)
     inv2sd = 1.0 / (2.0 * sigma_depth * sigma_depth)
     kernels.launch("bilateral", depth.data_ptr(), out.data_ptr(),
                    spatial.data_ptr(), H, W, r, inv2sd)

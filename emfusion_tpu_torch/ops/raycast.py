@@ -53,6 +53,21 @@ def _gradient_sample(tsdf: torch.Tensor, vx, vy, vz, valid):
     return torch.where(valid[None], g, 0.0)
 
 
+def _zero_corners(vol: torch.Tensor, vx, vy, vz):
+    """True where the 8 corners of the trilinear cell are all exactly 0.0
+    (coordinates clipped as in ``trilinear_sample``)."""
+    Z, Y, X = vol.shape
+    base = trilinear_cell((Z, Y, X), vx, vy, vz)[0]
+    flat = vol.reshape(-1)
+    zero = None
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                c = flat[base + ((dz * Y + dy) * X + dx)] == 0.0
+                zero = c if zero is None else zero & c
+    return zero
+
+
 def _rotate_back(R, a):
     """R^T a for a (3, ...) stack, summed left to right."""
     return torch.stack([R[0, i] * a[0] + R[1, i] * a[1] + R[2, i] * a[2]
@@ -67,7 +82,12 @@ def raycast_volume_plain(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
     camera-to-volume transform. Returns a dict with ``raylengths`` (t*
     where hit, else 0), ``vertices`` and ``normals`` (3, H, W) in camera
     coordinates, and the bool ``mask`` (H, W). ``stats``, if given,
-    receives ``steps``: the march steps taken over all rays."""
+    receives ``steps``: the march steps taken over all rays; per ray,
+    ``steps_phase1`` and ``steps_phase2`` (int32 (H, W)); and over all
+    phase-2 steps, ``samples`` (TSDF samples taken), ``zero_samples``
+    (those whose 8 corners are all exactly 0.0: unobserved voxels) and
+    ``weight_samples`` (those where the back-face test needs the weight
+    sample: the TSDF went from negative to positive)."""
     Z, Y, X = tsdf_vol.shape
     dev = tsdf_vol.device
     fx, fy, cx, cy = intrinsics(intr)
@@ -110,6 +130,12 @@ def raycast_volume_plain(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
                 & (vy >= 0.0) & (vy + margin < res[1])
                 & (vz >= 0.0) & (vz + margin < res[2]))
 
+    count = stats is not None
+    if count:
+        steps1 = torch.zeros(raylength.shape, dtype=torch.int32, device=dev)
+        steps2 = torch.zeros_like(steps1)
+        n_samples = n_zero = n_weight = 0
+
     # phase 1: skip ahead at truncdist steps until inside (margin 1)
     for _ in range(max_steps):
         need = alive & ~inside(grid_at(raylength), 1.0) \
@@ -117,6 +143,8 @@ def raycast_volume_plain(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
         if not bool(need.any()):
             break
         raylength = torch.where(need, raylength + td, raylength)
+        if count:
+            steps1 += need
 
     v0 = grid_at(raylength)
     cur = trilinear_sample(tsdf_vol, *v0, inside(v0, 1.0))
@@ -140,6 +168,11 @@ def raycast_volume_plain(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
         do_sample = active & in_budget & inside(v, 2.0)
         nxt = trilinear_sample(tsdf_vol, *v, do_sample)
         w = trilinear_sample(weights_vol, *v, do_sample)
+        if count:
+            steps2 += active
+            n_samples = n_samples + do_sample.sum()
+            n_zero = n_zero + (do_sample & _zero_corners(tsdf_vol, *v)).sum()
+            n_weight = n_weight + (do_sample & (cur < 0) & (nxt > 0)).sum()
         backface = do_sample & (cur < 0) & (nxt > 0) & (w > 0)
         step_new = torch.where(do_sample & (torch.abs(nxt) < 1.0), vs,
                                raystep)
@@ -161,8 +194,10 @@ def raycast_volume_plain(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
         t_star = torch.where(hit_now, ts, t_star)
         raylength = t_new
         raystep = step_new
-    if stats is not None:
-        stats["steps"] = steps
+    if count:
+        stats.update(steps=steps, steps_phase1=steps1, steps_phase2=steps2,
+                     samples=int(n_samples), zero_samples=int(n_zero),
+                     weight_samples=int(n_weight))
 
     vstar = grid_at(t_star)
     grad = _gradient_sample(tsdf_vol, *vstar, hit)

@@ -88,6 +88,27 @@ def test_bilateral_kernel(cuda):
     assert torch.equal(k, q)
 
 
+@pytest.mark.parametrize("kernel_size, h, w", [(5, H, W), (7, 37, 45),
+                                                (9, H, W), (15, 29, 33)])
+def test_bilateral_kernel_sizes(cuda, kernel_size, h, w):
+    """The unrolled 7x7 path and the run-time-radius path, on images that
+    are not multiples of the 32x16 output tile."""
+    rng = np.random.RandomState(kernel_size)
+    d = (0.5 + rng.uniform(0, 3, (h, w))).astype(np.float32)
+    d[rng.uniform(size=(h, w)) < 0.15] = 0.0
+    dc = torch.tensor(d, device=cuda)
+    k = launched("bilateral", lambda: camera.bilateral_filter(
+        dc, kernel_size, 0.05, 3.0))
+    q = camera.bilateral_filter_plain(dc, kernel_size, 0.05, 3.0)
+    assert torch.equal(k, q)
+
+
+def test_bilateral_kernel_refuses_large_window(cuda):
+    dc = torch.ones((40, 40), device=cuda)
+    with pytest.raises(ValueError):
+        camera.bilateral_filter(dc, camera.MAX_KERNEL_SIZE + 2)
+
+
 @pytest.mark.parametrize("margin", [1, 2])
 def test_sample_kernel(cuda, scene, margin):
     T = torch.tensor(cam_to_vol(2))
@@ -123,6 +144,81 @@ def test_raycast_kernel(cuda, scene):
     assert torch.equal(k["mask"], q["mask"]) and q["mask"].any()
     for key in ("raylengths", "vertices", "normals"):
         assert torch.allclose(k[key], q[key], rtol=0, atol=1e-5), key
+
+
+def raycast_both(tsdf, wts, T, intr, h, w, max_steps):
+    """K4 and its plain version on the same CUDA inputs: the masks equal,
+    the values within 1e-5 (as test_raycast_kernel)."""
+    k = launched("raycast", lambda: raycast.raycast_volume(
+        tsdf, wts, T[:3, :3], T[:3, 3], intr, VOXEL, TRUNC, h, w,
+        max_steps))
+    q = raycast.raycast_volume_plain(tsdf, wts, T[:3, :3].to(tsdf.device),
+                                     T[:3, 3].to(tsdf.device), intr, VOXEL,
+                                     TRUNC, h, w, max_steps)
+    assert torch.equal(k["mask"], q["mask"])
+    for key in ("raylengths", "vertices", "normals"):
+        assert torch.allclose(k[key], q[key], rtol=0, atol=1e-5), key
+    return q
+
+
+@pytest.mark.parametrize("max_steps", [4, 16])
+def test_raycast_kernel_budget(cuda, scene, max_steps):
+    """Budgets that cut most rays short: each ray keeps its own count
+    while the other rays of its warp march on."""
+    T = torch.tensor(cam_to_vol(2))
+    q = raycast_both(scene["tsdf"].to(cuda), scene["wts"].to(cuda), T,
+                     scene["intr"], H, W, max_steps)
+    assert not q["mask"].all()
+
+
+@pytest.mark.parametrize("h, w", [(1, 1), (7, 13), (4, 8), (61, 83)])
+def test_raycast_kernel_image_sizes(cuda, scene, h, w):
+    """Images smaller than, and not multiples of, the 32x4-pixel block:
+    rows narrower than a warp, and 83-pixel rows that end in a partial
+    warp."""
+    T = torch.tensor(cam_to_vol(2))
+    f = 0.8 * W * min(h, w) / min(H, W)
+    intr = torch.tensor([[f, 0.0, (w - 1) / 2.0], [0.0, f, (h - 1) / 2.0],
+                         [0.0, 0.0, 1.0]])
+    q = raycast_both(scene["tsdf"].to(cuda), scene["wts"].to(cuda), T,
+                     intr, h, w, 256)
+    assert q["mask"].any() or h * w == 1    # the one centre ray misses
+
+
+def test_raycast_kernel_unobserved(cuda, scene):
+    """A volume whose left half was never observed (exact zeros): rays
+    cross it at half-voxel steps."""
+    tsdf, wts = scene["tsdf"].clone(), scene["wts"].clone()
+    tsdf[:, :, :SHAPE[2] // 2] = 0.0
+    wts[:, :, :SHAPE[2] // 2] = 0.0
+    T = torch.tensor(cam_to_vol(2))
+    q = raycast_both(tsdf.to(cuda), wts.to(cuda), T, scene["intr"], H, W,
+                     256)
+    assert q["mask"].any()
+
+
+@pytest.mark.parametrize("pitch", ["x51", "x52", "x52 unaligned"])
+def test_raycast_kernel_load_paths(cuda, scene, pitch):
+    """X pitches that are and are not a multiple of 4 floats, and volumes
+    that are not 16-byte aligned: the kernel's scalar corner loads take
+    any of them."""
+    tsdf, wts = scene["tsdf"], scene["wts"]
+    if pitch != "x51":
+        tsdf = torch.nn.functional.pad(tsdf, (0, 1))
+        wts = torch.nn.functional.pad(wts, (0, 1))
+    if pitch.endswith("unaligned"):
+        def shifted(v):
+            buf = torch.empty(v.numel() + 1, device=cuda)
+            out = buf[1:].view(v.shape)
+            out.copy_(v)
+            return out
+        tsdf, wts = shifted(tsdf), shifted(wts)
+    else:
+        tsdf, wts = tsdf.to(cuda), wts.to(cuda)
+    assert (tsdf.data_ptr() % 16 == 0) == (pitch != "x52 unaligned")
+    T = torch.tensor(cam_to_vol(2))
+    q = raycast_both(tsdf, wts, T, scene["intr"], H, W, 256)
+    assert q["mask"].any()
 
 
 def test_warp_kernel(cuda):

@@ -11,7 +11,9 @@ import torch
 from emfusion_tpu.ops.fusion import compute_gradients
 from emfusion_tpu.ops.raycast import raycast_volume as jax_raycast
 from emfusion_tpu_torch import kernels
-from emfusion_tpu_torch.ops.raycast import raycast_volume
+from emfusion_tpu_torch.ops.raycast import (
+    raycast_volume, raycast_volume_plain,
+)
 from test_torch_fusion import TRUNC, VOXEL, fused_scene, rel_co
 
 torch.set_num_threads(2)
@@ -60,3 +62,26 @@ def test_raycast_volume_matches_jax(frame, max_steps):
         ok = mask & (d > 0)
         z = out["vertices"].numpy()[2][ok]
         assert np.median(np.abs(z - d[ok])) < VOXEL
+
+
+def test_raycast_stats_leave_outputs():
+    """The march counts of the plain version: asking for them changes no
+    output, the per-ray phase-2 steps add up to the total, and half the
+    volume zeroed shows up as samples that read 8 zero corners."""
+    tsdf, weights, depths, intr = fused_scene()
+    tsdf, weights = tsdf.copy(), weights.copy()
+    tsdf[:, :, :tsdf.shape[2] // 2] = 0.0
+    weights[:, :, :weights.shape[2] // 2] = 0.0
+    H, W = depths[0].shape
+    R, t = rel_co(1)
+    args = (torch.tensor(tsdf), torch.tensor(weights), torch.tensor(R),
+            torch.tensor(t), torch.tensor(intr), VOXEL, TRUNC, H, W, 256)
+    st = {}
+    counted = raycast_volume_plain(*args, stats=st)
+    plain = raycast_volume_plain(*args)
+    for key in plain:
+        assert torch.equal(counted[key], plain[key]), key
+    assert int(st["steps_phase2"].sum()) == st["steps"] > 0
+    assert st["steps_phase1"].shape == st["steps_phase2"].shape == (H, W)
+    assert 0 < st["zero_samples"] < st["samples"] <= st["steps"]
+    assert 0 <= st["weight_samples"] < st["samples"]
