@@ -20,16 +20,32 @@
 4. Profiles three more frames with ``torch.profiler``: the device's busy
    share of the wall time and the device ops that took most of it (the
    full table goes to ``chiprun_out/profile_ops.txt``).
-5. Runs a small scene through the pipeline on the card and on the CPU
-   (plain versions) and compares the camera poses.
+5. Runs the object path: the pipeline with a mask provider over 40
+   frames of the scene with two moving spheres (r 0.15 and 0.12 m, 1.3
+   and 1.5 m away, 5 mm a frame along x), ground-truth masks on the mask
+   frames 0 and 30 (spawn, then match). Prints its phase times, e2e,
+   peak memory, launches per frame and LM iterations; fails if an object
+   is lost, if an object's x-motion recovers less than 0.35 or more than
+   2.0 of the truth, if the camera ATE reaches 1 voxel, if a kernel of
+   the path never ran, or if K1-K4 never ran at the object shape.
+6. Holds K1-K4 against their plain versions at an object's shapes (its
+   64^3 volume at its own voxel size, fg-masked weights for K4), on the
+   object path's final state, timed as in step 2; then profiles three
+   more frames of the object path as in step 4
+   (``chiprun_out/object_profile_ops.txt``).
+7. Runs a small scene through the pipeline on the card and on the CPU
+   (plain versions) and compares the camera poses; then a small object
+   scene, comparing the live objects and the camera and object poses.
 
-Kernel K6 (the projective warp) is not on the main path: the port's
+Kernel K6 (the projective warp) is not on either path: the port's
 fusion kernel makes its nearest-pixel pick per voxel. Step 2 holds it
 against its plain version at the main path's image and grid sizes.
 
 Prints the card's name and power limit, one JSON line with the numbers
-of every kernel (K6 with 0 launches), and as its last line
-``{"ok": true, "device": ...}``.
+of every kernel (K6 with 0 launches; the ``*_object`` rows are the
+object-shape holds, with the object path's launches at the object
+volume's shape, while the other rows carry the background-only main
+path's), and as its last line ``{"ok": true, "device": ...}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -53,6 +69,7 @@ F32_OPS_PER_S = 67e12         # H100 SXM published float32 rate (no TC)
 SFU_PER_S = 16 * 132 * 1.98e9
 VOXEL_CUT = 0.01              # ATE limit: one voxel of the 1 cm volume
 N_FRAMES = 24                 # frames of the main path run
+OBJ_FRAMES = 40               # frames of the object path run
 PROFILE_FRAMES = 3            # frames of the profiled window
 GRID = (600, 896)             # K6's reference-plane grid at 640x480
 
@@ -75,6 +92,17 @@ KERNEL_ROWS = [
 ]
 # K6 (warp) is not on the main path: the fusion kernel makes its pick
 PATH_KERNELS = [row[3] for row in KERNEL_ROWS if row[3] != "warp"]
+# the same kernels held at an object's shapes (object_kernel_phases)
+OBJECT_ROWS = [(f"{name}_object", src, replaces, kernel)
+               for name, src, replaces, kernel in KERNEL_ROWS
+               if kernel in ("fusion", "sample", "capture", "raycast")]
+# the small card-vs-CPU object scene: 160x120, 2 cm background voxels,
+# 32^3 objects, masks every third frame, thresholds for its small masks
+SMALL_OBJECTS = dict(globalVolumeDims=(128, 128, 128), globalVoxelSize=0.02,
+                     volumePose=(0.0, 0.0, 1.28), objVolumeDims=(32, 32, 32),
+                     maxTrackingIter=50, raycast_max_steps=256, max_objects=4,
+                     maskRCNNFrames=3, visibilityThresh=60,
+                     mask_min_pixels=60, boundary=5)
 STEP_EDGES = [0] + [2 ** i for i in range(13)]   # march-step histogram
 
 
@@ -88,31 +116,43 @@ class Scene:
         self.planes = planes            # [(unit normal (3,), point (3,))]
         self.max_depth = max_depth
 
-    def render(self, cam_pose):
+    def render(self, cam_pose, objects=()):
         """Depth (H, W) float32 of the scene seen from camera-to-world
-        ``cam_pose``; 0 where nothing is hit within ``max_depth``."""
+        ``cam_pose``; 0 where nothing is hit within ``max_depth``.
+        ``objects``: extra (centre, radius) spheres; with them, also
+        returns each one's mask (where it is the nearest surface)."""
         Tinv = np.linalg.inv(cam_pose)
         R, t = Tinv[:3, :3], Tinv[:3, 3]
         ys, xs = np.mgrid[0:self.H, 0:self.W]
         d = np.stack([(xs - self.cx) / self.f, (ys - self.cy) / self.f,
                       np.ones_like(xs, np.float64)], -1)
         d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        best = np.full((self.H, self.W), np.inf)
-        for c_w, r in self.spheres:
+
+        def sphere_t(c_w, r):
             c = R @ c_w + t
             b = -2 * (d @ c)
             disc = b * b - 4 * (c @ c - r * r)
             ts = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / 2,
                           np.inf)
-            best = np.minimum(best, np.where(ts > 0, ts, np.inf))
+            return np.where(ts > 0, ts, np.inf)
+
+        best = np.full((self.H, self.W), np.inf)
+        for c_w, r in self.spheres:
+            best = np.minimum(best, sphere_t(c_w, r))
         for n_w, p_w in self.planes:
             n_c, p_c = R @ n_w, R @ p_w + t
             den = d @ n_c
             tp = np.where(np.abs(den) > 1e-9, (p_c @ n_c) / den, np.inf)
             best = np.minimum(best, np.where(tp > 0, tp, np.inf))
+        t_obj = [sphere_t(np.asarray(c_w), r) for c_w, r in objects]
+        for to in t_obj:
+            best = np.minimum(best, to)
         depth = np.where(np.isfinite(best), best * d[..., 2], 0.0)
-        return np.where(depth > self.max_depth, 0.0, depth).astype(
+        depth = np.where(depth > self.max_depth, 0.0, depth).astype(
             np.float32)
+        if not objects:
+            return depth
+        return depth, [np.isfinite(to) & (to <= best) for to in t_obj]
 
 
 def sensor_depth(depth, rng):
@@ -145,6 +185,29 @@ def gt_pose(i):
                      [0, 1, 0, -0.003 * i],
                      [-s, 0, c, 0.004 * i],
                      [0, 0, 0, 1]], np.float32)
+
+
+# the object path's two moving spheres: (centre at frame 0, radius,
+# motion per frame), 1.3 and 1.5 m away, clear of the scene's spheres
+MOVERS = [(np.array([-0.05, -0.35, 1.3]), 0.15, np.array([0.005, 0, 0])),
+          (np.array([0.2, 0.3, 1.5]), 0.12, np.array([-0.005, 0, 0]))]
+
+
+def movers_at(i, movers=MOVERS):
+    return [(c + i * v, r) for c, r, v in movers]
+
+
+def mask_provider(masks):
+    """The port's ``CallableMaskProvider`` handing out the ground-truth
+    masks ``masks[frame]`` (one detection each, class 'car')."""
+    from emfusion_tpu_torch.segmentation import (
+        CallableMaskProvider, Detection, make_score_vector,
+    )
+
+    def detect(rgb, frame):
+        return [Detection(mask=m, scores=make_score_vector(3, 0.9))
+                for m in masks.get(frame, [])]
+    return CallableMaskProvider(detect)
 
 
 # ---------------------------------------------------------------------
@@ -228,26 +291,158 @@ def max_err(a, b):
 
 
 # ---------------------------------------------------------------------
+# holding one kernel against its plain version: each returns its row
+def hold_sample(torch, vol, pts, R, t, vs):
+    """K2 (tolerance 1e-6 and the same exact zeros: same arithmetic in the
+    same order, built without FMA contraction)."""
+    from emfusion_tpu_torch.geometry.sampling import (
+        sample_volume_at_points, sample_volume_at_points_plain,
+        transform_to_grid, trilinear_cell,
+    )
+    Z, Y, X = vol.shape
+    Rd, td = R.cuda(), t.cuda()
+    k = sample_volume_at_points(vol, pts, R, t, vs, 1)
+    q = sample_volume_at_points_plain(vol, pts, Rd, td, vs, 1)
+    zero_mismatch = int(((k == 0) != (q == 0)).sum())
+    flat = pts.reshape(3, -1)
+    N = flat.shape[1]
+    vx, vy, vz, _ = transform_to_grid(flat, Rd, td, vs, (Z, Y, X))
+    ok = q.reshape(-1) != 0
+    base, _, _, _ = trilinear_cell((Z, Y, X), vx[ok], vy[ok], vz[ok])
+    corners = torch.cat([base + (dz * Y + dy) * X + dx for dz in (0, 1)
+                         for dy in (0, 1) for dx in (0, 1)])
+    grid = torch.stack([vx / (X - 1) * 2 - 1, vy / (Y - 1) * 2 - 1,
+                        vz / (Z - 1) * 2 - 1], -1).reshape(1, 1, 1, -1, 3)
+    vol5 = vol[None, None]
+    gs = torch.nn.functional.grid_sample
+    return dict(
+        max_abs_err=max_err(k, q) if zero_mismatch == 0 else float("inf"),
+        tol=1e-6, zero_mismatch=zero_mismatch, points=N,
+        ms=graph_ms(torch, lambda: sample_volume_at_points(
+            vol, pts, R, t, vs, 1), 50),
+        plain_ms=time_ms(torch, lambda: sample_volume_at_points_plain(
+            vol, pts, Rd, td, vs, 1), 5),
+        bound=bound(16 * N + 4 * distinct(torch, corners), 40 * N),
+        library_ms=graph_ms(torch, lambda: gs(
+            vol5, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True), 50))
+
+
+def hold_capture(torch, vols, pts, R, t, vs):
+    """K3 (exact: the same voxel reads and the same anchors)."""
+    from emfusion_tpu_torch.geometry.capture import (
+        capture_neighborhoods, capture_neighborhoods_plain,
+    )
+    Z, Y, X = vols[0].shape
+    Rd, td = R.cuda(), t.cuda()
+    kc, ka = capture_neighborhoods(vols, pts, R, t, vs)
+    qc, qa = capture_neighborhoods_plain(vols, pts, Rd, td, vs)
+    anchor_mismatch = int((ka != qa).sum())
+    err = max_err(kc, qc) if anchor_mismatch == 0 else float("inf")
+    del kc, qc
+    N = pts.shape[1]
+    ax, ay, az = qa[0].long(), qa[1].long(), qa[2].long()
+    win = torch.arange(6, device=ax.device)
+    zc = torch.clamp(az[:, None] + win, 0, Z - 1)
+    yc = torch.clamp(ay[:, None] + win, 0, Y - 1)
+    xc = torch.clamp(ax[:, None] + win, 0, X - 1)
+    # the distinct voxels the windows read, marked in chunks of points
+    seen = torch.zeros(Z * Y * X, dtype=torch.bool, device=ax.device)
+    for c0 in range(0, N, 32768):
+        sl = slice(c0, c0 + 32768)
+        idx = ((zc[sl, :, None, None] * Y + yc[sl, None, :, None]) * X
+               + xc[sl, None, None, :])
+        seen[idx.reshape(-1)] = True
+    n_vox = int(seen.sum())
+    del seen
+    return dict(
+        max_abs_err=err, tol=0.0, anchor_mismatch=anchor_mismatch,
+        points=N,
+        ms=graph_ms(torch, lambda: capture_neighborhoods(
+            vols, pts, R, t, vs), 10),
+        plain_ms=time_ms(torch, lambda: capture_neighborhoods_plain(
+            vols, pts, Rd, td, vs), 3),
+        bound=bound(12 * N + 2 * 216 * 4 * N + 12 * N + 8 * n_vox, 20 * N),
+        library_ms=None)
+
+
+def hold_raycast(torch, tsdf, weights, R, t, intr, vs, td, H, W, max_steps,
+                 report=None):
+    """K4 (mask agreeing on >= 99.99% of pixels; raylengths, vertices and
+    normals within 1e-4 where both hit: the same arithmetic, but a ray's
+    outcome is a chain of hundreds of dependent steps). With ``report``,
+    also K4's march from the plain version's counts."""
+    from emfusion_tpu_torch.geometry.sampling import trilinear_cell
+    from emfusion_tpu_torch.ops.raycast import (
+        raycast_volume, raycast_volume_plain,
+    )
+    Z, Y, X = tsdf.shape
+    HW = H * W
+    Rd, tdv = R.cuda(), t.cuda()
+    kr = raycast_volume(tsdf, weights, R, t, intr, vs, td, H, W, max_steps)
+    st = {}
+    qr = raycast_volume_plain(tsdf, weights, Rd, tdv, intr, vs, td, H, W,
+                              max_steps, stats=st)
+    both = kr["mask"] & qr["mask"]
+    mask_mismatch = int((kr["mask"] != qr["mask"]).sum())
+    err = max(max_err(kr["raylengths"][both], qr["raylengths"][both]),
+              max_err(kr["vertices"][:, both], qr["vertices"][:, both]),
+              max_err(kr["normals"][:, both], qr["normals"][:, both]))
+    hits = qr["mask"].reshape(-1)
+    vstar = [(pt / vs + (n - 1) / 2.0) for pt, n in
+             zip((qr["vertices"].reshape(3, -1)[:, hits].T @ Rd.T
+                  + tdv).T, (X, Y, Z))]
+    base, _, _, _ = trilinear_cell((Z, Y, X), *vstar)
+    corners = torch.cat([base + (dz * Y + dy) * X + dx for dz in (0, 1)
+                         for dy in (0, 1) for dx in (0, 1)])
+    if report is not None:
+        report["raycast_march"] = march_stats(st)
+    return dict(
+        max_abs_err=err if mask_mismatch <= 1e-4 * HW else float("inf"),
+        tol=1e-4, mask_mismatch=mask_mismatch, hits=int(hits.sum()),
+        ms=graph_ms(torch, lambda: raycast_volume(
+            tsdf, weights, R, t, intr, vs, td, H, W, max_steps), 20),
+        plain_ms=time_ms(torch, lambda: raycast_volume_plain(
+            tsdf, weights, Rd, tdv, intr, vs, td, H, W, max_steps), 1,
+            warmup=0),
+        bound=bound(29 * HW + 8 * distinct(torch, corners),
+                    raycast_ops(st, HW, int(hits.sum()))),
+        library_ms=None)
+
+
+def hold_fusion(torch, tsdf, weights, depth, assoc, Ro, to, intr, vs, td,
+                max_w, carve=(None, None, None)):
+    """K1 on copies of the volumes (tolerance 1e-5: same arithmetic, no
+    FMA contraction)."""
+    from emfusion_tpu_torch.ops.fusion import (
+        integrate_tsdf, integrate_tsdf_plain,
+    )
+    V = tsdf.numel()
+    HW = depth.numel()
+    fargs = (depth, assoc, Ro, to, intr, vs, td, max_w, *carve)
+    kt, kw = tsdf.clone(), weights.clone()
+    integrate_tsdf(kt, kw, *fargs)
+    qt, qw = tsdf.clone(), weights.clone()
+    integrate_tsdf_plain(qt, qw, *fargs)
+    row = dict(
+        max_abs_err=max(max_err(kt, qt), max_err(kw, qw)), tol=1e-5,
+        changed_voxels=int((kt != tsdf).sum()),
+        ms=graph_ms(torch, lambda: integrate_tsdf(kt, kw, *fargs), 10),
+        plain_ms=time_ms(torch, lambda: integrate_tsdf_plain(
+            qt, qw, *fargs), 2, warmup=1),
+        bound=bound(16 * V + 8 * HW, 50 * V), library_ms=None)
+    del kt, kw, qt, qw
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_phases(torch, pipe, depth_raw, report):
     """Every kernel against its plain version at the main path's shapes,
     on the state ``pipe`` has fused so far. Returns the kernel rows."""
     from emfusion_tpu_torch.geometry.camera import (
         bilateral_filter, bilateral_filter_plain,
     )
-    from emfusion_tpu_torch.geometry.capture import (
-        capture_neighborhoods, capture_neighborhoods_plain,
-    )
-    from emfusion_tpu_torch.geometry.sampling import (
-        sample_volume_at_points, sample_volume_at_points_plain,
-        transform_to_grid, trilinear_cell,
-    )
     from emfusion_tpu_torch.geometry.se3 import pose_inverse
-    from emfusion_tpu_torch.ops.fusion import (
-        integrate_tsdf, integrate_tsdf_plain,
-    )
-    from emfusion_tpu_torch.ops.raycast import (
-        raycast_volume, raycast_volume_plain,
-    )
     from emfusion_tpu_torch.ops.warp import (
         grid_index_homography, select_grid_at_pixels, warp_homography_plain,
         warp_image_to_grid,
@@ -258,7 +453,6 @@ def kernel_phases(torch, pipe, depth_raw, report):
     H, W = pipe.H, pipe.W
     HW = H * W
     Z, Y, X = s.bg_tsdf.shape
-    V = Z * Y * X
     vs, td = pipe.voxel, pipe.trunc
     rows = {}
     raw = torch.as_tensor(depth_raw).cuda()
@@ -282,126 +476,18 @@ def kernel_phases(torch, pipe, depth_raw, report):
     depth, points = pipe.preprocess(depth_raw)
     rel = pose_inverse(s.bg_pose) @ s.cam_pose
     R, t = rel[:3, :3], rel[:3, 3]
-    Rd, tdv = R.cuda(), t.cuda()
-
-    # K2 psi sample (tolerance 1e-6 and the same exact zeros: same
-    # arithmetic in the same order, built without FMA contraction)
-    k = sample_volume_at_points(s.bg_tsdf, points, R, t, vs, 1)
-    q = sample_volume_at_points_plain(s.bg_tsdf, points, Rd, tdv, vs, 1)
-    zero_mismatch = int(((k == 0) != (q == 0)).sum())
-    pts = points.reshape(3, -1)
-    vx, vy, vz, pz = transform_to_grid(pts, Rd, tdv, vs, (Z, Y, X))
-    ok = (q.reshape(-1) != 0)
-    base, _, _, _ = trilinear_cell((Z, Y, X), vx[ok], vy[ok], vz[ok])
-    corners = torch.cat([base + (dz * Y + dy) * X + dx for dz in (0, 1)
-                         for dy in (0, 1) for dx in (0, 1)])
-    n_vox = distinct(torch, corners)
-    gx = vx / (X - 1) * 2 - 1
-    gy = vy / (Y - 1) * 2 - 1
-    gz = vz / (Z - 1) * 2 - 1
-    grid = torch.stack([gx, gy, gz], -1).reshape(1, 1, 1, -1, 3)
-    vol5 = s.bg_tsdf[None, None]
-    gs = torch.nn.functional.grid_sample
-    rows["sample"] = dict(
-        max_abs_err=max_err(k, q) if zero_mismatch == 0 else float("inf"),
-        tol=1e-6,
-        ms=graph_ms(torch, lambda: sample_volume_at_points(
-            s.bg_tsdf, points, R, t, vs, 1), 50),
-        plain_ms=time_ms(torch, lambda: sample_volume_at_points_plain(
-            s.bg_tsdf, points, Rd, tdv, vs, 1), 5),
-        bound=bound(16 * HW + 4 * n_vox, 40 * HW),
-        library_ms=graph_ms(torch, lambda: gs(
-            vol5, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True), 50))
-    report["sample_zero_mismatch"] = zero_mismatch
-
-    # K3 capture (exact: the same voxel reads and the same anchors)
-    vols = (s.bg_tsdf, s.bg_weights)
-    kc, ka = capture_neighborhoods(vols, pts, R, t, vs)
-    qc, qa = capture_neighborhoods_plain(vols, pts, Rd, tdv, vs)
-    anchor_mismatch = int((ka != qa).sum())
-    N = pts.shape[1]
-    ax, ay, az = qa[0].long(), qa[1].long(), qa[2].long()
-    win = torch.arange(6, device=ax.device)
-    zc = torch.clamp(az[:, None] + win, 0, Z - 1)
-    yc = torch.clamp(ay[:, None] + win, 0, Y - 1)
-    xc = torch.clamp(ax[:, None] + win, 0, X - 1)
-    # the distinct voxels the windows read, marked in chunks of points
-    seen = torch.zeros(V, dtype=torch.bool, device=ax.device)
-    for c0 in range(0, N, 32768):
-        sl = slice(c0, c0 + 32768)
-        idx = ((zc[sl, :, None, None] * Y + yc[sl, None, :, None]) * X
-               + xc[sl, None, None, :])
-        seen[idx.reshape(-1)] = True
-    n_vox = int(seen.sum())
-    del seen
-    rows["capture"] = dict(
-        max_abs_err=(max_err(kc, qc) if anchor_mismatch == 0
-                     else float("inf")), tol=0.0,
-        ms=graph_ms(torch, lambda: capture_neighborhoods(
-            vols, pts, R, t, vs), 10),
-        plain_ms=time_ms(torch, lambda: capture_neighborhoods_plain(
-            vols, pts, Rd, tdv, vs), 3),
-        bound=bound(12 * N + 2 * 216 * 4 * N + 12 * N + 8 * n_vox,
-                    20 * N),
-        library_ms=None)
-    report["capture_anchor_mismatch"] = anchor_mismatch
-
-    # K4 raycast (mask must agree on >= 99.99% of pixels; raylengths,
-    # vertices and normals within 1e-4 where both hit: the same
-    # arithmetic, but a ray's outcome is a chain of hundreds of
-    # dependent steps)
-    kr = raycast_volume(s.bg_tsdf, s.bg_weights, R, t, pipe.intr, vs, td,
-                        H, W, p.raycast_max_steps)
-    st = {}
-    qr = raycast_volume_plain(s.bg_tsdf, s.bg_weights, Rd, tdv, pipe.intr,
-                              vs, td, H, W, p.raycast_max_steps, stats=st)
-    both = kr["mask"] & qr["mask"]
-    mask_mismatch = int((kr["mask"] != qr["mask"]).sum())
-    err = max(max_err(kr["raylengths"][both], qr["raylengths"][both]),
-              max_err(kr["vertices"][:, both], qr["vertices"][:, both]),
-              max_err(kr["normals"][:, both], qr["normals"][:, both]))
-    hits = qr["mask"].reshape(-1)
-    vstar = [(pt / vs + (n - 1) / 2.0) for pt, n in
-             zip((qr["vertices"].reshape(3, -1)[:, hits].T @ Rd.T
-                  + tdv).T, (X, Y, Z))]
-    base, _, _, _ = trilinear_cell((Z, Y, X), *vstar)
-    corners = torch.cat([base + (dz * Y + dy) * X + dx for dz in (0, 1)
-                         for dy in (0, 1) for dx in (0, 1)])
-    n_vox = distinct(torch, corners)
-    rows["raycast"] = dict(
-        max_abs_err=err if mask_mismatch <= 1e-4 * HW else float("inf"),
-        tol=1e-4,
-        ms=graph_ms(torch, lambda: raycast_volume(
-            s.bg_tsdf, s.bg_weights, R, t, pipe.intr, vs, td, H, W,
-            p.raycast_max_steps), 20),
-        plain_ms=time_ms(torch, lambda: raycast_volume_plain(
-            s.bg_tsdf, s.bg_weights, Rd, tdv, pipe.intr, vs, td, H, W,
-            p.raycast_max_steps), 1, warmup=0),
-        bound=bound(29 * HW + 8 * n_vox,
-                    raycast_ops(st, HW, int(hits.sum()))),
-        library_ms=None)
-    report["raycast_mask_mismatch"] = mask_mismatch
-    report["raycast_hits"] = int(hits.sum())
-    report["raycast_march"] = march_stats(st)
-
-    # K1 fusion (tolerance 1e-5: same arithmetic, no FMA contraction)
+    rows["sample"] = hold_sample(torch, s.bg_tsdf, points, R, t, vs)
+    rows["capture"] = hold_capture(torch, (s.bg_tsdf, s.bg_weights),
+                                   points.reshape(3, -1), R, t, vs)
+    rows["raycast"] = hold_raycast(torch, s.bg_tsdf, s.bg_weights, R, t,
+                                   pipe.intr, vs, td, H, W,
+                                   p.raycast_max_steps, report)
     inv = pose_inverse(s.cam_pose) @ s.bg_pose
     Ro, to = inv[:3, :3], inv[:3, 3]
-    fargs = (depth, s.bg_assoc, Ro, to, pipe.intr, vs, td,
-             p.tsdfParams.maxTSDFWeight, *pipe.carve_args())
-    kt, kw = s.bg_tsdf.clone(), s.bg_weights.clone()
-    integrate_tsdf(kt, kw, *fargs)
-    qt, qw = s.bg_tsdf.clone(), s.bg_weights.clone()
-    integrate_tsdf_plain(qt, qw, *fargs)
-    rows["fusion"] = dict(
-        max_abs_err=max(max_err(kt, qt), max_err(kw, qw)), tol=1e-5,
-        ms=graph_ms(torch, lambda: integrate_tsdf(kt, kw, *fargs), 10),
-        plain_ms=time_ms(torch, lambda: integrate_tsdf_plain(
-            qt, qw, *fargs), 2, warmup=1),
-        bound=bound(16 * V + 8 * HW, 50 * V), library_ms=None)
-    del kt, kw, qt, qw
-    torch.cuda.empty_cache()
+    rows["fusion"] = hold_fusion(torch, s.bg_tsdf, s.bg_weights, depth,
+                                 s.bg_assoc, Ro, to, pipe.intr, vs, td,
+                                 p.tsdfParams.maxTSDFWeight,
+                                 pipe.carve_args())
 
     # K6 warp, both ways (exact: the same picks of the same float32
     # values): the filtered depth onto the reference-plane grid of the
@@ -432,6 +518,48 @@ def kernel_phases(torch, pipe, depth_raw, report):
             kg, M, H, W, None, round_half=False, mask_oob=False), 20),
         bound=bound(4 * nS * nL + 4 * HW, 20 * HW), library_ms=None)
     report["warp_grid_cells_seen"] = float((qg > 0).float().mean())
+    return rows
+
+
+def object_kernel_phases(torch, pipe, depth_raw):
+    """K1-K4 against their plain versions at an object's shapes, on the
+    first live slot of the object path's final state: its 64^3 volume at
+    its own voxel size, the E-step's culled points (K2: the TSDF and the
+    fg-probability volume), all tracking points (K3), the raycast with
+    fg-masked weights (K4) and the fusion (K1). Returns the rows."""
+    from emfusion_tpu_torch.geometry.se3 import pose_inverse
+    from emfusion_tpu_torch.volume import fg_probs
+
+    p = pipe.params
+    s, o = pipe.state, pipe.state.objs
+    k = int(np.nonzero(pipe._h_active)[0][0])
+    depth, points = pipe.preprocess(depth_raw)
+    rel = pose_inverse(o.pose[k]) @ s.cam_pose
+    R, t = rel[:3, :3], rel[:3, 3]
+    vs, td = float(o.voxel_size[k]), float(o.truncdist[k])
+    ptsf, idx, _ = pipe.culled_points(k, points)
+    pts_s = ptsf[:, idx].contiguous()
+    # K2 samples both volumes of an object's E-step term: one row, held on
+    # both, timed on the TSDF (the same work at the same shape)
+    psi = hold_sample(torch, o.tsdf[k], pts_s, R, t, vs)
+    fg = hold_sample(torch, fg_probs(o.fg_counts[k]), pts_s, R, t, vs)
+    psi["fg_volume"] = fg
+    psi["max_abs_err"] = max(psi["max_abs_err"], fg["max_abs_err"])
+    rows = {
+        "sample_object": psi,
+        "capture_object": hold_capture(torch, (o.tsdf[k], o.weights[k]),
+                                       ptsf, R, t, vs),
+        "raycast_object": hold_raycast(
+            torch, o.tsdf[k],
+            torch.where(fg_probs(o.fg_counts[k]) > 0.5, o.weights[k], 0.0),
+            R, t, pipe.intr, vs, td, pipe.H, pipe.W, p.raycast_max_steps),
+    }
+    inv = pose_inverse(s.cam_pose) @ o.pose[k]
+    rows["fusion_object"] = hold_fusion(
+        torch, o.tsdf[k], o.weights[k], depth, o.assoc[k], inv[:3, :3],
+        inv[:3, 3], pipe.intr, vs, td, p.tsdfParams.maxTSDFWeight)
+    for r in rows.values():
+        r.update(voxel_size=vs, shape=list(o.tsdf[k].shape))
     return rows
 
 
@@ -506,35 +634,61 @@ def centre_slice_homography(torch, rel_rot_oc, rel_trans_oc, intr, vs,
     return K @ torch.stack([r1 * vs, r2 * vs, t0], dim=1)
 
 
-def main_path(torch, params, scene, n_frames, rng, report):
-    """The port's main path, through the entry points a user calls."""
+def run_frames(torch, pipe, frames):
+    """Drive ``pipe`` over ``frames`` through ``process_frame``: per-frame
+    host ms around a synchronised frame, the kernel launches of exactly
+    this run (per kernel, and per kernel and volume shape), the peak
+    device memory, and per frame the LM iterations (camera, then each
+    tracked object)."""
     from emfusion_tpu_torch import kernels
-    from emfusion_tpu_torch.eval.ate import evaluate_ate
-    from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
-    frames = [sensor_depth(scene.render(gt_pose(i)), rng)
-              for i in range(n_frames)]
-    pipe = EMFusionPipeline(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    e2e = []
+    e2e, lm_iters = [], []
     for i, depth in enumerate(frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.process_frame(None, depth, timestamp=float(i))
         torch.cuda.synchronize()
         e2e.append(1e3 * (time.perf_counter() - t0))
-    launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated()
+        if i > 0:
+            lm_iters.append([pipe.last_track_stats["iterations"]] + [
+                st["iterations"]
+                for st in pipe.last_obj_track_stats.values()])
+    return (e2e, dict(kernels.launches), dict(kernels.launches_by_shape),
+            torch.cuda.max_memory_allocated(), lm_iters)
+
+
+def camera_ate(pipe, n_frames):
+    from emfusion_tpu_torch.eval.ate import evaluate_ate
     poses = {float(f): q for f, q in pipe.poses.items()}
     gt = {float(i): gt_pose(i) for i in range(n_frames)}
-    ate = evaluate_ate(poses, gt, max_difference=0.5)
+    return evaluate_ate(poses, gt, max_difference=0.5)
+
+
+def check_launches(name, launches, kernels_of_path):
+    missing = [k for k in kernels_of_path if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{name} never launched kernels {missing}")
+
+
+def main_path(torch, params, scene, n_frames, rng, report):
+    """The port's main path without objects, through the entry points a
+    user calls."""
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    frames = [sensor_depth(scene.render(gt_pose(i)), rng)
+              for i in range(n_frames)]
+    pipe = EMFusionPipeline(params)
+    e2e, launches, _, peak, lm_iters = run_frames(torch, pipe, frames)
+    ate = camera_ate(pipe, n_frames)
     phases = pipe.timer.ms_per_call()
     report["main_path"] = dict(
         frames=n_frames, e2e_ms_per_frame=float(np.mean(e2e[1:])),
         e2e_ms_frame0=e2e[0], phase_ms_per_call=phases,
         max_memory_allocated=peak, launches=launches, ate=ate,
+        camera_lm_iterations_mean=float(np.mean([it[0] for it in lm_iters])),
         lm_last=pipe.last_track_stats and {
             k: v for k, v in pipe.last_track_stats.items()
             if not torch.is_tensor(v)})
@@ -545,23 +699,139 @@ def main_path(torch, params, scene, n_frames, rng, report):
         f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
     print(f"peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
           f"ATE rmse {ate['rmse'] * 1e3:.3f} mm", flush=True)
-    missing = [k for k in PATH_KERNELS if launches[k] <= 0]
-    if missing:
-        raise RuntimeError(f"main path never launched kernels {missing}")
+    check_launches("main path", launches, PATH_KERNELS)
     if not ate["rmse"] < VOXEL_CUT:
         raise RuntimeError(f"ATE {ate['rmse']} m >= {VOXEL_CUT} m")
     return launches, pipe
 
 
-def profile_frames(torch, pipe, scene, n, rng, report):
-    """torch.profiler over ``n`` more frames of the main path's pipeline:
-    the device's busy share of the wall time, and the device ops that
-    took most of it."""
+def object_scene(scene, params, n_frames, rng, step=1):
+    """Depth frames of the scene with ``MOVERS``, camera and movers at
+    frame ``step * i`` for frame ``i``, and the movers' ground-truth masks
+    on the mask frames (every ``maskRCNNFrames``)."""
+    frames, masks = [], {}
+    for i in range(n_frames):
+        depth, ms = scene.render(gt_pose(step * i), movers_at(step * i))
+        frames.append(sensor_depth(depth, rng))
+        if i % params.maskRCNNFrames == 0:
+            masks[i] = ms
+    return frames, masks
+
+
+def anchored_track(traj, offsets):
+    """Per frame, the world position of the object-frame point that was
+    the object's origin at its spawn: a resize recentres the volume
+    (``pose <- pose T(o)``, ``o`` logged in ``ObjectMeta.pose_offsets``),
+    after which that point sits at ``-sum(o)``."""
+    out = {}
+    for f in sorted(traj):
+        o = sum((v for r, v in offsets.items() if r <= f), np.zeros(3))
+        out[f] = traj[f][:3, :3] @ (-o) + traj[f][:3, 3]
+    return out
+
+
+def motion_recovery(pipe, step=1):
+    """For each live object: the mover it was spawned on (the nearest
+    centre), and its x-motion from spawn to the last frame over the
+    mover's true x-motion (the JAX object gate's measure,
+    ``tests/test_accuracy_gate_objects.py:134-146``)."""
+    out = {}
+    for oid in pipe.active_object_ids:
+        track = anchored_track(pipe.obj_poses[oid],
+                               pipe.meta[oid].pose_offsets)
+        fs = sorted(track)
+        j = int(np.argmin([np.linalg.norm(track[fs[0]] - c) for c, _ in
+                           movers_at(step * fs[0])]))
+        true = (movers_at(step * fs[-1])[j][0][0]
+                - movers_at(step * fs[0])[j][0][0])
+        out[oid] = dict(mover=j, frames=[fs[0], fs[-1]],
+                        dx_est=float(track[fs[-1]][0] - track[fs[0]][0]),
+                        dx_true=float(true))
+        out[oid]["recovery"] = out[oid]["dx_est"] / out[oid]["dx_true"]
+    return out
+
+
+def object_path(torch, params, scene, n_frames, rng, report):
+    """The port's object path: ``EMFusionPipeline.process_frame`` with a
+    mask provider over ``n_frames`` frames of the scene with two moving
+    spheres, their ground-truth masks handed out on the mask frames.
+    Fails if an object is lost, if an object's x-motion recovers less
+    than 0.35 or more than 2.0 of the truth (the JAX gate's band), if the
+    camera ATE reaches a voxel, or if a kernel of the path never ran."""
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    frames, masks = object_scene(scene, params, n_frames, rng)
+    pipe = EMFusionPipeline(params, mask_provider(masks))
+    e2e, launches, by_shape, peak, lm_iters = run_frames(torch, pipe, frames)
+    ate = camera_ate(pipe, n_frames)
+    phases = pipe.timer.ms_per_call()
+    rec = motion_recovery(pipe)
+    per_frame = {k: v / n_frames for k, v in launches.items()}
+    # the launches at the objects' volume shape (the background's apart)
+    obj_shape = tuple(pipe.state.objs.tsdf.shape[1:])
+    obj_launches = {k: by_shape.get((k, obj_shape), 0) for k in launches}
+    cam_it = float(np.mean([it[0] for it in lm_iters]))
+    obj_it = [n for it in lm_iters for n in it[1:]]
+    report["object_path"] = dict(
+        frames=n_frames, mask_frames=sorted(masks),
+        e2e_ms_per_frame=float(np.mean(e2e[1:])), e2e_ms_frame0=e2e[0],
+        e2e_ms=e2e, phase_ms_per_call=phases,
+        phase_calls=dict(pipe.timer.counts), max_memory_allocated=peak,
+        launches=launches, launches_per_frame=per_frame,
+        object_shape=list(obj_shape), object_shape_launches=obj_launches,
+        ate=ate,
+        camera_lm_iterations_mean=cam_it,
+        object_lm_iterations_mean=float(np.mean(obj_it)),
+        object_lm_at_max_iter=int(sum(n >= params.maxTrackingIter
+                                      for n in obj_it)),
+        object_lms=len(obj_it), lm_iterations=lm_iters,
+        live_objects=pipe.active_object_ids, recovery=rec,
+        voxel_sizes={oid: float(pipe.state.objs.voxel_size[pipe._slot_of(
+            oid)]) for oid in pipe.active_object_ids})
+    print(f"object path: {n_frames} frames 640x480 into 512^3 with "
+          f"{len(MOVERS)} moving objects (masks at frames {sorted(masks)}), "
+          f"e2e {np.mean(e2e[1:]):.3f} ms/frame (frames 1..), frame 0 "
+          f"{e2e[0]:.3f} ms", flush=True)
+    print("object path phase ms per call: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
+    print("object path launches per frame (of them at the object shape "
+          f"{list(obj_shape)}): " + ", ".join(
+              f"{k} {v:.2f} ({obj_launches[k] / n_frames:.2f})"
+              for k, v in per_frame.items()), flush=True)
+    print(f"object path LM iterations per call: camera {cam_it:.1f}, "
+          f"object {np.mean(obj_it):.1f} ({len(obj_it)} object LMs, "
+          f"{sum(n >= params.maxTrackingIter for n in obj_it)} at the "
+          f"{params.maxTrackingIter}-iteration cap)", flush=True)
+    print(f"object path: peak memory {peak / 2**30:.3f} GiB; live objects "
+          f"{pipe.active_object_ids}; camera ATE rmse "
+          f"{ate['rmse'] * 1e3:.3f} mm; x-motion recovery " + ", ".join(
+              f"object {oid} {r['dx_est'] * 1e3:.2f} / "
+              f"{r['dx_true'] * 1e3:.2f} mm = {r['recovery']:.3f}"
+              for oid, r in rec.items()), flush=True)
+    check_launches("object path", launches, PATH_KERNELS)
+    check_launches("object path at the object shape", obj_launches,
+                   [row[3] for row in OBJECT_ROWS])
+    if len(rec) != len(MOVERS) or \
+            sorted(r["mover"] for r in rec.values()) != list(
+                range(len(MOVERS))):
+        raise RuntimeError(f"object lost: live objects {rec}")
+    bad = {o: r for o, r in rec.items() if not 0.35 < r["recovery"] < 2.0}
+    if bad:
+        raise RuntimeError(f"object motion not recovered: {bad}")
+    if not ate["rmse"] < VOXEL_CUT:
+        raise RuntimeError(f"object path ATE {ate['rmse']} m >= "
+                           f"{VOXEL_CUT} m")
+    return obj_launches, pipe
+
+
+def profile_frames(torch, pipe, frames, report, key):
+    """torch.profiler over ``frames`` continuing ``pipe``'s run: the
+    device's busy share of the wall time, and the device ops that took
+    most of it (into ``report[key]``; the full table goes to
+    ``chiprun_out/<key>_ops.txt``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    first = pipe.frame
-    frames = [sensor_depth(scene.render(gt_pose(first + i)), rng)
-              for i in range(n)]
+    n = len(frames)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -585,32 +855,40 @@ def profile_frames(torch, pipe, scene, n, rng, report):
     ops = sum(e.count for e in work) / n
     top = sorted(((dev_ms(e), e.key, e.count / n) for e in work),
                  reverse=True)[:6]
-    report["profile"] = dict(frames=n, wall_ms_per_frame=wall_ms,
-                             device_busy_ms_per_frame=busy,
-                             device_busy_share=busy / wall_ms,
-                             device_ops_per_frame=ops, top_device_ops=top)
-    print(f"profile: {n} frames, wall {wall_ms:.3f} ms/frame (the profiler "
+    report[key] = dict(frames=n, wall_ms_per_frame=wall_ms,
+                       device_busy_ms_per_frame=busy,
+                       device_busy_share=busy / wall_ms,
+                       device_ops_per_frame=ops, top_device_ops=top)
+    print(f"{key}: {n} frames, wall {wall_ms:.3f} ms/frame (the profiler "
           f"slows the host), device busy {busy:.3f} ms/frame "
           f"({100 * busy / wall_ms:.1f}%) in {ops:.0f} kernels and copies "
           f"per frame", flush=True)
-    for ms, key, calls in top:
-        print(f"  {ms:8.3f} ms/frame {calls:7.1f} calls/frame  {key[:70]}",
+    for ms, op, calls in top:
+        print(f"  {ms:8.3f} ms/frame {calls:7.1f} calls/frame  {op[:70]}",
               flush=True)
-    with open(os.path.join(HERE, "chiprun_out", "profile_ops.txt"),
+    with open(os.path.join(HERE, "chiprun_out", f"{key}_ops.txt"),
               "w") as f:
         f.write(ev.table(sort_by="self_device_time_total", row_limit=60))
 
 
 def small_reference(torch, rng, report):
-    """The same small scene through the pipeline on the card (kernels)
-    and on the CPU (plain versions): per-frame camera positions agree to
-    0.1 voxel."""
+    """The same small scenes through the pipeline on the card (kernels)
+    and on the CPU (plain versions), with depth noise from ``rng``.
+    Without objects: per-frame camera positions agree to 0.1 voxel. With
+    the two moving spheres (masks at frames 0 and 3): the same live
+    objects after every frame, camera positions within 0.1 background
+    voxel and object positions within 0.5 object voxel. The object bound
+    is loose because a sphere's rotation about its centre is unobservable
+    and the object's origin is not its centre: where the LM stops along
+    that flat direction moves the origin, on one device as well, by
+    rounding-sized changes of the input."""
     from emfusion_tpu_torch.config import Params
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
     scene = make_scene(120, 160, 130.0)
-    params = Params(frameSize=(160, 120), fx=130.0, fy=130.0, cx=79.5,
-                    cy=59.5, globalVolumeDims=(64, 64, 64),
+    small = dict(frameSize=(160, 120), fx=130.0, fy=130.0, cx=79.5,
+                 cy=59.5)
+    params = Params(**small, globalVolumeDims=(64, 64, 64),
                     globalVoxelSize=5.12 / 64, volumePose=(0.0, 0.0, 2.56),
                     maxTrackingIter=50, raycast_max_steps=512)
     frames = [sensor_depth(scene.render(gt_pose(2 * i)), rng)
@@ -627,6 +905,40 @@ def small_reference(torch, rng, report):
           f"{diff:.3e} m (limit {0.1 * 5.12 / 64:.3e})", flush=True)
     if not diff < 0.1 * 5.12 / 64:
         raise RuntimeError("card and CPU pipelines disagree")
+
+    params = Params(**small, **SMALL_OBJECTS)
+    n = 6
+    frames, masks = object_scene(scene, params, n, rng, step=2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pipe = EMFusionPipeline(params, mask_provider(masks), device=dev)
+        ids = []
+        for depth in frames:
+            pipe.process_frame(None, depth)
+            ids.append(pipe.active_object_ids)
+        runs[dev] = dict(ids=ids, cam=dict(pipe.poses),
+                         obj={o: dict(t) for o, t in pipe.obj_poses.items()},
+                         vs={o: float(pipe.state.objs.voxel_size[
+                             pipe._slot_of(o)]) for o in ids[-1]})
+    a, b = runs["cuda"], runs["cpu"]
+    cam = max(np.linalg.norm(a["cam"][f][:3, 3] - b["cam"][f][:3, 3])
+              for f in range(n))
+    obj = {o: max(np.linalg.norm(a["obj"][o][f][:3, 3]
+                                 - b["obj"][o][f][:3, 3])
+                  for f in b["obj"][o]) / b["vs"][o] for o in b["vs"]}
+    report["small_reference_objects"] = dict(
+        ids=b["ids"], max_camera_translation_diff=float(cam),
+        max_object_translation_diff_voxels=obj)
+    print(f"small object scene, card vs CPU: live objects {a['ids'][-1]} / "
+          f"{b['ids'][-1]}, max camera translation difference {cam:.3e} m, "
+          f"object translation difference in object voxels {obj}",
+          flush=True)
+    if a["ids"] != b["ids"] or len(b["ids"][-1]) != len(MOVERS):
+        raise RuntimeError(f"card and CPU object lifecycles differ: "
+                           f"{a['ids']} / {b['ids']}")
+    if not cam < 0.1 * params.globalVoxelSize or \
+            not all(v < 0.5 for v in obj.values()):
+        raise RuntimeError("card and CPU object pipelines disagree")
 
 
 def main() -> int:
@@ -675,22 +987,42 @@ def main() -> int:
               f"({r['bound'][1]})", flush=True)
 
     launches, pipe = main_path(torch, params, scene, N_FRAMES, rng, report)
-    profile_frames(torch, pipe, scene, PROFILE_FRAMES, rng, report)
+    profile_frames(torch, pipe, [
+        sensor_depth(scene.render(gt_pose(N_FRAMES + i)), rng)
+        for i in range(PROFILE_FRAMES)], report, "profile")
     del pipe
     torch.cuda.empty_cache()
-    small_reference(torch, rng, report)
+
+    obj_launches, pipe = object_path(torch, params, scene, OBJ_FRAMES, rng,
+                                     report)
+    more = [sensor_depth(scene.render(gt_pose(i), movers_at(i))[0], rng)
+            for i in range(OBJ_FRAMES, OBJ_FRAMES + PROFILE_FRAMES + 1)]
+    obj_rows = object_kernel_phases(torch, pipe, more[0])
+    profile_frames(torch, pipe, more[1:], report, "object_profile")
+    del pipe
+    torch.cuda.empty_cache()
+    for name, r in obj_rows.items():
+        print(f"{name} ({r['shape']} at {r['voxel_size'] * 1e3:.2f} mm): "
+              f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.0e}), "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]})", flush=True)
+    rows.update(obj_rows)
+    small_reference(torch, np.random.default_rng(args.seed), report)
 
     bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]]
     table = []
-    for name, src, replaces, kernel in KERNEL_ROWS:
+    for name, src, replaces, kernel in KERNEL_ROWS + OBJECT_ROWS:
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kernel],
+            "replaces": replaces,
+            "launches": (obj_launches if name in obj_rows
+                         else launches)[kernel],
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})
+    report["kernel_rows"] = rows
     report["kernels"] = table
     report["seconds"] = time.perf_counter() - t0
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),

@@ -363,7 +363,10 @@ def resolve_params(params: Params) -> Resolved:
     choose between TPU formulations of one function. The port has one
     direct CUDA kernel for each function and ignores them, and so it
     ignores ``matmul_bf16`` and ``camera_refine_points`` (the latter
-    refines the banded capture, which the port does not have).
+    refines the banded capture, which the port does not have). It also
+    ignores ``obj_track_points``, the point budget of the batched object
+    LM: each object LM runs over all tracking points, as the JAX
+    package's serial path does. ``estep_obj_subset`` is honoured.
     """
     vd = params.volume_dtype
     if vd == "auto":

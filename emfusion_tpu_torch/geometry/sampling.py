@@ -90,6 +90,15 @@ def trilinear_sample(vol: torch.Tensor, vx, vy, vz,
     return out
 
 
+def trilinear_sample_channels(vol: torch.Tensor, vx, vy, vz,
+                              valid: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """:func:`trilinear_sample` of each channel of a channel-first
+    (C, Z, Y, X) volume; returns (C, ...)."""
+    return torch.stack([trilinear_sample(v, vx, vy, vz, valid)
+                        for v in vol])
+
+
 def sample_volume_at_points_plain(vol: torch.Tensor,
                                   points_cam: torch.Tensor, rel_rot,
                                   rel_trans, voxel_size,
@@ -108,8 +117,7 @@ def sample_volume_at_points_plain(vol: torch.Tensor,
     valid &= (vx + margin < X) & (vy + margin < Y) & (vz + margin < Z)
     if vol.dim() == 3:
         return trilinear_sample(vol, vx, vy, vz, valid)
-    return torch.stack([trilinear_sample(v, vx, vy, vz, valid)
-                        for v in vol])
+    return trilinear_sample_channels(vol, vx, vy, vz, valid)
 
 
 def sample_volume_at_points(vol: torch.Tensor, points_cam: torch.Tensor,
@@ -132,5 +140,5 @@ def sample_volume_at_points(vol: torch.Tensor, points_cam: torch.Tensor,
     kernels.check_cuda("sample_volume_at_points", vol, pts, out)
     kernels.launch("sample", vol.data_ptr(), pts.data_ptr(), out.data_ptr(),
                    N, Z, Y, X, *kernels.pose_args(rel_rot, rel_trans),
-                   float(voxel_size), int(margin))
+                   float(voxel_size), int(margin), shape=(Z, Y, X))
     return out.reshape(lead)

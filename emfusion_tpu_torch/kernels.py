@@ -12,8 +12,10 @@ on its own, as in the plain PyTorch versions beside the wrappers, so a
 kernel and its plain version agree bit for bit on the same inputs (pixel
 rounding and window anchors would otherwise move at boundaries).
 
-``launches`` counts, per kernel, the launches that reached the card;
-:func:`launch` is the only place that adds to it.
+``launches`` counts, per kernel, the launches that reached the card, and
+``launches_by_shape`` the same launches per kernel and volume shape (for
+the kernels that take a volume: the background's and an object's apart);
+:func:`launch` is the only place that adds to them.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 
 import torch
 
@@ -57,6 +60,7 @@ KERNELS = {
 }
 
 launches = {name: 0 for name in KERNELS}
+launches_by_shape: Counter = Counter()   # (name, (Z, Y, X)) -> launches
 build_log: dict = {}
 _fns: dict = {}
 
@@ -64,6 +68,7 @@ _fns: dict = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    launches_by_shape.clear()
 
 
 def _nvcc() -> str:
@@ -131,16 +136,18 @@ def _fn(name: str):
     return fn
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on PyTorch's current stream and count it.
-    Pointers are passed as ``tensor.data_ptr()``; raises if the launch
-    was refused."""
+def launch(name: str, *args, shape=None) -> None:
+    """Launch kernel ``name`` on PyTorch's current stream and count it,
+    under ``shape`` too where the caller gives its volume's. Pointers are
+    passed as ``tensor.data_ptr()``; raises if the launch was refused."""
     fn = _fn(name)
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch "
                            f"(cudaError {err})")
     launches[name] += 1
+    if shape is not None:
+        launches_by_shape[(name, tuple(shape))] += 1
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

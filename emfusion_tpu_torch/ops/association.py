@@ -34,13 +34,29 @@ def association_weights(tsdf: torch.Tensor, points_cam: torch.Tensor,
                         assoc_sigma, alpha, uni_prior) -> torch.Tensor:
     """Unnormalised background association weight
     ``alpha * laplace + (1-alpha) * uniPrior``, zero where the sample was
-    invalid. (The object form, with a foreground-probability factor, comes
-    with the object slice.)"""
+    invalid."""
     lap, invalid = compute_laplace(tsdf, points_cam, rel_rot_co,
                                    rel_trans_co, voxel_size, truncdist,
                                    assoc_sigma)
     w = alpha * lap + (1.0 - alpha) * uni_prior
     return torch.where(invalid, 0.0, w)
+
+
+def object_association_weights(tsdf: torch.Tensor, fg_prob_vol: torch.Tensor,
+                               points_cam: torch.Tensor, rel_rot_co,
+                               rel_trans_co, voxel_size, truncdist,
+                               assoc_sigma, alpha, uni_prior):
+    """Unnormalised object association weight (``ObjTSDF.cpp:189-200``):
+    the Laplace likelihood times the foreground probability sampled at the
+    same point, mixed with the uniform prior, zero where the TSDF sample
+    was invalid. Both samples go through K2. Returns ``(w, fg_vals)``."""
+    lap, invalid = compute_laplace(tsdf, points_cam, rel_rot_co,
+                                   rel_trans_co, voxel_size, truncdist,
+                                   assoc_sigma)
+    fg_vals = sample_volume_at_points(fg_prob_vol, points_cam, rel_rot_co,
+                                      rel_trans_co, voxel_size, margin=1)
+    w = alpha * (lap * fg_vals) + (1.0 - alpha) * uni_prior
+    return torch.where(invalid, 0.0, w), fg_vals
 
 
 def normalize_associations(bg_weights: torch.Tensor,

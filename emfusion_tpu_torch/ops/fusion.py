@@ -1,7 +1,8 @@
-"""Projective TSDF fusion + gradient volume.
+"""Projective TSDF fusion, fg/bg evidence counting, gradient volume.
 
 Port of ``emfusion_tpu/ops/fusion.py`` (``integrate_tsdf``,
-``compute_gradients``). :func:`integrate_tsdf` wraps kernel K1
+``integrate_fg_mask``, ``compute_gradients``). :func:`integrate_tsdf`
+wraps kernel K1
 (``csrc/fusion.cu``): a CUDA tensor launches the kernel, a CPU tensor
 takes :func:`integrate_tsdf_plain`.
 
@@ -29,6 +30,32 @@ def _carve_flags(truncdist, carve_dist, carve_weight_cap, carve_margin):
     return (float(carve), has_cap,
             float(carve_weight_cap) if has_cap else 0.0,
             has_margin, float(carve_margin) if has_margin else 0.0)
+
+
+def _project_voxels(R, t, xs, ys, zs, intr, H, W):
+    """The voxel centres ``xs`` x ``ys`` x ``zs`` (metric, volume frame)
+    in the camera, and the pixel each projects to, rounded half to even:
+    (ccx, ccy, ccz, in_front, pix_x, pix_y, in_frame, pix), ``pix`` the
+    flat pixel index clamped into the image."""
+    fx, fy, cx, cy = intrinsics(intr)
+    px, py, pz = xs[None, None, :], ys[None, :, None], zs[:, None, None]
+    ccx = R[0, 0] * px + R[0, 1] * py + R[0, 2] * pz + t[0]
+    ccy = R[1, 0] * px + R[1, 1] * py + R[1, 2] * pz + t[1]
+    ccz = R[2, 0] * px + R[2, 1] * py + R[2, 2] * pz + t[2]
+    in_front = ccz > 0.0
+    zsafe = torch.where(in_front, ccz, 1.0)
+    pix_x = torch.round(ccx * fx / zsafe + cx).to(torch.int32)
+    pix_y = torch.round(ccy * fy / zsafe + cy).to(torch.int32)
+    in_frame = (pix_x >= 0) & (pix_x < W) & (pix_y >= 0) & (pix_y < H)
+    pix = (torch.clamp(pix_y, 0, H - 1).long() * W
+           + torch.clamp(pix_x, 0, W - 1))
+    return ccx, ccy, ccz, in_front, pix_x, pix_y, in_frame, pix
+
+
+def _axis(n: int, vs: torch.Tensor) -> torch.Tensor:
+    """Metric voxel-centre coordinates along an axis of ``n`` voxels."""
+    return (torch.arange(n, dtype=torch.float32, device=vs.device)
+            - (n - 1) / 2.0) * vs
 
 
 def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
@@ -63,27 +90,14 @@ def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
     dflat = depth.reshape(-1)
     aflat = assoc_weights.reshape(-1)
 
-    xs = (torch.arange(X, dtype=torch.float32, device=dev)
-          - (X - 1) / 2.0) * vs
-    ys = (torch.arange(Y, dtype=torch.float32, device=dev)
-          - (Y - 1) / 2.0) * vs
+    xs, ys = _axis(X, vs), _axis(Y, vs)
     step = max(1, _PLAIN_CHUNK_VOXELS // (Y * X))
     for z0 in range(0, Z, step):
         z1 = min(Z, z0 + step)
         zs = (torch.arange(z0, z1, dtype=torch.float32, device=dev)
               - (Z - 1) / 2.0) * vs
-        px, py, pz = xs[None, None, :], ys[None, :, None], zs[:, None, None]
-        ccx = R[0, 0] * px + R[0, 1] * py + R[0, 2] * pz + t[0]
-        ccy = R[1, 0] * px + R[1, 1] * py + R[1, 2] * pz + t[1]
-        ccz = R[2, 0] * px + R[2, 1] * py + R[2, 2] * pz + t[2]
-
-        in_front = ccz > 0.0
-        zsafe = torch.where(in_front, ccz, 1.0)
-        pix_x = torch.round(ccx * fx / zsafe + cx).to(torch.int32)
-        pix_y = torch.round(ccy * fy / zsafe + cy).to(torch.int32)
-        in_frame = (pix_x >= 0) & (pix_x < W) & (pix_y >= 0) & (pix_y < H)
-        pix = (torch.clamp(pix_y, 0, H - 1).long() * W
-               + torch.clamp(pix_x, 0, W - 1))
+        ccx, ccy, ccz, in_front, pix_x, pix_y, in_frame, pix = \
+            _project_voxels(R, t, xs, ys, zs, intr, H, W)
         depth_val = dflat[pix]
         assoc_val = aflat[pix]
         valid = in_front & in_frame & (depth_val > 0.0)
@@ -155,8 +169,37 @@ def integrate_tsdf(tsdf: torch.Tensor, weights: torch.Tensor,
                                                      rel_trans_oc),
                    fx, fy, cx, cy, float(voxel_size), float(truncdist),
                    float(max_weight), carve, int(has_cap), cap,
-                   int(has_margin), margin)
+                   int(has_margin), margin, shape=(Z, Y, X))
     return tsdf, weights
+
+
+def integrate_fg_mask(tsdf: torch.Tensor, weights: torch.Tensor,
+                      fg_counts: torch.Tensor, mask: torch.Tensor,
+                      occluded_mask: torch.Tensor, rel_rot_oc, rel_trans_oc,
+                      intr, voxel_size) -> torch.Tensor:
+    """Per-voxel foreground / background evidence from a segmentation
+    mask (``kernel_updateFgBgProbs``, ``ObjTSDF.cu:29-107``): a voxel with
+    ``|tsdf| < 1`` and weight > 0 that projects in front of the camera to
+    a pixel in the frame that is not occluded adds the mask to its fg
+    count and its complement to its bg count. ``fg_counts`` (2, Z, Y, X);
+    returns the new counts. This runs once per matched object on a mask
+    frame, so it stays plain PyTorch (its JAX form has no Pallas kernel).
+    """
+    Z, Y, X = tsdf.shape
+    H, W = mask.shape
+    dev = tsdf.device
+    vs = scalar(voxel_size, tsdf)
+    R = torch.as_tensor(rel_rot_oc, dtype=torch.float32).to(dev)
+    t = torch.as_tensor(rel_trans_oc, dtype=torch.float32).to(dev)
+    _, _, _, in_front, _, _, in_frame, pix = _project_voxels(
+        R, t, _axis(X, vs), _axis(Y, vs), _axis(Z, vs), intr, H, W)
+    m = mask.to(torch.float32).reshape(-1)[pix]
+    occ = occluded_mask.to(torch.float32).reshape(-1)[pix]
+    update = (torch.abs(tsdf) < 1.0) & (weights > 0.0) & in_front \
+        & in_frame & (occ == 0.0)
+    fg = fg_counts[0] + torch.where(update, m, 0.0)
+    bg = fg_counts[1] + torch.where(update, 1.0 - m, 0.0)
+    return torch.stack([fg, bg])
 
 
 def compute_gradients(tsdf: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ from emfusion_tpu_torch.geometry.camera import intrinsics
 from emfusion_tpu_torch.geometry.sampling import (
     lerp8, scalar, trilinear_cell, trilinear_sample,
 )
+from emfusion_tpu_torch.volume import fg_probs
 
 
 def _safe_dir(d):
@@ -214,6 +215,18 @@ def raycast_volume_plain(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
     }
 
 
+def raycast_object(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
+                   fg_counts: torch.Tensor, rel_rot_co, rel_trans_co, intr,
+                   voxel_size, truncdist, height: int, width: int,
+                   max_steps: int = 2048):
+    """An object's raycast (``pipeline.py:609-614``): K4 on its volume with
+    the weights zeroed wherever the foreground probability is not above
+    0.5, so only the object's own surface is hit."""
+    masked = torch.where(fg_probs(fg_counts) > 0.5, weights_vol, 0.0)
+    return raycast_volume(tsdf_vol, masked, rel_rot_co, rel_trans_co, intr,
+                          voxel_size, truncdist, height, width, max_steps)
+
+
 def raycast_volume(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
                    rel_rot_co, rel_trans_co, intr, voxel_size, truncdist,
                    height: int, width: int, max_steps: int = 2048):
@@ -239,6 +252,6 @@ def raycast_volume(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
                    mask.data_ptr(), Z, Y, X, height, width,
                    *kernels.pose_args(rel_rot_co, rel_trans_co),
                    fx, fy, cx, cy, float(voxel_size), float(truncdist),
-                   int(max_steps))
+                   int(max_steps), shape=(Z, Y, X))
     return {"raylengths": rl, "vertices": verts, "normals": norms,
             "mask": mask}

@@ -125,7 +125,6 @@ def track_volume(tsdf: torch.Tensor, weights: torch.Tensor, voxel_size,
     evaluation (device tensors)).
     """
     f32 = torch.float32
-    N = points.shape[1]
     shape = tuple(tsdf.shape)
     rel_pose_co = torch.as_tensor(rel_pose_co, dtype=f32).cpu()
     R, t = rel_pose_co[:3, :3].clone(), rel_pose_co[:3, 3].clone()

@@ -1,10 +1,10 @@
-"""Background TSDF volume state.
+"""TSDF volume state.
 
-Port of the parts of ``emfusion_tpu/volume.py`` that the background-only
-pipeline needs. A volume is a pair of dense (Z, Y, X) float32 tensors
-(tsdf in units of the truncation distance, and integration weights) that
-the fusion kernel updates in place; its pose and voxel size live with the
-pipeline.
+Port of ``emfusion_tpu/volume.py``. A volume is a pair of dense (Z, Y, X)
+float32 tensors (tsdf in units of the truncation distance, and
+integration weights) that the fusion kernel updates in place; its pose
+and voxel size live with the pipeline. Object volumes add a channel-first
+(2, Z, Y, X) pair of foreground / background evidence counts.
 """
 
 from __future__ import annotations
@@ -29,3 +29,12 @@ def volume_corners(res_xyz, voxel_size):
     res = torch.as_tensor(res_xyz, dtype=torch.float32)
     corner = (res - 1.0) * voxel_size / 2.0
     return -corner, corner
+
+
+def fg_probs(fg_counts: torch.Tensor) -> torch.Tensor:
+    """Per-voxel foreground probability fg / (fg + bg) of (2, ...) counts,
+    0 where there is no evidence (reference ``ObjTSDF::computeFgProbs``,
+    ``src/core/ObjTSDF.cpp:218-226``)."""
+    total = fg_counts[0] + fg_counts[1]
+    return torch.where(total > 0,
+                       fg_counts[0] / torch.clamp(total, min=1e-30), 0.0)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at small ragged shapes (sizes that are not multiples of the
-kernels' block sizes), on a scene fused by the plain versions.
+kernels' block sizes), on a scene fused by the plain versions; K1-K4 also
+at object shapes (64^3 and 37x41x53 volumes at two object voxel sizes)
+and the pipeline's fusion over a pool with an invisible slot.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -16,8 +18,11 @@ import pytest
 import torch
 
 from emfusion_tpu_torch import kernels
+from emfusion_tpu_torch.config import Params
 from emfusion_tpu_torch.geometry import camera, capture, sampling
 from emfusion_tpu_torch.ops import fusion, raycast, warp
+from emfusion_tpu_torch.pipeline import EMFusionPipeline
+from emfusion_tpu_torch.volume import fg_probs
 from synthetic import SyntheticScene
 
 pytestmark = pytest.mark.gpu
@@ -260,3 +265,154 @@ def test_fusion_kernel(cuda, scene):
     fusion.integrate_tsdf_plain(qt, qw, *args)
     assert torch.equal(kt, qt) and torch.equal(kw, qw)
     assert not torch.equal(kt, scene["tsdf"].to(cuda))
+
+
+# ---------------------------------------------------------------------
+# K1-K4 at object shapes: a sphere fused into its own small volume at an
+# object's voxel size (the object slice runs the same kernels per slot)
+OBJ_CASES = [((64, 64, 64), 0.009), ((64, 64, 64), 0.006),
+             ((37, 41, 53), 0.009), ((37, 41, 53), 0.006)]
+OBJ_CENTRE = np.array([0.05, 0.02, 1.0])    # in the frame-0 camera
+
+
+def obj_to_cam(i):
+    """Object-to-camera transform of frame ``i`` (the camera moves a few
+    mm and a few mrad a frame; the object's origin is the sphere's
+    centre)."""
+    th = 0.01 * i
+    c, s = np.cos(th), np.sin(th)
+    cam = np.array([[c, 0, s, 0.01 * i], [0, 1, 0, -0.005 * i],
+                    [-s, 0, c, 0.004 * i], [0, 0, 0, 1]])
+    T = np.eye(4)
+    T[:3, 3] = OBJ_CENTRE
+    return cam, (np.linalg.inv(cam) @ T).astype(np.float32)
+
+
+def build_object_scene(shape, vs):
+    """Two frames fused into a (Z, Y, X) = ``shape`` object volume by the
+    plain versions (association 1 on the object's mask, 0 elsewhere, as
+    after a spawn), its fg/bg counts from the masks, and the third frame's
+    depth, points, mask and camera-to-object transform."""
+    sc = SyntheticScene(H=H, W=W, f=0.8 * W, floor_y=0.6)
+    intr = torch.tensor(sc.intr)
+    tsdf, wts = torch.zeros(shape), torch.zeros(shape)
+    fgc = torch.zeros((2,) + shape)
+    td = 10 * vs
+    for i in range(3):
+        cam, T = obj_to_cam(i)
+        d, m = sc.render(cam, OBJ_CENTRE)
+        depth = camera.preprocess_depth(torch.tensor(d))
+        mask = torch.tensor(m)
+        if i == 2:
+            break
+        R, t = torch.tensor(T[:3, :3]), torch.tensor(T[:3, 3])
+        fusion.integrate_tsdf_plain(tsdf, wts, depth, mask.float(), R, t,
+                                    intr, vs, td, 64.0)
+        fgc = fusion.integrate_fg_mask(tsdf, wts, fgc, mask,
+                                       torch.zeros_like(mask), R, t, intr, vs)
+    assert (wts > 0).sum() > 500 and (fgc[0] > 0).sum() > 100
+    Tco = torch.tensor(np.linalg.inv(T))
+    return dict(tsdf=tsdf, wts=wts, fgc=fgc, depth=depth, mask=mask,
+                pts=camera.backproject_depth(depth, intr), intr=intr, vs=vs,
+                td=td, T=torch.tensor(T), Tco=Tco)
+
+
+@pytest.fixture(scope="module", params=OBJ_CASES,
+                ids=[f"{'x'.join(map(str, s))}-{v * 1e3:g}mm"
+                     for s, v in OBJ_CASES])
+def obj_scene(cuda, request):
+    return build_object_scene(*request.param)
+
+
+def test_object_fusion_kernel(cuda, obj_scene):
+    o = obj_scene
+    T = o["T"]
+    args = (o["depth"].to(cuda), o["mask"].float().to(cuda), T[:3, :3],
+            T[:3, 3], o["intr"], o["vs"], o["td"], 64.0)
+    kt, kw = o["tsdf"].to(cuda, copy=True), o["wts"].to(cuda, copy=True)
+    launched("fusion", lambda: fusion.integrate_tsdf(kt, kw, *args))
+    qt, qw = o["tsdf"].to(cuda, copy=True), o["wts"].to(cuda, copy=True)
+    fusion.integrate_tsdf_plain(qt, qw, *args)
+    assert torch.equal(kt, qt) and torch.equal(kw, qw)
+    assert not torch.equal(kw, o["wts"].to(cuda))
+
+
+@pytest.mark.parametrize("volume", ["tsdf", "fg_probs"])
+def test_object_sample_kernel(cuda, obj_scene, volume):
+    """K2's two object samples: the TSDF and the fg probability."""
+    o = obj_scene
+    vol = (o["tsdf"] if volume == "tsdf" else fg_probs(o["fgc"])).to(cuda)
+    T, pts = o["Tco"], o["pts"].to(cuda)
+    k = launched("sample", lambda: sampling.sample_volume_at_points(
+        vol, pts, T[:3, :3], T[:3, 3], o["vs"], 1))
+    q = sampling.sample_volume_at_points_plain(
+        vol, pts, T[:3, :3].to(cuda), T[:3, 3].to(cuda), o["vs"], 1)
+    assert torch.equal(k, q) and (k != 0).sum() > 100
+
+
+def test_object_capture_kernel(cuda, obj_scene):
+    o = obj_scene
+    T = o["Tco"]
+    vols = (o["tsdf"].to(cuda), o["wts"].to(cuda))
+    pts = o["pts"].reshape(3, -1).to(cuda)
+    kc, ka = launched("capture", lambda: capture.capture_neighborhoods(
+        vols, pts, T[:3, :3], T[:3, 3], o["vs"]))
+    qc, qa = capture.capture_neighborhoods_plain(
+        vols, pts, T[:3, :3].to(cuda), T[:3, 3].to(cuda), o["vs"])
+    assert torch.equal(ka, qa) and torch.equal(kc, qc)
+
+
+def test_object_raycast_kernel(cuda, obj_scene):
+    """K4 on the object volume with its weights masked to fg > 0.5
+    (``raycast.raycast_object``), as ``test_raycast_kernel``."""
+    o = obj_scene
+    T = o["Tco"]
+    tsdf, wts, fgc = (o[k].to(cuda) for k in ("tsdf", "wts", "fgc"))
+    k = launched("raycast", lambda: raycast.raycast_object(
+        tsdf, wts, fgc, T[:3, :3], T[:3, 3], o["intr"], o["vs"], o["td"], H,
+        W, 256))
+    masked = torch.where(fg_probs(fgc) > 0.5, wts, 0.0)
+    q = raycast.raycast_volume_plain(tsdf, masked, T[:3, :3].to(cuda),
+                                     T[:3, 3].to(cuda), o["intr"], o["vs"],
+                                     o["td"], H, W, 256)
+    assert torch.equal(k["mask"], q["mask"]) and q["mask"].sum() > 50
+    for key in ("raylengths", "vertices", "normals"):
+        assert torch.allclose(k[key], q[key], rtol=0, atol=1e-5), key
+
+
+def test_fusion_skips_invisible_slot(cuda):
+    """The pipeline's fusion launches K1 for the background and for each
+    active object the raycast saw, and for no other slot: an active but
+    invisible slot and an empty one keep their volumes bit for bit (K1
+    works in place, so a launch would change them)."""
+    o = build_object_scene((64, 64, 64), 0.009)
+    sc = SyntheticScene(H=H, W=W, f=0.8 * W, floor_y=0.6)
+    params = Params(frameSize=(W, H), fx=sc.f, fy=sc.f, cx=sc.cx, cy=sc.cy,
+                    globalVolumeDims=(32, 32, 32), globalVoxelSize=0.08,
+                    volumePose=(0.0, 0.0, 1.28), objVolumeDims=(64, 64, 64),
+                    max_objects=3)
+    pipe = EMFusionPipeline(params, device=cuda)
+    p = pipe.state.objs
+    cam, _ = obj_to_cam(2)
+    pipe.state.cam_pose = torch.tensor(cam, dtype=torch.float32)
+    for k in (0, 1, 2):
+        p.tsdf[k] = o["tsdf"].to(cuda)
+        p.weights[k] = o["wts"].to(cuda)
+        p.assoc[k] = o["mask"].float().to(cuda)
+        p.pose[k, :3, 3] = torch.tensor(OBJ_CENTRE, dtype=torch.float32)
+        p.voxel_size[k], p.truncdist[k] = o["vs"], o["td"]
+    p.active[:] = torch.tensor([True, True, False])
+    p.visible[:] = torch.tensor([True, False, False])
+    before = [(p.tsdf[k].clone(), p.weights[k].clone()) for k in range(3)]
+    n0 = kernels.launches["fusion"]
+    by_shape = dict(kernels.launches_by_shape)
+    pipe.integrate(o["depth"].to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launches["fusion"] == n0 + 2
+    for shape in ((32, 32, 32), (64, 64, 64)):     # background, object
+        key = ("fusion", shape)
+        assert kernels.launches_by_shape[key] == by_shape.get(key, 0) + 1
+    assert not torch.equal(p.weights[0], before[0][1])
+    for k in (1, 2):
+        assert torch.equal(p.tsdf[k], before[k][0])
+        assert torch.equal(p.weights[k], before[k][1])

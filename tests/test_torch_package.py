@@ -20,6 +20,7 @@ from emfusion_tpu_torch.config import Params, load_config, resolve_params
 from emfusion_tpu_torch.eval.ate import evaluate_ate
 from emfusion_tpu_torch.pipeline import EMFusionPipeline
 from emfusion_tpu_torch.profiling import PhaseTimer
+from emfusion_tpu_torch.segmentation import CallableMaskProvider
 from emfusion_tpu_torch.volume import make_volume, volume_corners
 
 torch.set_num_threads(2)
@@ -37,7 +38,9 @@ SMALL = dict(frameSize=(80, 60), fx=64.0, fy=64.0, cx=39.5, cy=29.5,
 def test_import_leaves_jax_out():
     """A fresh interpreter (conftest has imported JAX in this one)."""
     code = ("import sys, emfusion_tpu_torch.pipeline, "
-            "emfusion_tpu_torch.eval.ate, emfusion_tpu_torch.kernels; "
+            "emfusion_tpu_torch.eval.ate, emfusion_tpu_torch.kernels, "
+            "emfusion_tpu_torch.segmentation, emfusion_tpu_torch.entry, "
+            "emfusion_tpu_torch.detector_post, emfusion_tpu_torch.ops.render; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'emfusion_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -92,10 +95,18 @@ def test_phase_timer_without_device_wants_the_gpu():
     assert timer.counts == {"integrate": 1}
 
 
-def test_objects_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        EMFusionPipeline(Params(**SMALL), mask_provider=object(),
-                         device="cpu")
+def test_pipeline_with_objects_without_device_wants_the_gpu():
+    """A pipeline with a mask provider (the object slice) follows the same
+    rule: ``device=None`` means CUDA and raises without a card."""
+    provider = CallableMaskProvider(lambda rgb, frame: [])
+    params = Params(**SMALL)
+    if torch.cuda.is_available():
+        assert EMFusionPipeline(params, provider).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            EMFusionPipeline(params, provider)
+    pipe = EMFusionPipeline(params, provider, device="cpu")
+    assert pipe.state.objs.tsdf.shape == (params.max_objects, 64, 64, 64)
 
 
 def test_default_config_parses_as_in_jax():

@@ -79,7 +79,6 @@ def runs():
     for f, depth in enumerate(frames):
         pipe.process_frame(None, depth, timestamp=float(f))
     assert kernels.launches == before      # the CPU takes the plain twins
-    pipe.flush()
     port_poses = {float(f): p for f, p in pipe.poses.items()}
     return dict(frames=frames, gt=gt, jax=jax_poses, port=port_poses,
                 snaps=snaps, pipe=pipe)
@@ -141,7 +140,6 @@ def test_state_carry_over_from_jax(runs):
     assert state.bg_tsdf.shape == (RES, RES, RES)
     pipe.load_state(state, frame=2)
     pipe.process_frame(None, frames[2], timestamp=2.0)
-    pipe.flush()
     assert sorted(pipe.poses) == [2]
     a, b = pipe.poses[2], snaps[2]["cam_pose"]
     assert np.abs(a[:3, 3] - b[:3, 3]).max() < 1e-4

@@ -1,0 +1,329 @@
+"""The port's object slice as a whole: ``EMFusionPipeline`` with a mask
+provider (spawn, E-step object terms, object LMs, the raycast composite,
+object fusion, mask integration, match, resize and delete) against the
+JAX pipeline on the CPU, frame by frame, over the rigid and growing
+scenes of ``tests/test_accuracy_gate_objects.py`` and the deletion scene
+of ``tests/test_pipeline.py``; and the carry-over of a JAX state with a
+live object into the port."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from emfusion_tpu.config import Params as JaxParams
+from emfusion_tpu.pipeline import EMFusionPipeline as JaxPipeline
+from emfusion_tpu.segmentation import CallableMaskProvider as JaxProvider
+from emfusion_tpu.segmentation import Detection as JaxDetection
+from emfusion_tpu_torch import kernels
+from emfusion_tpu_torch.config import Params
+from emfusion_tpu_torch.pipeline import (
+    EMFusionPipeline, ObjectMeta, state_from_numpy,
+)
+from emfusion_tpu_torch.segmentation import (
+    CallableMaskProvider, Detection, make_score_vector,
+)
+from synthetic import SyntheticScene
+from test_accuracy_gate import EXACT
+from test_accuracy_gate_objects import _make_sequence
+
+torch.set_num_threads(2)
+
+# the object gate's configuration (test_accuracy_gate_objects._run) on
+# its exact path
+GATE = dict(frameSize=(160, 120), fx=130.0, fy=130.0, cx=79.5, cy=59.5,
+            globalVolumeDims=(128, 128, 128), globalVoxelSize=2.56 / 128,
+            volumePose=(0.0, 0.0, 1.28), objVolumeDims=(32, 32, 32),
+            maxTrackingIter=50, raycast_max_steps=256, max_objects=4,
+            maskRCNNFrames=3, visibilityThresh=60, mask_min_pixels=60,
+            volPad=1.0, matchIOUThresh=0.05, **EXACT)
+# test_pipeline.small_params: the deletion scene
+SMALL = dict(frameSize=(160, 120), fx=120.0, fy=120.0, cx=79.5, cy=59.5,
+             globalVolumeDims=(96, 96, 96), globalVoxelSize=0.03,
+             volumePose=(0.0, 0.0, 1.4), objVolumeDims=(32, 32, 32),
+             maxTrackingIter=30, maskRCNNFrames=3, visibilityThresh=60,
+             mask_min_pixels=60, raycast_max_steps=384, max_objects=4)
+OBJ_KEYS = ("tsdf", "weights", "fg_counts", "pose", "voxel_size",
+            "truncdist", "active", "visible", "object_id", "assoc")
+
+
+def deletion_sequence():
+    """test_pipeline.test_object_deleted_when_gone: a static camera, the
+    object seen for three frames, then far out of view."""
+    scene = SyntheticScene()
+    cam = np.eye(4, dtype=np.float32)
+    frames, masks = [], {}
+    for f in range(5):
+        c = (np.array([0.22, 0.1, 1.05]) if f < 3
+             else np.array([50.0, 50.0, 50.0]))
+        depth, mask = scene.render(cam, c)
+        frames.append(depth)
+        if f < 3:
+            masks[f] = mask
+    return frames, masks
+
+
+def jax_arrays(pipe):
+    s, o = pipe.state, pipe.state.objs
+    out = {k: np.array(getattr(s, k)) for k in
+           ("bg_tsdf", "bg_weights", "bg_pose", "bg_assoc", "cam_pose")}
+    out["objs"] = {k: np.array(getattr(o, k)) for k in OBJ_KEYS}
+    return out
+
+
+def drive(pipe, frames, voxel_of, snap_at=None):
+    """Run ``frames``; after each, the active ids, the voxel size of each
+    and the rendered image. (The JAX pipeline defers a frame's end to the
+    next frame's start; it is consumed at once, with the same results.
+    The port ends its frames itself.)"""
+    rec, snap = [], None
+    for f, depth in enumerate(frames):
+        pipe.process_frame(None, depth, timestamp=float(f))
+        if isinstance(pipe, JaxPipeline):
+            pipe.flush()
+        ids = pipe.active_object_ids
+        rec.append(dict(ids=ids,
+                        vs={i: voxel_of(pipe, pipe._slot_of(i)) for i in ids},
+                        img=pipe.render()))
+        if f == snap_at:
+            snap = dict(arrays=jax_arrays(pipe), frame=f + 1,
+                        meta={i: dataclasses.asdict(m)
+                              for i, m in pipe.meta.items()},
+                        next_id=pipe._next_id)
+    return dict(rec=rec, poses=dict(pipe.poses),
+                obj_poses={i: dict(t) for i, t in pipe.obj_poses.items()},
+                snap=snap, pipe=pipe)
+
+
+def both(frames, masks, cfg, snap_at=None):
+    def jax_provider(rgb, f):
+        return [JaxDetection(mask=masks[f], scores=make_score_vector(3, 0.9))
+                ] if f in masks else []
+
+    def provider(rgb, f):
+        return [Detection(mask=masks[f], scores=make_score_vector(3, 0.9))
+                ] if f in masks else []
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EMF_TRACK_SAMPLER", "capture")
+        jax_pipe = JaxPipeline(JaxParams(**cfg), JaxProvider(jax_provider))
+    assert jax_pipe.track_cfg.sampler == "capture"
+    jax_run = drive(jax_pipe, frames,
+                    lambda p, k: float(np.asarray(p.state.objs.voxel_size)[k]),
+                    snap_at)
+    pipe = EMFusionPipeline(Params(**cfg), CallableMaskProvider(provider),
+                            device="cpu")
+    before = dict(kernels.launches)
+    port_run = drive(pipe, frames,
+                     lambda p, k: float(p.state.objs.voxel_size[k]))
+    assert kernels.launches == before      # the CPU takes the plain twins
+    return dict(jax=jax_run, port=port_run, frames=frames, masks=masks,
+                cfg=cfg)
+
+
+@pytest.fixture(scope="module")
+def rigid():
+    _, frames, masks, obj_x = _make_sequence(grow=False)
+    out = both(frames, masks, GATE, snap_at=4)
+    out["obj_x"] = obj_x
+    return out
+
+
+@pytest.fixture(scope="module")
+def growing():
+    _, frames, masks, _ = _make_sequence(grow=True)
+    return both(frames, masks, GATE)
+
+
+@pytest.fixture(scope="module")
+def deletion():
+    frames, masks = deletion_sequence()
+    return both(frames, masks, dict(SMALL, **EXACT))
+
+
+# the scenes held to the full per-frame tolerances; the growing one is
+# ill-conditioned (test_growing_scene_*)
+SCENES = ["rigid", "deletion"]
+
+
+def angle(a, b):
+    c = (np.trace(a[:3, :3].T @ b[:3, :3]) - 1.0) / 2.0
+    return float(np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+def resize_frames(rec):
+    return [f for f in range(1, len(rec)) if rec[f]["vs"] != rec[f - 1]["vs"]]
+
+
+def voxel_sizes(run):
+    vs = {}
+    for r in run["jax"]["rec"]:
+        vs.update(r["vs"])
+    return vs
+
+
+def check_camera(run, f):
+    a, b = run["port"]["poses"][f], run["jax"]["poses"][f]
+    assert np.linalg.norm(a[:3, 3] - b[:3, 3]) \
+        < 0.1 * run["cfg"]["globalVoxelSize"], f
+    assert angle(a, b) < 1e-3, f
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_lifecycle_matches_jax(scene, request):
+    """The same active ids after every frame (so the same spawn and
+    deletion frames), and the same voxel sizes (rel 1e-6)."""
+    run = request.getfixturevalue(scene)
+    jr, pr = run["jax"]["rec"], run["port"]["rec"]
+    assert [r["ids"] for r in pr] == [r["ids"] for r in jr]
+    for f, (a, b) in enumerate(zip(pr, jr)):
+        for oid, vs in b["vs"].items():
+            assert abs(a["vs"][oid] - vs) <= 1e-6 * vs, (f, oid)
+    spawned = sorted(min(t) for t in run["port"]["obj_poses"].values())
+    assert spawned == sorted(min(t) for t in run["jax"]["obj_poses"].values())
+    if scene == "deletion":
+        assert [r["ids"] for r in pr] == [[1]] * 3 + [[]] * 2
+    else:
+        assert all(r["ids"] == [1] for r in pr)
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_poses_match_jax(scene, request):
+    """Camera positions within 0.1 background voxel and object positions
+    within 0.1 object voxel of the JAX pipeline's, every frame; rotations
+    within 1e-3 rad. The two sum the LMs' systems and the volumes'
+    running averages in other orders, and the small differences carry
+    from frame to frame through the volumes."""
+    run = request.getfixturevalue(scene)
+    jp, pp = run["jax"], run["port"]
+    assert sorted(pp["poses"]) == sorted(jp["poses"])
+    for f in jp["poses"]:
+        check_camera(run, f)
+    assert sorted(pp["obj_poses"]) == sorted(jp["obj_poses"])
+    vs_of = voxel_sizes(run)
+    for oid, traj in jp["obj_poses"].items():
+        assert sorted(pp["obj_poses"][oid]) == sorted(traj)
+        for f, b in traj.items():
+            a = pp["obj_poses"][oid][f]
+            assert np.linalg.norm(a[:3, 3] - b[:3, 3]) < 0.1 * vs_of[oid], \
+                (oid, f)
+            assert angle(a, b) < 1e-3, (oid, f)
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_render_matches_jax(scene, request):
+    """``render()`` after every frame: equal at >= 99.9% of the pixels
+    (the shading's last float bits may move a uint8 by one)."""
+    run = request.getfixturevalue(scene)
+    for f, (a, b) in enumerate(zip(run["port"]["rec"], run["jax"]["rec"])):
+        assert a["img"].shape == b["img"].shape == (120, 160, 3)
+        same = np.all(a["img"] == b["img"], axis=-1).mean()
+        assert same >= 0.999, (f, same)
+    assert (run["port"]["rec"][-1]["img"].sum(-1) > 0).mean() > 0.3
+
+
+def test_growing_scene_lifecycle_and_poses(growing):
+    """The growing sphere (radius +10% a frame) never fits its fused
+    model, so its object LM is ill-conditioned: rounding differences
+    grow from ~1e-5 m at frame 1 to centimetres, and the resize at frame
+    6 lands one step of the even grid count apart (the JAX pipeline shows
+    the same spread against itself, test_growing_scene_spread_in_jax).
+    So the port is held here to: the same ids every frame and the same
+    resize frames; voxel sizes rel 1e-6 before the first resize and
+    within one step of the resized grid count (2 of ~44 voxels) after;
+    camera poses as on the other scenes; object positions within 0.1
+    object voxel up to frame 1 and within the JAX gate's 8 object voxels
+    (test_accuracy_gate_objects.test_object_pose_prod_vs_exact) after."""
+    run = growing
+    jr, pr = run["jax"]["rec"], run["port"]["rec"]
+    assert [r["ids"] for r in pr] == [r["ids"] for r in jr] \
+        == [[1]] * len(jr)
+    first = resize_frames(jr)
+    assert first and resize_frames(pr) == first
+    for f, (a, b) in enumerate(zip(pr, jr)):
+        tol = 1e-6 if f < first[0] else 2.5 / run["cfg"]["objVolumeDims"][0]
+        assert abs(a["vs"][1] - b["vs"][1]) <= tol * b["vs"][1], f
+        check_camera(run, f)
+        ta = run["port"]["obj_poses"][1][f]
+        tb = run["jax"]["obj_poses"][1][f]
+        bound = (0.1 if f <= 1 else 8.0) * b["vs"][1]
+        assert np.linalg.norm(ta[:3, 3] - tb[:3, 3]) < bound, f
+
+
+def test_growing_scene_spread_in_jax(growing):
+    """The JAX pipeline against itself on the growing scene, its depth
+    scaled by 1 + 3e-7: its object positions move apart by more than 0.1
+    object voxel within a few frames, which is why the port is not held
+    to that bound there (test_growing_scene_lifecycle_and_poses)."""
+    frames = [(d * np.float32(1 + 3e-7)).astype(np.float32)
+              for d in growing["frames"]]
+    masks = growing["masks"]
+
+    def provider(rgb, f):
+        return [JaxDetection(mask=masks[f], scores=make_score_vector(3, 0.9))
+                ] if f in masks else []
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EMF_TRACK_SAMPLER", "capture")
+        pipe = JaxPipeline(JaxParams(**growing["cfg"]), JaxProvider(provider))
+    for f, depth in enumerate(frames):
+        pipe.process_frame(None, depth, timestamp=float(f))
+    a, b = pipe.obj_poses[1], growing["jax"]["obj_poses"][1]
+    vs = voxel_sizes(growing)[1]
+    spread = max(np.linalg.norm(a[f][:3, 3] - b[f][:3, 3]) for f in b)
+    assert spread > 0.1 * vs, spread
+
+
+def test_rigid_object_motion_recovered(rigid):
+    """As the JAX gate: the port's object x-motion recovers 0.35-2.0 of
+    the ground truth."""
+    traj, obj_x = rigid["port"]["obj_poses"][1], rigid["obj_x"]
+    fs = sorted(traj)
+    dx_est = traj[fs[-1]][0, 3] - traj[fs[0]][0, 3]
+    dx_true = obj_x[fs[-1]] - obj_x[fs[0]]
+    assert 0.35 * dx_true < dx_est < 2.0 * dx_true, (dx_est, dx_true)
+
+
+def test_phases_and_class_recorded(rigid):
+    pipe = rigid["port"]["pipe"]
+    calls = pipe.timer.counts
+    n = len(rigid["frames"])
+    assert calls["preprocess"] == calls["integrate"] == n
+    assert calls["track_objects"] == n - 1
+    assert calls["masks"] == len(range(0, n, GATE["maskRCNNFrames"]))
+    assert calls["integrate_masks"] == calls["masks"]
+    assert int(np.argmax(pipe.meta[1].class_probs)) == 3     # car
+    assert pipe.meta[1].ex_prob == 1.0
+
+
+def test_state_carry_over_from_jax(rigid):
+    """The JAX state after frame 4 (one live object), moved with
+    ``state_from_numpy`` with its host bookkeeping: the port's frame 5
+    from it gives the JAX frame 5's object pose within 1e-4 m and its
+    camera pose within 1e-4 m."""
+    snap = rigid["jax"]["snap"]
+    frame = snap["frame"]
+    cfg = rigid["cfg"]
+    masks = rigid["masks"]
+
+    def provider(rgb, f):
+        return [Detection(mask=masks[f], scores=make_score_vector(3, 0.9))
+                ] if f in masks else []
+
+    pipe = EMFusionPipeline(Params(**cfg), CallableMaskProvider(provider),
+                            device="cpu")
+    state = state_from_numpy(snap["arrays"], device="cpu")
+    assert state.objs.tsdf.shape == (4, 32, 32, 32)
+    pipe.load_state(state, frame=frame,
+                    meta={i: ObjectMeta(**m) for i, m in snap["meta"].items()},
+                    next_id=snap["next_id"])
+    assert pipe.active_object_ids == [1]
+    pipe.process_frame(None, rigid["frames"][frame], timestamp=float(frame))
+    assert pipe.active_object_ids == [1]
+    a = pipe.obj_poses[1][frame]
+    b = rigid["jax"]["obj_poses"][1][frame]
+    assert np.abs(a[:3, 3] - b[:3, 3]).max() < 1e-4
+    c = pipe.poses[frame]
+    d = rigid["jax"]["poses"][frame]
+    assert np.abs(c[:3, 3] - d[:3, 3]).max() < 1e-4
