@@ -12,11 +12,13 @@
    back-to-back calls, replayed between CUDA events. The plain version is
    timed by CUDA events around back-to-back calls. Also reports the
    raycast's march (steps per ray, lane use of 32-ray warps, shares of
-   zero-corner and weight samples) from its plain version's counts.
+   zero-corner and weight samples) from its plain version's counts, and
+   the fusion's voxel classes (in the image, behind the camera, changed)
+   from which its bound is counted.
 3. Runs the main path, ``EMFusionPipeline.process_frame`` without
    objects, over 24 frames of a smooth ground-truth camera path; fails
-   unless every kernel of the path was launched in that run and the
-   camera ATE is under 1 voxel.
+   unless every kernel of the path was launched in that run, K1 once per
+   fusion and K2 once per E-step, and the camera ATE is under 1 voxel.
 4. Profiles three more frames with ``torch.profiler``: the device's busy
    share of the wall time and the device ops that took most of it (the
    full table goes to ``chiprun_out/profile_ops.txt``).
@@ -27,13 +29,18 @@
    peak memory, launches per frame and LM iterations; fails if an object
    is lost, if an object's x-motion recovers less than 0.35 or more than
    2.0 of the truth, if the camera ATE reaches 1 voxel, if a kernel of
-   the path never ran, or if K1-K4 never ran at the object shape.
-6. Holds K1-K4 against their plain versions at an object's shapes (its
-   64^3 volume at its own voxel size, fg-masked weights for K4), on the
-   object path's final state, timed as in step 2; then profiles three
-   more frames of the object path as in step 4
+   the path never ran, if K1-K4 never ran at the object shape, or unless
+   K1 launched once per fusion and K2 once per E-step.
+6. Holds K1 and K2 against their plain versions over the object path's
+   final work tables (the background and both slots, as the pipeline
+   builds them), and K3-K4 at an object's shapes (its 64^3 volume at its
+   own voxel size, fg-masked weights for K4), timed as in step 2; then
+   profiles three more frames of the object path as in step 4
    (``chiprun_out/object_profile_ops.txt``).
-7. Runs a small scene through the pipeline on the card and on the CPU
+7. Fills every slot of that pipeline's pool (``max_objects``, 16) with a
+   copy of one of its two objects, centred on a grid across the image,
+   and holds K1 and K2 over the background and all 16 slots.
+8. Runs a small scene through the pipeline on the card and on the CPU
    (plain versions) and compares the camera poses; then a small object
    scene, comparing the live objects and the camera and object poses.
 
@@ -43,9 +50,11 @@ against its plain version at the main path's image and grid sizes.
 
 Prints the card's name and power limit, one JSON line with the numbers
 of every kernel (K6 with 0 launches; the ``*_object`` rows are the
-object-shape holds, with the object path's launches at the object
-volume's shape, while the other rows carry the background-only main
-path's), and as its last line ``{"ok": true, "device": ...}``.
+object-path holds of step 6 and the ``*_pool`` rows those of step 7,
+both with the object path's launches that touched an object volume,
+while the other rows carry the background-only main path's; the K1 rows
+also carry ``bound_all_ms``, the bound if every voxel were read and
+written), and as its last line ``{"ok": true, "device": ...}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -53,6 +62,7 @@ phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -92,10 +102,14 @@ KERNEL_ROWS = [
 ]
 # K6 (warp) is not on the main path: the fusion kernel makes its pick
 PATH_KERNELS = [row[3] for row in KERNEL_ROWS if row[3] != "warp"]
-# the same kernels held at an object's shapes (object_kernel_phases)
+# the same kernels held at an object's shapes (object_kernel_phases), and
+# K1 and K2 over a full pool (pool_kernel_phases)
 OBJECT_ROWS = [(f"{name}_object", src, replaces, kernel)
                for name, src, replaces, kernel in KERNEL_ROWS
                if kernel in ("fusion", "sample", "capture", "raycast")]
+POOL_ROWS = [(f"{name}_pool", src, replaces, kernel)
+             for name, src, replaces, kernel in KERNEL_ROWS
+             if kernel in ("fusion", "sample")]
 # the small card-vs-CPU object scene: 160x120, 2 cm background voxels,
 # 32^3 objects, masks every third frame, thresholds for its small masks
 SMALL_OBJECTS = dict(globalVolumeDims=(128, 128, 128), globalVoxelSize=0.02,
@@ -292,40 +306,67 @@ def max_err(a, b):
 
 # ---------------------------------------------------------------------
 # holding one kernel against its plain version: each returns its row
-def hold_sample(torch, vol, pts, R, t, vs):
-    """K2 (tolerance 1e-6 and the same exact zeros: same arithmetic in the
-    same order, built without FMA contraction)."""
+def sample_ops(n, n_fg):
+    """The float32 operations K2's function needs: per point 40 (the
+    rigid transform 15, the grid coordinates 6, the margin test 9, the
+    cell 6 and the blend's weights 3, its sentinel 1), and per valid
+    point of an object 56 more (per corner fg + bg, its test, the clamp
+    and the division: 32; the blend 24)."""
+    return 40 * n + 56 * n_fg
+
+
+def hold_sample(torch, items, library=False):
+    """K2 over the work table ``items`` in one launch (exact: the same
+    arithmetic in the same order, built without FMA contraction; the
+    same zeros). With ``library``, a one-item table's ``grid_sample``."""
     from emfusion_tpu_torch.geometry.sampling import (
-        sample_volume_at_points, sample_volume_at_points_plain,
-        transform_to_grid, trilinear_cell,
+        SampleItem, sample_items, sample_items_plain, transform_to_grid,
+        trilinear_cell,
     )
-    Z, Y, X = vol.shape
-    Rd, td = R.cuda(), t.cuda()
-    k = sample_volume_at_points(vol, pts, R, t, vs, 1)
-    q = sample_volume_at_points_plain(vol, pts, Rd, td, vs, 1)
-    zero_mismatch = int(((k == 0) != (q == 0)).sum())
-    flat = pts.reshape(3, -1)
-    N = flat.shape[1]
-    vx, vy, vz, _ = transform_to_grid(flat, Rd, td, vs, (Z, Y, X))
-    ok = q.reshape(-1) != 0
-    base, _, _, _ = trilinear_cell((Z, Y, X), vx[ok], vy[ok], vz[ok])
-    corners = torch.cat([base + (dz * Y + dy) * X + dx for dz in (0, 1)
-                         for dy in (0, 1) for dx in (0, 1)])
-    grid = torch.stack([vx / (X - 1) * 2 - 1, vy / (Y - 1) * 2 - 1,
-                        vz / (Z - 1) * 2 - 1], -1).reshape(1, 1, 1, -1, 3)
-    vol5 = vol[None, None]
-    gs = torch.nn.functional.grid_sample
-    return dict(
-        max_abs_err=max_err(k, q) if zero_mismatch == 0 else float("inf"),
-        tol=1e-6, zero_mismatch=zero_mismatch, points=N,
-        ms=graph_ms(torch, lambda: sample_volume_at_points(
-            vol, pts, R, t, vs, 1), 50),
-        plain_ms=time_ms(torch, lambda: sample_volume_at_points_plain(
-            vol, pts, Rd, td, vs, 1), 5),
-        bound=bound(16 * N + 4 * distinct(torch, corners), 40 * N),
-        library_ms=graph_ms(torch, lambda: gs(
+    k = sample_items(items)
+    plain = [SampleItem(it.vol, it.points, it.rot.cuda(), it.trans.cuda(),
+                        it.voxel_size, it.counts, it.margin) for it in items]
+    q = sample_items_plain(plain)
+    err, zero_mismatch, points = 0.0, 0, 0
+    nbytes, ops = 0, 0
+    for it, (kp, kf), (qp, qf) in zip(plain, k, q):
+        zero_mismatch += int(((kp == 0) != (qp == 0)).sum())
+        err = max(err, max_err(kp, qp),
+                  0.0 if kf is None else max_err(kf, qf))
+        Z, Y, X = it.vol.shape
+        flat = it.points.reshape(3, -1)
+        N = flat.shape[1]
+        points += N
+        vx, vy, vz, _ = transform_to_grid(flat, it.rot, it.trans,
+                                          it.voxel_size, (Z, Y, X))
+        ok = qp.reshape(-1) != 0
+        base, _, _, _ = trilinear_cell((Z, Y, X), vx[ok], vy[ok], vz[ok])
+        corners = torch.cat([base + (dz * Y + dy) * X + dx
+                             for dz in (0, 1) for dy in (0, 1)
+                             for dx in (0, 1)])
+        fg = it.counts is not None
+        n_vox = distinct(torch, corners) if N else 0
+        nbytes += 16 * N + 4 * n_vox + (4 * N + 8 * n_vox if fg else 0)
+        ops += sample_ops(N, int(ok.sum()) if fg else 0)
+    lib = None
+    if library:
+        it = plain[0]
+        Z, Y, X = it.vol.shape
+        vx, vy, vz, _ = transform_to_grid(it.points.reshape(3, -1), it.rot,
+                                          it.trans, it.voxel_size, (Z, Y, X))
+        grid = torch.stack([vx / (X - 1) * 2 - 1, vy / (Y - 1) * 2 - 1,
+                            vz / (Z - 1) * 2 - 1], -1).reshape(1, 1, 1, -1, 3)
+        vol5 = it.vol[None, None]
+        lib = graph_ms(torch, lambda: torch.nn.functional.grid_sample(
             vol5, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True), 50))
+            align_corners=True), 50)
+    return dict(
+        max_abs_err=err if zero_mismatch == 0 else float("inf"), tol=0.0,
+        zero_mismatch=zero_mismatch, items=len(items), points=points,
+        shapes=[list(it.vol.shape) for it in items],
+        ms=graph_ms(torch, lambda: sample_items(items), 50),
+        plain_ms=time_ms(torch, lambda: sample_items_plain(plain), 5),
+        bound=bound(nbytes, ops), library_ms=lib)
 
 
 def hold_capture(torch, vols, pts, R, t, vs):
@@ -410,30 +451,118 @@ def hold_raycast(torch, tsdf, weights, R, t, intr, vs, td, H, W, max_steps,
         library_ms=None)
 
 
-def hold_fusion(torch, tsdf, weights, depth, assoc, Ro, to, intr, vs, td,
-                max_w, carve=(None, None, None)):
-    """K1 on copies of the volumes (tolerance 1e-5: same arithmetic, no
-    FMA contraction)."""
+def copy_items(items, copy):
+    """Fusion items with their volumes replaced by ``copy`` of them."""
+    return [dataclasses.replace(it, tsdf=copy(it.tsdf),
+                                weights=copy(it.weights)) for it in items]
+
+
+def fusion_traffic(torch, items, after, depth, intr):
+    """What K1's function needs for this frame, from its voxel classes
+    (``ops.fusion.voxel_classes``, the plain version's projection) and the
+    plain result ``after`` per item. Bytes: the depth image once; per
+    item its association image; 8 per ``BAND`` voxel (tsdf and weight
+    read), 4 per ``BEHIND``, ``HOLE`` or ``NEG`` voxel (the weight) and 4
+    more where that weight is 0 (the tsdf), 4 per stored value that
+    changed; nothing for a ``SKIP`` voxel. Float32 operations: per voxel
+    28 (its centre, the rigid transform, the pixel's two divisions,
+    products and sums, the in-image test), per ``NEG`` or ``BAND`` voxel
+    18 more (the ray factor, the distance and the sdf), per ``BAND`` voxel
+    12 more (the truncated measurement and the weighted average). Also
+    the all-voxel count, every voxel read and written and 50 operations
+    each (``bound_all``), and the class shares."""
     from emfusion_tpu_torch.ops.fusion import (
-        integrate_tsdf, integrate_tsdf_plain,
+        BAND, BEHIND, HOLE, NEG, SKIP, voxel_classes,
     )
-    V = tsdf.numel()
     HW = depth.numel()
-    fargs = (depth, assoc, Ro, to, intr, vs, td, max_w, *carve)
-    kt, kw = tsdf.clone(), weights.clone()
-    integrate_tsdf(kt, kw, *fargs)
-    qt, qw = tsdf.clone(), weights.clone()
-    integrate_tsdf_plain(qt, qw, *fargs)
+    nbytes, ops, n_all = 4 * HW, 0, 0
+    c = dict(voxels=0, skip=0, behind=0, hole=0, neg=0, band=0,
+             tsdf_changed=0, weights_changed=0, any_changed=0)
+    for it, (qt, qw) in zip(items, after):
+        cls = voxel_classes(it.tsdf.shape, depth, it.rot, it.trans, intr,
+                            it.voxel_size, it.truncdist)
+        n = {name: int((cls == code).sum()) for name, code in (
+            ("skip", SKIP), ("behind", BEHIND), ("hole", HOLE),
+            ("neg", NEG), ("band", BAND))}
+        rule = (cls == BEHIND) | (cls == HOLE) | (cls == NEG)
+        rule_w0 = int((rule & (it.weights == 0)).sum())
+        del cls, rule
+        t_ch = qt.view(torch.int32) != it.tsdf.view(torch.int32)
+        w_ch = qw.view(torch.int32) != it.weights.view(torch.int32)
+        V = it.tsdf.numel()
+        c["voxels"] += V
+        for name, v in n.items():
+            c[name] += v
+        c["tsdf_changed"] += int(t_ch.sum())
+        c["weights_changed"] += int(w_ch.sum())
+        c["any_changed"] += int((t_ch | w_ch).sum())
+        del t_ch, w_ch
+        nbytes += (4 * HW + 8 * n["band"]
+                   + 4 * (n["behind"] + n["hole"] + n["neg"]) + 4 * rule_w0)
+        ops += 28 * V + 18 * (n["neg"] + n["band"]) + 12 * n["band"]
+        n_all += V
+    nbytes += 4 * (c["tsdf_changed"] + c["weights_changed"])
+    V = c["voxels"]
+    shares = dict(in_image=(c["hole"] + c["neg"] + c["band"]) / V,
+                  behind=c["behind"] / V, changed=c["any_changed"] / V)
+    return (bound(nbytes, ops), bound(16 * n_all + 8 * HW * len(items),
+                                      50 * n_all), c, shares)
+
+
+def hold_fusion(torch, items, depth, intr):
+    """K1 over the work table ``items`` in one launch, on copies of the
+    volumes, against the plain version per item (exact: the same
+    arithmetic, no FMA contraction, a value stored only where its bits
+    changed)."""
+    from emfusion_tpu_torch.ops import fusion
+    kit = copy_items(items, lambda v: v.clone())
+    fusion.integrate_tsdf_batched(kit, depth, intr)
+    qit = copy_items(items, lambda v: v.clone())
+
+    def plain():
+        for it in qit:
+            fusion.integrate_tsdf_plain(
+                it.tsdf, it.weights, depth, it.assoc, it.rot, it.trans,
+                intr, it.voxel_size, it.truncdist, it.max_weight,
+                it.carve_dist, it.carve_weight_cap, it.carve_margin)
+
+    plain()
+    err = max(max(max_err(k.tsdf, q.tsdf), max_err(k.weights, q.weights))
+              for k, q in zip(kit, qit))
+    (b, b_all, counts, shares) = fusion_traffic(
+        torch, items, [(q.tsdf, q.weights) for q in qit], depth, intr)
     row = dict(
-        max_abs_err=max(max_err(kt, qt), max_err(kw, qw)), tol=1e-5,
-        changed_voxels=int((kt != tsdf).sum()),
-        ms=graph_ms(torch, lambda: integrate_tsdf(kt, kw, *fargs), 10),
-        plain_ms=time_ms(torch, lambda: integrate_tsdf_plain(
-            qt, qw, *fargs), 2, warmup=1),
-        bound=bound(16 * V + 8 * HW, 50 * V), library_ms=None)
-    del kt, kw, qt, qw
+        max_abs_err=err, tol=0.0, items=len(items),
+        shapes=[list(it.tsdf.shape) for it in items], voxels=counts,
+        shares=shares, bound_all=b_all,
+        ms=graph_ms(torch, lambda: fusion.integrate_tsdf_batched(
+            kit, depth, intr), 10),
+        plain_ms=time_ms(torch, plain, 2, warmup=1),
+        bound=b, library_ms=None)
+    del kit, qit
     torch.cuda.empty_cache()
     return row
+
+
+def print_row(name, r):
+    """One line of a kernel row: its check, times, bound and, for the
+    batched kernels, its table and (K1) the all-voxel bound and the
+    class shares."""
+    what = ""
+    if "items" in r:
+        what = f" ({r['items']} volumes {r['shapes'][:2]}..)"
+    elif "shape" in r:
+        what = f" ({r['shape']} at {r['voxel_size'] * 1e3:.2f} mm)"
+    extra = ""
+    if "bound_all" in r:
+        extra = (f", all-voxel bound {r['bound_all'][0]:.4f} ms; in image "
+                 f"{r['shares']['in_image']:.3f}, behind "
+                 f"{r['shares']['behind']:.3f}, changed "
+                 f"{r['shares']['changed']:.3f}")
+    print(f"{name}{what}: max_abs_err {r['max_abs_err']:.3e} (tol "
+          f"{r['tol']:.0e}), {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
+          f"ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}){extra}",
+          flush=True)
 
 
 def kernel_phases(torch, pipe, depth_raw, report):
@@ -476,18 +605,17 @@ def kernel_phases(torch, pipe, depth_raw, report):
     depth, points = pipe.preprocess(depth_raw)
     rel = pose_inverse(s.bg_pose) @ s.cam_pose
     R, t = rel[:3, :3], rel[:3, 3]
-    rows["sample"] = hold_sample(torch, s.bg_tsdf, points, R, t, vs)
+    rows["sample"] = hold_sample(torch, pipe.estep_items(points, [])[0],
+                                 library=True)
     rows["capture"] = hold_capture(torch, (s.bg_tsdf, s.bg_weights),
                                    points.reshape(3, -1), R, t, vs)
     rows["raycast"] = hold_raycast(torch, s.bg_tsdf, s.bg_weights, R, t,
                                    pipe.intr, vs, td, H, W,
                                    p.raycast_max_steps, report)
+    rows["fusion"] = hold_fusion(torch, pipe.fusion_items(), depth,
+                                 pipe.intr)
     inv = pose_inverse(s.cam_pose) @ s.bg_pose
     Ro, to = inv[:3, :3], inv[:3, 3]
-    rows["fusion"] = hold_fusion(torch, s.bg_tsdf, s.bg_weights, depth,
-                                 s.bg_assoc, Ro, to, pipe.intr, vs, td,
-                                 p.tsdfParams.maxTSDFWeight,
-                                 pipe.carve_args())
 
     # K6 warp, both ways (exact: the same picks of the same float32
     # values): the filtered depth onto the reference-plane grid of the
@@ -523,30 +651,25 @@ def kernel_phases(torch, pipe, depth_raw, report):
 
 def object_kernel_phases(torch, pipe, depth_raw):
     """K1-K4 against their plain versions at an object's shapes, on the
-    first live slot of the object path's final state: its 64^3 volume at
-    its own voxel size, the E-step's culled points (K2: the TSDF and the
-    fg-probability volume), all tracking points (K3), the raycast with
-    fg-masked weights (K4) and the fusion (K1). Returns the rows."""
+    object path's final state: K1 over the frame's fusion table and K2
+    over an E-step's table (the background and every live slot, its
+    culled points, its fg/bg counts), as the pipeline builds them; K3 and
+    K4 on the first live slot's 64^3 volume at its own voxel size (all
+    tracking points; the raycast with fg-masked weights). Returns the
+    rows."""
     from emfusion_tpu_torch.geometry.se3 import pose_inverse
     from emfusion_tpu_torch.volume import fg_probs
 
     p = pipe.params
     s, o = pipe.state, pipe.state.objs
-    k = int(np.nonzero(pipe._h_active)[0][0])
+    live = [int(k) for k in np.nonzero(pipe._h_active)[0]]
+    k = live[0]
     depth, points = pipe.preprocess(depth_raw)
     rel = pose_inverse(o.pose[k]) @ s.cam_pose
     R, t = rel[:3, :3], rel[:3, 3]
     vs, td = float(o.voxel_size[k]), float(o.truncdist[k])
-    ptsf, idx, _ = pipe.culled_points(k, points)
-    pts_s = ptsf[:, idx].contiguous()
-    # K2 samples both volumes of an object's E-step term: one row, held on
-    # both, timed on the TSDF (the same work at the same shape)
-    psi = hold_sample(torch, o.tsdf[k], pts_s, R, t, vs)
-    fg = hold_sample(torch, fg_probs(o.fg_counts[k]), pts_s, R, t, vs)
-    psi["fg_volume"] = fg
-    psi["max_abs_err"] = max(psi["max_abs_err"], fg["max_abs_err"])
+    ptsf = points.reshape(3, -1)
     rows = {
-        "sample_object": psi,
         "capture_object": hold_capture(torch, (o.tsdf[k], o.weights[k]),
                                        ptsf, R, t, vs),
         "raycast_object": hold_raycast(
@@ -554,13 +677,51 @@ def object_kernel_phases(torch, pipe, depth_raw):
             torch.where(fg_probs(o.fg_counts[k]) > 0.5, o.weights[k], 0.0),
             R, t, pipe.intr, vs, td, pipe.H, pipe.W, p.raycast_max_steps),
     }
-    inv = pose_inverse(s.cam_pose) @ o.pose[k]
-    rows["fusion_object"] = hold_fusion(
-        torch, o.tsdf[k], o.weights[k], depth, o.assoc[k], inv[:3, :3],
-        inv[:3, 3], pipe.intr, vs, td, p.tsdfParams.maxTSDFWeight)
     for r in rows.values():
         r.update(voxel_size=vs, shape=list(o.tsdf[k].shape))
+    rows["sample_object"] = hold_sample(
+        torch, pipe.estep_items(points, live)[0])
+    rows["fusion_object"] = hold_fusion(torch, pipe.fusion_items(), depth,
+                                        pipe.intr)
     return rows
+
+
+def pool_kernel_phases(torch, pipe, depth_raw):
+    """K1 and K2 at a full pool: every one of the ``max_objects`` slots
+    live and visible, each a copy of one of the object path's final
+    object volumes (in turn), its centre moved to a point of a grid
+    spread across the image at the object's depth, its orientation kept.
+    Replaces ``pipe``'s pool; the tables are the pipeline's own
+    (``fusion_items``, ``estep_items``). Returns the rows."""
+    from emfusion_tpu_torch.geometry.se3 import pose_inverse
+    from emfusion_tpu_torch.pipeline import empty_pool
+
+    src = pipe.state.objs
+    live = [int(k) for k in np.nonzero(pipe._h_active)[0]]
+    K, cam = pipe.K, pipe.state.cam_pose
+    pool = empty_pool(K, pipe.obj_res, pipe.H, pipe.W, pipe.device)
+    side = int(np.ceil(np.sqrt(K)))
+    for j in range(K):
+        k = live[j % len(live)]
+        for key in ("tsdf", "weights", "fg_counts", "assoc"):
+            getattr(pool, key)[j] = getattr(src, key)[k]
+        pool.voxel_size[j], pool.truncdist[j] = (src.voxel_size[k],
+                                                  src.truncdist[k])
+        rel = pose_inverse(cam) @ src.pose[k]         # object -> camera
+        z = float(rel[2, 3])
+        gx, gy = (j % side) / (side - 1) - 0.5, (j // side) / (side - 1) - 0.5
+        rel[0, 3] = 1.1 * gx * z * pipe.W / (2 * pipe.params.fx)
+        rel[1, 3] = 1.1 * gy * z * pipe.H / (2 * pipe.params.fy)
+        pool.pose[j] = cam @ rel
+    pool.active[:] = True
+    pool.visible[:] = True
+    pool.object_id[:] = torch.arange(1, K + 1, dtype=torch.int32)
+    pipe.state.objs = pool
+    depth, points = pipe.preprocess(depth_raw)
+    return {"sample_pool": hold_sample(
+                torch, pipe.estep_items(points, list(range(K)))[0]),
+            "fusion_pool": hold_fusion(torch, pipe.fusion_items(), depth,
+                                       pipe.intr)}
 
 
 def raycast_ops(st, n_rays, n_hits):
@@ -667,10 +828,21 @@ def camera_ate(pipe, n_frames):
     return evaluate_ate(poses, gt, max_difference=0.5)
 
 
-def check_launches(name, launches, kernels_of_path):
+def check_launches(name, launches, kernels_of_path, timer=None):
+    """Fails if a kernel of the path never ran; with the path's
+    ``PhaseTimer``, also unless K1 launched once per fusion (once a
+    frame) and K2 once per E-step."""
     missing = [k for k in kernels_of_path if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"{name} never launched kernels {missing}")
+    if timer is not None:
+        esteps = sum(n for ph, n in timer.counts.items()
+                     if ph.startswith("estep"))
+        want = {"fusion": timer.counts["integrate"], "sample": esteps}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise RuntimeError(f"{name}: launches {got}, expected one per "
+                               f"fusion and per E-step {want}")
 
 
 def main_path(torch, params, scene, n_frames, rng, report):
@@ -699,7 +871,7 @@ def main_path(torch, params, scene, n_frames, rng, report):
         f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
     print(f"peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
           f"ATE rmse {ate['rmse'] * 1e3:.3f} mm", flush=True)
-    check_launches("main path", launches, PATH_KERNELS)
+    check_launches("main path", launches, PATH_KERNELS, pipe.timer)
     if not ate["rmse"] < VOXEL_CUT:
         raise RuntimeError(f"ATE {ate['rmse']} m >= {VOXEL_CUT} m")
     return launches, pipe
@@ -808,7 +980,7 @@ def object_path(torch, params, scene, n_frames, rng, report):
               f"object {oid} {r['dx_est'] * 1e3:.2f} / "
               f"{r['dx_true'] * 1e3:.2f} mm = {r['recovery']:.3f}"
               for oid, r in rec.items()), flush=True)
-    check_launches("object path", launches, PATH_KERNELS)
+    check_launches("object path", launches, PATH_KERNELS, pipe.timer)
     check_launches("object path at the object shape", obj_launches,
                    [row[3] for row in OBJECT_ROWS])
     if len(rec) != len(MOVERS) or \
@@ -981,10 +1153,7 @@ def main() -> int:
     del warm
     torch.cuda.empty_cache()
     for name, r in rows.items():
-        print(f"{name}: max_abs_err {r['max_abs_err']:.3e} (tol "
-              f"{r['tol']:.0e}), {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]})", flush=True)
+        print_row(name, r)
 
     launches, pipe = main_path(torch, params, scene, N_FRAMES, rng, report)
     profile_frames(torch, pipe, [
@@ -999,19 +1168,17 @@ def main() -> int:
             for i in range(OBJ_FRAMES, OBJ_FRAMES + PROFILE_FRAMES + 1)]
     obj_rows = object_kernel_phases(torch, pipe, more[0])
     profile_frames(torch, pipe, more[1:], report, "object_profile")
+    obj_rows.update(pool_kernel_phases(torch, pipe, more[0]))
     del pipe
     torch.cuda.empty_cache()
     for name, r in obj_rows.items():
-        print(f"{name} ({r['shape']} at {r['voxel_size'] * 1e3:.2f} mm): "
-              f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.0e}), "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound'][0]:.5f} ms ({r['bound'][1]})", flush=True)
+        print_row(name, r)
     rows.update(obj_rows)
     small_reference(torch, np.random.default_rng(args.seed), report)
 
     bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]]
     table = []
-    for name, src, replaces, kernel in KERNEL_ROWS + OBJECT_ROWS:
+    for name, src, replaces, kernel in KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS:
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": src,
@@ -1022,6 +1189,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})
+        if "bound_all" in r:
+            table[-1]["bound_all_ms"] = r["bound_all"][0]
     report["kernel_rows"] = rows
     report["kernels"] = table
     report["seconds"] = time.perf_counter() - t0

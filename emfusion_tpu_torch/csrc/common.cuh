@@ -13,6 +13,12 @@
 
 #include <cuda_runtime.h>
 
+// Items of one launch of the kernels that take a work table (K1 in
+// fusion.cu, K2 in sample.cu): 17 items of ~120 bytes and their block
+// offsets fit the 4 KB parameter bank. The host reads it through each of
+// those libraries' emf_max_items().
+#define EMF_MAX_ITEMS 17
+
 // A rigid transform, rows of R then t, passed to a kernel by value.
 struct EmfPose {
   float r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2;

@@ -1,4 +1,6 @@
-// K1: association-weighted projective TSDF fusion of one depth frame.
+// K1: association-weighted projective TSDF fusion of one depth frame into
+// the background volume and every object volume that takes it, in one
+// launch.
 //
 // Replaces the TPU kernel emfusion_tpu/ops/pallas/fusion_pencil_pallas.py
 // (_kernel, entry integrate_tsdf_pencil_pallas). On the TPU the depth and
@@ -6,115 +8,282 @@
 // kernel could read them with one-hot matmuls instead of gathers, at the
 // cost of a nearest-in-grid-cell lookup. Hopper gathers directly, so this
 // is the direct form of the reference's kernel_updateTSDF (TSDF.cu:327-427)
-// and of ops/fusion.integrate_tsdf: one thread per voxel projects its
-// centre, reads depth and association at the rounded (half to even)
-// pixel, and applies the running weighted average with the weight cap,
-// the -1/0 rules for unseen voxels and the carve rules (carve_dist, the
-// carve weight cap and its contradiction margin).
+// and of ops/fusion.integrate_tsdf: each voxel projects its centre, reads
+// depth and association at the rounded (half to even) pixel, and applies
+// the running weighted average with the weight cap, the -1/0 rules for
+// unseen voxels and the carve rules (carve_dist, the carve weight cap and
+// its contradiction margin). The JAX pipeline fuses the pool's slots with
+// jax.vmap; here the slots are items of one launch.
 //
-// Bound on the card: bytes. At 512^3 f32 it reads and writes tsdf and
-// weights, 4 x 537 MB = 2.15 GB, ~0.64 ms at 3.35 TB/s; the two images
-// (2.4 MB) stay in L2. The design puts x on the thread index, so every
-// warp reads and writes 128 contiguous bytes of each volume, updates in
-// place (no second volume), and does each voxel's arithmetic in
-// registers. Built with --fmad=false so the pixel rounding matches the
-// plain version's separately rounded products.
+// Bound on the card: bytes, but only those a frame can change. A voxel is
+// projected before any volume access, and falls in one of four classes:
+//   - in front of the camera and outside the image: nothing can change, so
+//     it loads and stores nothing;
+//   - behind the camera, or in the image on a pixel without depth: only
+//     the 0 rule can fire, so it loads its weight, and its tsdf only where
+//     the weight is 0;
+//   - valid but more than truncdist behind the surface: only the -1 rule,
+//     loaded the same way;
+//   - valid inside the band: the full update, both loaded.
+// A value is stored only where its bits changed, so a warp whose voxels
+// all skip touches no volume memory. At the default volume pose about a
+// third of a 512^3 volume projects into a 640x480 image; the rest would
+// still cost each voxel its projection, so a warp takes a whole row and
+// first tests the ends of the row, then of each 32 V-voxel piece of it,
+// passing over a piece whose two ends lie beyond the same image edge
+// (exact by convexity, with a pixel of margin).
+//
+// Layout: a 1-D grid; each item's blocks are contiguous and a block finds
+// its item among the <= EMF_MAX_ITEMS block offsets of the table, which
+// is passed by value (__grid_constant__, read from the parameter bank).
+// Blocks of 128 threads (4 rows), capped at 32 registers so that 16
+// blocks fill an SM: 128 was faster than 256 threads, and the cap faster
+// than none although it spills a few words. A lane takes 4 neighbouring voxels along x with 16-byte accesses
+// where X is a multiple of 4 and the volumes are 16-byte aligned, else
+// one voxel. Volume accesses are streaming (.cs) so the two images stay
+// in L2. Built with --fmad=false so the pixel rounding and the average
+// match the plain version's separately rounded products.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
-struct EmfFuseArgs {
-  int Z, Y, X, H, W;
-  float fx, fy, cx, cy;
+#define EMF_FUSE_BLOCK 128
+
+// One volume of the launch. Mirrored by kernels.FuseArgs.
+struct EmfFuseItem {
+  float* tsdf;
+  float* wts;
+  const float* assoc;  // (H, W) association weights of this volume
+  int Z, Y, X;
+  int vec;             // 1: 4 voxels a lane, 16-byte accesses
+  EmfPose P;           // volume -> camera
   float vs, trunc, max_w, carve_dist;
   int has_cap, has_margin;
   float cap, margin;
 };
 
+struct EmfFuseTable {
+  const float* depth;
+  int H, W, n;
+  float fx, fy, cx, cy;
+  int block_end[EMF_MAX_ITEMS];  // cumulative block counts
+  EmfFuseItem items[EMF_MAX_ITEMS];
+};
+
+enum { CLS_SKIP = 0, CLS_ZERO = 1, CLS_NEG = 2, CLS_BAND = 3 };
+
 __device__ __forceinline__ float emf_sign(float v) {
   return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
 }
 
-__global__ void emf_fusion_kernel(float* __restrict__ tsdf,
-                                  float* __restrict__ wts,
-                                  const float* __restrict__ depth,
-                                  const float* __restrict__ assoc, EmfPose P,
-                                  EmfFuseArgs a) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y, z = blockIdx.z;
-  if (x >= a.X) return;
-  const size_t v = ((size_t)z * a.Y + y) * a.X + x;
-
-  const float px = ((float)x - 0.5f * (float)(a.X - 1)) * a.vs;
-  const float py = ((float)y - 0.5f * (float)(a.Y - 1)) * a.vs;
-  const float pz = ((float)z - 0.5f * (float)(a.Z - 1)) * a.vs;
-  float ccx, ccy, ccz;
-  emf_apply(P, px, py, pz, ccx, ccy, ccz);
-
-  // The nearest-pixel projective pick that the TPU path ran as a separate
-  // warp kernel (K6, warp_pallas.py) onto its reference-plane grid: here
-  // each voxel rounds its own projection and reads the pixel directly.
-  const bool in_front = ccz > 0.0f;
-  const float zsafe = in_front ? ccz : 1.0f;
-  const int pix_x = __float2int_rn(ccx * a.fx / zsafe + a.cx);
-  const int pix_y = __float2int_rn(ccy * a.fy / zsafe + a.cy);
-  const bool in_frame =
-      (pix_x >= 0) && (pix_x < a.W) && (pix_y >= 0) && (pix_y < a.H);
-  const size_t pix = (size_t)emf_clampi(pix_y, 0, a.H - 1) * a.W +
-                     emf_clampi(pix_x, 0, a.W - 1);
-  const float depth_val = __ldg(depth + pix);
-  const float assoc_val = __ldg(assoc + pix);
-  const bool valid = in_front && in_frame && (depth_val > 0.0f);
-
-  const float ux = ((float)pix_x - a.cx) / a.fx;
-  const float uy = ((float)pix_y - a.cy) / a.fy;
-  const float lam = sqrtf(ux * ux + uy * uy + 1.0f);
-  const float norm_cam = sqrtf(ccx * ccx + ccy * ccy + ccz * ccz);
-  const float sdf = depth_val - norm_cam / lam;
-
-  const float t_old = tsdf[v];
-  const float w_old = wts[v];
-  const bool in_band = valid && (sdf >= -a.trunc);
-  const float tsdf_meas = emf_sign(sdf) * fminf(1.0f, fabsf(sdf) / a.trunc);
-  const bool carving = valid && (sdf >= a.carve_dist);
-  const float new_w = carving ? 1.0f : assoc_val;
-  float w_eff = w_old;
-  if (a.has_cap) {
-    bool capped = carving;
-    if (a.has_margin) capped = carving && (tsdf_meas - t_old > a.margin);
-    if (capped) w_eff = fminf(w_old, a.cap);
+template <int V>
+__device__ __forceinline__ void emf_load(const float* p, float* o) {
+  if (V == 4) {
+    float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
+  } else {
+    o[0] = __ldcs(p);
   }
-  const float denom = w_eff + new_w;
-  const bool do_update = in_band && (denom > 0.0f);
-  float t_out = t_old, w_out = w_old;
-  if (do_update) {
-    t_out = (w_eff * t_old + new_w * tsdf_meas) / denom;
-    w_out = fminf(denom, a.max_w);
-  }
-  if (valid && (sdf < -a.trunc) && (w_old == 0.0f)) t_out = -1.0f;
-  if (w_old == 0.0f &&
-      ((in_frame && in_front && depth_val <= 0.0f) || !in_front))
-    t_out = 0.0f;
-  tsdf[v] = t_out;
-  wts[v] = w_out;
 }
 
-extern "C" int emf_fusion(float* tsdf, float* wts, const float* depth,
-                          const float* assoc, int Z, int Y, int X, int H,
-                          int W, float r00, float r01, float r02, float r10,
-                          float r11, float r12, float r20, float r21,
-                          float r22, float t0, float t1, float t2, float fx,
-                          float fy, float cx, float cy, float vs, float trunc,
-                          float max_w, float carve_dist, int has_cap,
-                          float cap, int has_margin, float margin,
-                          void* stream) {
-  EmfPose P = {r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
-  EmfFuseArgs a = {Z,  Y,     X,     H,          W,       fx,
-                   fy, cx,    cy,    vs,         trunc,   max_w,
-                   carve_dist, has_cap, has_margin, cap, margin};
-  const int block = 128;
-  dim3 grid((X + block - 1) / block, Y, Z);
-  emf_fusion_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      tsdf, wts, depth, assoc, P, a);
+template <int V>
+__device__ __forceinline__ void emf_store(float* p, const float* o) {
+  if (V == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
+  } else {
+    __stcs(p, o[0]);
+  }
+}
+
+__device__ __forceinline__ bool emf_same(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+
+// V voxels x0 .. x0+V-1 of row (y, z) of item `it`, flat index v0.
+template <int V>
+__device__ __forceinline__ void emf_fuse(const EmfFuseTable& T,
+                                         const EmfFuseItem& it, size_t v0,
+                                         int x0, int y, int z) {
+  const float py = ((float)y - 0.5f * (float)(it.Y - 1)) * it.vs;
+  const float pz = ((float)z - 0.5f * (float)(it.Z - 1)) * it.vs;
+  int cls[V];
+  float sdf[V], tmeas[V], aval[V];
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float px = ((float)(x0 + j) - 0.5f * (float)(it.X - 1)) * it.vs;
+    float ccx, ccy, ccz;
+    emf_apply(it.P, px, py, pz, ccx, ccy, ccz);
+    // the nearest-pixel projective pick that the TPU path ran as a
+    // separate warp kernel (K6, warp_pallas.py) onto its reference-plane
+    // grid: here each voxel rounds its own projection
+    const bool in_front = ccz > 0.0f;
+    const float zsafe = in_front ? ccz : 1.0f;
+    const int pix_x = __float2int_rn(ccx * T.fx / zsafe + T.cx);
+    const int pix_y = __float2int_rn(ccy * T.fy / zsafe + T.cy);
+    const bool in_frame =
+        (pix_x >= 0) && (pix_x < T.W) && (pix_y >= 0) && (pix_y < T.H);
+    cls[j] = in_front ? CLS_SKIP : CLS_ZERO;
+    sdf[j] = tmeas[j] = aval[j] = 0.0f;
+    if (in_front && in_frame) {
+      const int pix = pix_y * T.W + pix_x;
+      const float depth_val = __ldg(T.depth + pix);
+      if (depth_val > 0.0f) {
+        const float ux = ((float)pix_x - T.cx) / T.fx;
+        const float uy = ((float)pix_y - T.cy) / T.fy;
+        const float lam = sqrtf(ux * ux + uy * uy + 1.0f);
+        const float norm_cam = sqrtf(ccx * ccx + ccy * ccy + ccz * ccz);
+        const float s = depth_val - norm_cam / lam;
+        sdf[j] = s;
+        if (s >= -it.trunc) {
+          cls[j] = CLS_BAND;
+          tmeas[j] = emf_sign(s) * fminf(1.0f, fabsf(s) / it.trunc);
+          aval[j] = __ldg(it.assoc + pix);
+        } else if (s < -it.trunc) {
+          cls[j] = CLS_NEG;
+        }
+      } else if (depth_val <= 0.0f) {
+        cls[j] = CLS_ZERO;
+      }
+    }
+    any |= cls[j] != CLS_SKIP;
+  }
+  if (!any) return;
+
+  float w_old[V], t_old[V];
+  emf_load<V>(it.wts + v0, w_old);
+  bool need_t = false;
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    need_t |= cls[j] == CLS_BAND ||
+              (cls[j] != CLS_SKIP && w_old[j] == 0.0f);
+  if (!need_t) return;
+  emf_load<V>(it.tsdf + v0, t_old);
+
+  float t_out[V], w_out[V];
+  bool t_changed = false, w_changed = false;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    t_out[j] = t_old[j];
+    w_out[j] = w_old[j];
+    if (cls[j] == CLS_BAND) {
+      const bool carving = sdf[j] >= it.carve_dist;
+      const float new_w = carving ? 1.0f : aval[j];
+      float w_eff = w_old[j];
+      if (it.has_cap) {
+        bool capped = carving;
+        if (it.has_margin)
+          capped = carving && (tmeas[j] - t_old[j] > it.margin);
+        if (capped) w_eff = fminf(w_old[j], it.cap);
+      }
+      const float denom = w_eff + new_w;
+      if (denom > 0.0f) {
+        t_out[j] = (w_eff * t_old[j] + new_w * tmeas[j]) / denom;
+        w_out[j] = fminf(denom, it.max_w);
+      }
+    } else if (cls[j] != CLS_SKIP && w_old[j] == 0.0f) {
+      t_out[j] = cls[j] == CLS_NEG ? -1.0f : 0.0f;
+    }
+    t_changed |= !emf_same(t_out[j], t_old[j]);
+    w_changed |= !emf_same(w_out[j], w_old[j]);
+  }
+  if (t_changed) emf_store<V>(it.tsdf + v0, t_out);
+  if (w_changed) emf_store<V>(it.wts + v0, w_out);
+}
+
+// Which image edges voxel (x, y, z) of `it` projects more than one pixel
+// beyond (bits 1, 2, 4, 8: left, right, top, bottom), with its camera z
+// above EMF_NEAR; 0 otherwise. Each bit is a half-space of the volume
+// frame, so if both ends of a row segment have a bit, every voxel centre
+// between them has it: the real projection lies more than a pixel
+// outside, and EMF_NEAR keeps the float rounding of the per-voxel pick
+// (a few 1e-6 m on ccx, times fx / ccz) far below that pixel.
+#define EMF_NEAR 0.05f
+__device__ __forceinline__ int emf_edges(const EmfFuseTable& T,
+                                         const EmfFuseItem& it, int x, int y,
+                                         int z) {
+  const float px = ((float)x - 0.5f * (float)(it.X - 1)) * it.vs;
+  const float py = ((float)y - 0.5f * (float)(it.Y - 1)) * it.vs;
+  const float pz = ((float)z - 0.5f * (float)(it.Z - 1)) * it.vs;
+  float ccx, ccy, ccz;
+  emf_apply(it.P, px, py, pz, ccx, ccy, ccz);
+  if (!(ccz > EMF_NEAR)) return 0;
+  const float u = ccx * T.fx, v = ccy * T.fy;
+  return (u < (-1.5f - T.cx) * ccz ? 1 : 0) |
+         (u > ((float)T.W + 0.5f - T.cx) * ccz ? 2 : 0) |
+         (v < (-1.5f - T.cy) * ccz ? 4 : 0) |
+         (v > ((float)T.H + 0.5f - T.cy) * ccz ? 8 : 0);
+}
+
+// Warp w of the item takes its row w: (y, z) = (w % Y, w / Y), 32 V
+// voxels along x at a time, lane l voxels V l .. V l + V - 1 of them. A
+// row or a piece of it whose two ends project beyond the same edge
+// (emf_edges) cannot change and is passed over without the per-voxel
+// projection. Index arithmetic is 32-bit: a 64-bit division costs more
+// than a voxel's projection.
+template <int V>
+__device__ __forceinline__ void emf_fuse_row(const EmfFuseTable& T,
+                                             const EmfFuseItem& it,
+                                             unsigned row) {
+  const unsigned X = it.X;
+  const unsigned z = row / (unsigned)it.Y;
+  const unsigned y = row - z * it.Y;
+  if (emf_edges(T, it, 0, y, z) & emf_edges(T, it, X - 1, y, z)) return;
+  const unsigned lane = threadIdx.x & 31;
+  for (unsigned c = 0; c < X; c += 32 * V) {
+    const unsigned last = min(c + 32 * V, X) - 1;
+    if ((c > 0 || last < X - 1) &&
+        (emf_edges(T, it, c, y, z) & emf_edges(T, it, last, y, z)))
+      continue;
+    const unsigned x0 = c + V * lane;
+    if (x0 < X) emf_fuse<V>(T, it, (size_t)row * X + x0, x0, y, z);
+  }
+}
+
+__global__ void __launch_bounds__(EMF_FUSE_BLOCK, 16)
+    emf_fusion_kernel(const __grid_constant__ EmfFuseTable T) {
+  const int b = blockIdx.x;
+  int i = 0;
+  while (b >= T.block_end[i]) ++i;
+  const EmfFuseItem& it = T.items[i];
+  const int first = i ? T.block_end[i - 1] : 0;
+  const unsigned row =
+      ((unsigned)(b - first) * EMF_FUSE_BLOCK + threadIdx.x) / 32;
+  if (row >= (unsigned)(it.Z * it.Y)) return;
+  if (it.vec)
+    emf_fuse_row<4>(T, it, row);
+  else
+    emf_fuse_row<1>(T, it, row);
+}
+
+extern "C" int emf_max_items() { return EMF_MAX_ITEMS; }
+
+// items: n host-side items (1 <= n <= EMF_MAX_ITEMS). Returns a
+// cudaError_t.
+extern "C" int emf_fusion(const EmfFuseItem* items, int n, const float* depth,
+                          int H, int W, float fx, float fy, float cx,
+                          float cy, void* stream) {
+  if (n < 1 || n > EMF_MAX_ITEMS) return (int)cudaErrorInvalidValue;
+  EmfFuseTable T;
+  T.depth = depth;
+  T.H = H; T.W = W; T.n = n;
+  T.fx = fx; T.fy = fy; T.cx = cx; T.cy = cy;
+  long long blocks = 0;
+  for (int i = 0; i < EMF_MAX_ITEMS; ++i) {
+    if (i < n) {
+      T.items[i] = items[i];
+      const long long vox = (long long)items[i].Z * items[i].Y * items[i].X;
+      if (vox < 1 || vox > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      const long long threads = 32LL * items[i].Z * items[i].Y;  // a row a warp
+      blocks += (threads + EMF_FUSE_BLOCK - 1) / EMF_FUSE_BLOCK;
+    } else {
+      T.items[i] = EmfFuseItem{};
+    }
+    T.block_end[i] = (int)blocks;
+  }
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  emf_fusion_kernel<<<(unsigned)blocks, EMF_FUSE_BLOCK, 0,
+                      (cudaStream_t)stream>>>(T);
   return (int)cudaGetLastError();
 }

@@ -77,7 +77,7 @@ def capture_neighborhoods(vols, points_cam: torch.Tensor, rel_rot,
     kernels.launch("capture", tsdf.data_ptr(), wts.data_ptr(),
                    pts.data_ptr(), cache.data_ptr(), anchor.data_ptr(),
                    N, Z, Y, X, *kernels.pose_args(rel_rot, rel_trans),
-                   float(voxel_size), shape=(Z, Y, X))
+                   float(voxel_size), shapes=[(Z, Y, X)])
     return cache, anchor
 
 

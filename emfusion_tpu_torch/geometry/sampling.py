@@ -5,9 +5,13 @@ frame maps to the fractional grid index ``v = p / voxel_size + (res-1)/2``
 per axis (X, Y, Z); volumes are (Z, Y, X) or channel-first (C, Z, Y, X),
 points component-first (3, N) / (3, H, W).
 
-:func:`sample_volume_at_points` on a single-channel volume wraps kernel
-K2 (``csrc/sample.cu``): a CUDA tensor launches the kernel, a CPU tensor
-takes :func:`sample_volume_at_points_plain`.
+:func:`sample_items` wraps kernel K2 (``csrc/sample.cu``): one launch
+samples the TSDF of the background and of every object slot of an
+E-step, each at its own points (a :class:`SampleItem`), and an object's
+foreground probability from its fg/bg counts at the same points. CUDA
+tensors launch the kernel; CPU tensors take :func:`sample_items_plain`.
+:func:`sample_volume_at_points` on a single-channel volume is its
+one-item form.
 
 The plain versions divide by tensors on the volume's device rather than
 by Python floats: PyTorch turns a division by a Python scalar on the GPU
@@ -16,6 +20,9 @@ the kernels' true division.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -99,46 +106,151 @@ def trilinear_sample_channels(vol: torch.Tensor, vx, vy, vz,
                         for v in vol])
 
 
-def sample_volume_at_points_plain(vol: torch.Tensor,
-                                  points_cam: torch.Tensor, rel_rot,
-                                  rel_trans, voxel_size,
-                                  margin: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of K2 (``kernel_getVolumeVals``,
-    ``TSDF.cu:662-726``): ``p = R p_cam + t``, ``v = p/voxel + (res-1)/2``;
-    the result is exactly 0 where the point is invalid (``z_cam <= 0``) or
-    ``v`` lies outside ``[0, res - 1 - margin)`` on any axis.
-    ``vol`` (Z, Y, X) or (C, Z, Y, X); returns the points' trailing shape
-    (with a leading C for a multi-channel volume)."""
-    shape = vol.shape[-3:]
+def _grid_and_valid(points_cam, rel_rot, rel_trans, voxel_size, shape,
+                    margin):
+    """Grid coordinates of the points and the validity of K2's sample:
+    ``z_cam > 0`` and ``v`` inside ``[0, res - 1 - margin)`` per axis."""
     Z, Y, X = shape
     vx, vy, vz, pz = transform_to_grid(points_cam, rel_rot, rel_trans,
                                        voxel_size, shape)
     valid = (pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0)
     valid &= (vx + margin < X) & (vy + margin < Y) & (vz + margin < Z)
+    return vx, vy, vz, valid
+
+
+def sample_volume_at_points_plain(vol: torch.Tensor,
+                                  points_cam: torch.Tensor, rel_rot,
+                                  rel_trans, voxel_size,
+                                  margin: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of K2's ψ (``kernel_getVolumeVals``,
+    ``TSDF.cu:662-726``): ``p = R p_cam + t``, ``v = p/voxel + (res-1)/2``;
+    the result is exactly 0 where the point is invalid (``z_cam <= 0``) or
+    ``v`` lies outside ``[0, res - 1 - margin)`` on any axis.
+    ``vol`` (Z, Y, X) or (C, Z, Y, X); returns the points' trailing shape
+    (with a leading C for a multi-channel volume)."""
+    vx, vy, vz, valid = _grid_and_valid(points_cam, rel_rot, rel_trans,
+                                        voxel_size, vol.shape[-3:], margin)
     if vol.dim() == 3:
         return trilinear_sample(vol, vx, vy, vz, valid)
     return trilinear_sample_channels(vol, vx, vy, vz, valid)
 
 
+def trilinear_fg_probs(counts: torch.Tensor, vx, vy, vz,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """The foreground probability of (2, Z, Y, X) fg/bg ``counts`` at
+    fractional grid coordinates: each corner's ``fg / max(fg + bg,
+    1e-30)``, 0 where ``fg + bg`` is 0 (``volume.fg_probs``, in its
+    operation order), blended as :func:`trilinear_sample` blends, so it
+    equals sampling ``fg_probs(counts)`` without building that volume.
+    Zero where not ``valid``."""
+    Z, Y, X = counts.shape[1:]
+    base, fx, fy, fz = trilinear_cell((Z, Y, X), vx, vy, vz)
+    fg, bg = counts[0].reshape(-1), counts[1].reshape(-1)
+
+    def corner(dz, dy, dx):
+        idx = base + ((dz * Y + dy) * X + dx)
+        f = fg[idx]
+        total = f + bg[idx]
+        return torch.where(total > 0, f / torch.clamp(total, min=1e-30),
+                           0.0)
+
+    return torch.where(valid, lerp8(corner, fx, fy, fz), 0.0)
+
+
+@dataclasses.dataclass
+class SampleItem:
+    """One volume of a ψ-sampling launch: its (Z, Y, X) TSDF ``vol``, the
+    (3, ...) camera-frame ``points`` to sample it at, the camera-to-volume
+    rotation and translation, the voxel size, and for an object its
+    (2, Z, Y, X) fg/bg ``counts``."""
+    vol: torch.Tensor
+    points: torch.Tensor
+    rot: torch.Tensor
+    trans: torch.Tensor
+    voxel_size: float
+    counts: Optional[torch.Tensor] = None
+    margin: int = 1
+
+
+Samples = List[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+
+
+def sample_items_plain(items: Sequence[SampleItem]) -> Samples:
+    """Plain PyTorch version of K2: per item, ψ at its points
+    (:func:`sample_volume_at_points_plain`) and, where it has counts, the
+    foreground probability at the same points
+    (:func:`trilinear_fg_probs`, 0 where ψ's point is invalid); each of
+    the points' trailing shape."""
+    out = []
+    for it in items:
+        vx, vy, vz, valid = _grid_and_valid(it.points, it.rot, it.trans,
+                                            it.voxel_size, it.vol.shape,
+                                            it.margin)
+        out.append((trilinear_sample(it.vol, vx, vy, vz, valid),
+                    None if it.counts is None else
+                    trilinear_fg_probs(it.counts, vx, vy, vz, valid)))
+    return out
+
+
+def sample_items(items: Sequence[SampleItem]) -> Samples:
+    """Kernel K2 wrapper (see :func:`sample_items_plain`): one launch
+    (:func:`kernels.launch_table`) for the items with points, writing
+    one packed buffer. The
+    kernel takes contiguous float32 volumes and counts, and points whose
+    rows are contiguous, on one CUDA device; anything else raises."""
+    if not any(it.vol.is_cuda or it.points.is_cuda for it in items):
+        return sample_items_plain(items)
+    dev = items[0].vol.device
+    flat, sizes = [], []
+    for it in items:
+        if it.vol.dim() != 3 or it.vol.dtype != torch.float32 or (
+                it.counts is not None
+                and (it.counts.dtype != torch.float32
+                     or it.counts.shape != (2,) + tuple(it.vol.shape))):
+            raise ValueError("sample_items: the CUDA kernel takes a float32 "
+                             "(Z, Y, X) volume and (2, Z, Y, X) counts")
+        pts = it.points.reshape(3, -1)
+        if pts.dtype != torch.float32 or pts.stride(1) != 1:
+            raise ValueError("sample_items: float32 (3, N) points with "
+                             "contiguous rows")
+        kernels.check_cuda("sample_items", it.vol, *(
+            [] if it.counts is None else [it.counts]))
+        if pts.device != dev or it.vol.device != dev:
+            raise ValueError("sample_items: all tensors must be on one "
+                             "CUDA device")
+        flat.append(pts)
+        sizes.append(pts.shape[1] * (1 if it.counts is None else 2))
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    results, table, off = [], [], 0
+    for it, pts, size in zip(items, flat, sizes):
+        n = pts.shape[1]
+        lead = it.points.shape[1:]
+        psi = out[off:off + n]
+        fg = out[off + n:off + size] if it.counts is not None else None
+        off += size
+        results.append((psi.view(lead),
+                        None if fg is None else fg.view(lead)))
+        if n == 0:
+            continue
+        Z, Y, X = it.vol.shape
+        table.append(kernels.SampleArgs(
+            it.vol.data_ptr(),
+            0 if it.counts is None else it.counts.data_ptr(),
+            pts.data_ptr(), psi.data_ptr(),
+            0 if fg is None else fg.data_ptr(), pts.stride(0), n, Z, Y, X,
+            kernels.pose_array(it.rot, it.trans), float(it.voxel_size),
+            float(it.margin)))
+    kernels.launch_table("sample", table)
+    return results
+
+
 def sample_volume_at_points(vol: torch.Tensor, points_cam: torch.Tensor,
                             rel_rot, rel_trans, voxel_size,
                             margin: int = 1) -> torch.Tensor:
-    """Kernel K2 wrapper (see :func:`sample_volume_at_points_plain`). The
-    kernel takes a single-channel float32 volume."""
+    """:func:`sample_volume_at_points_plain` of one volume; on the card
+    (one float32 (Z, Y, X) volume) a one-item :func:`sample_items`."""
     if not vol.is_cuda:
         return sample_volume_at_points_plain(vol, points_cam, rel_rot,
                                              rel_trans, voxel_size, margin)
-    if vol.dim() != 3 or vol.dtype != torch.float32:
-        raise ValueError("sample_volume_at_points: the CUDA kernel takes "
-                         "one float32 (Z, Y, X) volume")
-    Z, Y, X = vol.shape
-    lead = points_cam.shape[1:]
-    pts = points_cam.reshape(3, -1).contiguous()
-    N = pts.shape[1]
-    out = torch.empty(N, dtype=torch.float32, device=vol.device)
-    vol = vol.contiguous()
-    kernels.check_cuda("sample_volume_at_points", vol, pts, out)
-    kernels.launch("sample", vol.data_ptr(), pts.data_ptr(), out.data_ptr(),
-                   N, Z, Y, X, *kernels.pose_args(rel_rot, rel_trans),
-                   float(voxel_size), int(margin), shape=(Z, Y, X))
-    return out.reshape(lead)
+    return sample_items([SampleItem(vol, points_cam, rel_rot, rel_trans,
+                                    voxel_size, margin=margin)])[0][0]

@@ -14,8 +14,15 @@ rounding and window anchors would otherwise move at boundaries).
 
 ``launches`` counts, per kernel, the launches that reached the card, and
 ``launches_by_shape`` the same launches per kernel and volume shape (for
-the kernels that take a volume: the background's and an object's apart);
+the kernels that take volumes: a launch counts once under each shape it
+touched, so the background's and an object's are apart);
 :func:`launch` is the only place that adds to them.
+
+K1 (fusion) and K2 (sample) take a work table: a host array of
+:class:`FuseArgs` / :class:`SampleArgs`, one per volume, which the C
+entry copies into the kernel's parameters, so the background and every
+object slot take one launch (:func:`launch_table`; more volumes than the
+sources' ``EMF_MAX_ITEMS`` take one launch per that many).
 """
 
 from __future__ import annotations
@@ -45,10 +52,8 @@ _POSE = [_F] * 12   # r00 .. r22, t0, t1, t2
 # kernel name -> (source, C entry, argument types without the stream)
 KERNELS = {
     "fusion": ("fusion.cu", "emf_fusion",
-               [_P, _P, _P, _P] + [_I] * 5 + _POSE + [_F] * 8
-               + [_I, _F, _I, _F]),
-    "sample": ("sample.cu", "emf_sample",
-               [_P, _P, _P] + [_I] * 4 + _POSE + [_F, _I]),
+               [_P, _I, _P, _I, _I] + [_F] * 4),
+    "sample": ("sample.cu", "emf_sample", [_P, _I]),
     "capture": ("capture.cu", "emf_capture",
                 [_P] * 5 + [_I] * 4 + _POSE + [_F]),
     "raycast": ("raycast.cu", "emf_raycast",
@@ -59,9 +64,28 @@ KERNELS = {
              + [_I] * 3),
 }
 
+class FuseArgs(ctypes.Structure):
+    """One volume of a K1 launch (``EmfFuseItem`` in ``csrc/fusion.cu``)."""
+    _fields_ = [("tsdf", _P), ("wts", _P), ("assoc", _P), ("Z", _I),
+                ("Y", _I), ("X", _I), ("vec", _I), ("pose", _F * 12),
+                ("vs", _F), ("trunc", _F), ("max_w", _F),
+                ("carve_dist", _F), ("has_cap", _I), ("has_margin", _I),
+                ("cap", _F), ("margin", _F)]
+
+
+class SampleArgs(ctypes.Structure):
+    """One volume of a K2 launch (``EmfSampleItem`` in ``csrc/sample.cu``).
+    """
+    _fields_ = [("vol", _P), ("counts", _P), ("pts", _P), ("out", _P),
+                ("out_fg", _P), ("stride", _I), ("n", _I), ("Z", _I),
+                ("Y", _I), ("X", _I), ("pose", _F * 12), ("vs", _F),
+                ("margin", _F)]
+
+
 launches = {name: 0 for name in KERNELS}
 launches_by_shape: Counter = Counter()   # (name, (Z, Y, X)) -> launches
 build_log: dict = {}
+_libs: dict = {}
 _fns: dict = {}
 
 
@@ -123,31 +147,52 @@ def build(names=None) -> float:
     return time.perf_counter() - t0
 
 
-def _fn(name: str):
-    fn = _fns.get(name)
-    if fn is None:
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
         so = _library_path(name)
         if not os.path.exists(so):
             build([name])
-        fn = getattr(ctypes.CDLL(so), KERNELS[name][1])
+        lib = _libs[name] = ctypes.CDLL(so)
+    return lib
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_lib(name), KERNELS[name][1])
         fn.argtypes = list(KERNELS[name][2]) + [_P]
         fn.restype = _I
         _fns[name] = fn
     return fn
 
 
-def launch(name: str, *args, shape=None) -> None:
+def launch(name: str, *args, shapes=()) -> None:
     """Launch kernel ``name`` on PyTorch's current stream and count it,
-    under ``shape`` too where the caller gives its volume's. Pointers are
-    passed as ``tensor.data_ptr()``; raises if the launch was refused."""
+    once under each distinct volume shape in ``shapes`` too (the shapes of
+    the volumes the launch touched). Pointers are passed as
+    ``tensor.data_ptr()``; raises if the launch was refused."""
     fn = _fn(name)
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch "
                            f"(cudaError {err})")
     launches[name] += 1
-    if shape is not None:
-        launches_by_shape[(name, tuple(shape))] += 1
+    for shape in {tuple(s) for s in shapes}:
+        launches_by_shape[(name, shape)] += 1
+
+
+def launch_table(name: str, table, *args) -> None:
+    """Launch work-table kernel ``name`` (K1 or K2) over ``table``, a list
+    of its ctypes items, followed by ``args``: one launch for as many
+    items as the kernel's source takes (``emf_max_items``), each counted
+    under the shapes of its items' volumes."""
+    cap = _lib(name).emf_max_items()
+    for i0 in range(0, len(table), cap):
+        part = table[i0:i0 + cap]
+        arr = (type(part[0]) * len(part))(*part)
+        launch(name, ctypes.addressof(arr), len(part), *args,
+               shapes=[(p.Z, p.Y, p.X) for p in part])
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -169,3 +214,8 @@ def pose_args(rot, trans) -> list:
     r = torch.as_tensor(rot, dtype=torch.float32).detach().cpu().reshape(9)
     t = torch.as_tensor(trans, dtype=torch.float32).detach().cpu().reshape(3)
     return [float(v) for v in r.tolist()] + [float(v) for v in t.tolist()]
+
+
+def pose_array(rot, trans) -> ctypes.Array:
+    """:func:`pose_args` as the ``pose`` field of a work-table item."""
+    return (_F * 12)(*pose_args(rot, trans))

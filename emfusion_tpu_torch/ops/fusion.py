@@ -1,10 +1,12 @@
 """Projective TSDF fusion, fg/bg evidence counting, gradient volume.
 
 Port of ``emfusion_tpu/ops/fusion.py`` (``integrate_tsdf``,
-``integrate_fg_mask``, ``compute_gradients``). :func:`integrate_tsdf`
-wraps kernel K1
-(``csrc/fusion.cu``): a CUDA tensor launches the kernel, a CPU tensor
-takes :func:`integrate_tsdf_plain`.
+``integrate_fg_mask``, ``compute_gradients``).
+:func:`integrate_tsdf_batched` wraps kernel K1 (``csrc/fusion.cu``): one
+launch fuses a depth frame into the background and every object volume
+given as a :class:`FusionItem`. CUDA tensors launch the kernel; CPU
+tensors take :func:`integrate_tsdf_plain` per item.
+:func:`integrate_tsdf` is the one-volume form.
 
 Unlike the JAX version, both update ``tsdf`` and ``weights`` IN PLACE and
 return them: a 512^3 float32 volume is 537 MB, and a second copy of each
@@ -12,6 +14,9 @@ would double the fusion's memory and traffic.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
 
 import torch
 
@@ -21,6 +26,28 @@ from emfusion_tpu_torch.geometry.sampling import scalar
 
 # voxels per z-chunk of the plain version (bounds its temporaries)
 _PLAIN_CHUNK_VOXELS = 1 << 24
+# K1's voxel classes (see voxel_classes)
+SKIP, BEHIND, HOLE, NEG, BAND = 0, 1, 2, 3, 4
+
+
+@dataclasses.dataclass
+class FusionItem:
+    """One volume of a fusion launch: its (Z, Y, X) ``tsdf`` and
+    ``weights`` (updated in place), its (H, W) association image, the
+    volume-to-camera rotation and translation, voxel size, truncation
+    distance, weight cap and carve rules (see
+    :func:`integrate_tsdf_plain`; None switches a rule off)."""
+    tsdf: torch.Tensor
+    weights: torch.Tensor
+    assoc: torch.Tensor
+    rot: torch.Tensor
+    trans: torch.Tensor
+    voxel_size: float
+    truncdist: float
+    max_weight: float
+    carve_dist: Optional[float] = None
+    carve_weight_cap: Optional[float] = None
+    carve_margin: Optional[float] = None
 
 
 def _carve_flags(truncdist, carve_dist, carve_weight_cap, carve_margin):
@@ -58,6 +85,62 @@ def _axis(n: int, vs: torch.Tensor) -> torch.Tensor:
             - (n - 1) / 2.0) * vs
 
 
+def _chunks(shape, depth, rel_rot_oc, rel_trans_oc, intr, voxel_size,
+            like):
+    """Per z-chunk of a (Z, Y, X) volume: ``(z0, z1, terms)``, ``terms``
+    the voxels' projection, the depth at their pixel, ``valid`` and the
+    sdf (the part of K1 that every voxel computes)."""
+    Z, Y, X = shape
+    H, W = depth.shape
+    dev = like.device
+    fx, fy, cx, cy = intrinsics(intr)
+    fx_t, fy_t = scalar(fx, like), scalar(fy, like)
+    vs = scalar(voxel_size, like)
+    R = torch.as_tensor(rel_rot_oc, dtype=torch.float32).to(dev)
+    t = torch.as_tensor(rel_trans_oc, dtype=torch.float32).to(dev)
+    dflat = depth.reshape(-1)
+    xs, ys = _axis(X, vs), _axis(Y, vs)
+    step = max(1, _PLAIN_CHUNK_VOXELS // (Y * X))
+    for z0 in range(0, Z, step):
+        z1 = min(Z, z0 + step)
+        zs = (torch.arange(z0, z1, dtype=torch.float32, device=dev)
+              - (Z - 1) / 2.0) * vs
+        ccx, ccy, ccz, in_front, pix_x, pix_y, in_frame, pix = \
+            _project_voxels(R, t, xs, ys, zs, intr, H, W)
+        depth_val = dflat[pix]
+        valid = in_front & in_frame & (depth_val > 0.0)
+        ux = (pix_x.to(torch.float32) - cx) / fx_t
+        uy = (pix_y.to(torch.float32) - cy) / fy_t
+        lam = torch.sqrt(ux * ux + uy * uy + 1.0)
+        norm_cam = torch.sqrt(ccx * ccx + ccy * ccy + ccz * ccz)
+        yield z0, z1, dict(in_front=in_front, in_frame=in_frame, pix=pix,
+                           depth_val=depth_val, valid=valid,
+                           sdf=depth_val - norm_cam / lam)
+
+
+def voxel_classes(shape, depth: torch.Tensor, rel_rot_oc, rel_trans_oc,
+                  intr, voxel_size, truncdist) -> torch.Tensor:
+    """K1's class of each voxel of a (Z, Y, X) volume for this frame, as
+    int8: ``SKIP`` in front of the camera and outside the image, or on a
+    pixel whose depth is NaN (no rule can change it); ``BEHIND`` behind
+    the camera and ``HOLE`` on a pixel without depth (only the 0 rule,
+    where the weight is 0); ``NEG`` more than ``truncdist`` behind the
+    surface (only the -1 rule, where the weight is 0); ``BAND`` the rest,
+    which takes the full update. The kernel loads a voxel's weight unless
+    it is ``SKIP``, and its tsdf for ``BAND`` or where the weight is 0."""
+    out = torch.empty(tuple(shape), dtype=torch.int8, device=depth.device)
+    td = scalar(truncdist, depth)
+    for z0, z1, c in _chunks(shape, depth, rel_rot_oc, rel_trans_oc, intr,
+                             voxel_size, depth):
+        cls = torch.where(c["in_front"], SKIP, BEHIND)
+        cls = torch.where(c["in_front"] & c["in_frame"]
+                          & (c["depth_val"] <= 0.0), HOLE, cls)
+        cls = torch.where(c["valid"] & (c["sdf"] < -td), NEG, cls)
+        cls = torch.where(c["valid"] & (c["sdf"] >= -td), BAND, cls)
+        out[z0:z1] = cls.to(torch.int8)
+    return out
+
+
 def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
                          depth: torch.Tensor, assoc_weights: torch.Tensor,
                          rel_rot_oc, rel_trans_oc, intr, voxel_size,
@@ -76,38 +159,14 @@ def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
       average is clamped to it, only where ``tsdf_meas - tsdf`` exceeds
       ``carve_margin`` when that is given (see the JAX docstring).
     """
-    Z, Y, X = tsdf.shape
-    H, W = depth.shape
-    dev = tsdf.device
-    fx, fy, cx, cy = intrinsics(intr)
-    fx_t, fy_t = scalar(fx, tsdf), scalar(fy, tsdf)
-    vs = scalar(voxel_size, tsdf)
     td = scalar(truncdist, tsdf)
     carve, has_cap, cap, has_margin, margin = _carve_flags(
         truncdist, carve_dist, carve_weight_cap, carve_margin)
-    R = torch.as_tensor(rel_rot_oc, dtype=torch.float32).to(dev)
-    t = torch.as_tensor(rel_trans_oc, dtype=torch.float32).to(dev)
-    dflat = depth.reshape(-1)
     aflat = assoc_weights.reshape(-1)
-
-    xs, ys = _axis(X, vs), _axis(Y, vs)
-    step = max(1, _PLAIN_CHUNK_VOXELS // (Y * X))
-    for z0 in range(0, Z, step):
-        z1 = min(Z, z0 + step)
-        zs = (torch.arange(z0, z1, dtype=torch.float32, device=dev)
-              - (Z - 1) / 2.0) * vs
-        ccx, ccy, ccz, in_front, pix_x, pix_y, in_frame, pix = \
-            _project_voxels(R, t, xs, ys, zs, intr, H, W)
-        depth_val = dflat[pix]
-        assoc_val = aflat[pix]
-        valid = in_front & in_frame & (depth_val > 0.0)
-
-        ux = (pix_x.to(torch.float32) - cx) / fx_t
-        uy = (pix_y.to(torch.float32) - cy) / fy_t
-        lam = torch.sqrt(ux * ux + uy * uy + 1.0)
-        norm_cam = torch.sqrt(ccx * ccx + ccy * ccy + ccz * ccz)
-        sdf = depth_val - norm_cam / lam
-
+    for z0, z1, c in _chunks(tsdf.shape, depth, rel_rot_oc, rel_trans_oc,
+                             intr, voxel_size, tsdf):
+        valid, sdf = c["valid"], c["sdf"]
+        assoc_val = aflat[c["pix"]]
         t_old = tsdf[z0:z1]
         w_old = weights[z0:z1]
         in_band = valid & (sdf >= -td)
@@ -130,12 +189,61 @@ def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
                             w_old)
         unseen = w_old == 0.0
         t_out = torch.where(valid & (sdf < -td) & unseen, -1.0, t_out)
-        reset = unseen & ((in_frame & in_front & (depth_val <= 0.0))
-                          | ~in_front)
+        reset = unseen & ((c["in_frame"] & c["in_front"]
+                           & (c["depth_val"] <= 0.0)) | ~c["in_front"])
         t_out = torch.where(reset, 0.0, t_out)
         tsdf[z0:z1] = t_out
         weights[z0:z1] = w_out
     return tsdf, weights
+
+
+def integrate_tsdf_batched(items: Sequence[FusionItem],
+                           depth: torch.Tensor, intr) -> None:
+    """Kernel K1 wrapper: fuse ``depth`` into every item's volumes in
+    place (see :func:`integrate_tsdf_plain`), in one launch
+    (:func:`kernels.launch_table`). CPU tensors take the plain version per
+    item; CUDA tensors the kernel, which takes contiguous float32
+    volumes and images on one device, or raises."""
+    if not items:
+        return
+    if not (depth.is_cuda or any(it.tsdf.is_cuda for it in items)):
+        for it in items:
+            integrate_tsdf_plain(it.tsdf, it.weights, depth, it.assoc,
+                                 it.rot, it.trans, intr, it.voxel_size,
+                                 it.truncdist, it.max_weight, it.carve_dist,
+                                 it.carve_weight_cap, it.carve_margin)
+        return
+    H, W = depth.shape
+    kernels.check_cuda("integrate_tsdf", depth)
+    fx, fy, cx, cy = intrinsics(intr)
+    table = []
+    for it in items:
+        kernels.check_cuda("integrate_tsdf", depth, it.tsdf, it.weights,
+                           it.assoc)
+        if it.tsdf.dtype != torch.float32 or \
+                it.weights.dtype != torch.float32 or \
+                it.assoc.dtype != torch.float32 or \
+                depth.dtype != torch.float32:
+            raise ValueError("integrate_tsdf: the CUDA kernel takes float32 "
+                             "volumes and images")
+        if it.weights.shape != it.tsdf.shape or it.tsdf.dim() != 3 or \
+                tuple(it.assoc.shape) != (H, W):
+            raise ValueError("integrate_tsdf: (Z, Y, X) volumes of one "
+                             "shape and an (H, W) association image")
+        Z, Y, X = it.tsdf.shape
+        vec = X % 4 == 0 and it.tsdf.data_ptr() % 16 == 0 \
+            and it.weights.data_ptr() % 16 == 0
+        carve, has_cap, cap, has_margin, margin = _carve_flags(
+            it.truncdist, it.carve_dist, it.carve_weight_cap,
+            it.carve_margin)
+        table.append(kernels.FuseArgs(
+            it.tsdf.data_ptr(), it.weights.data_ptr(), it.assoc.data_ptr(),
+            Z, Y, X, int(vec), kernels.pose_array(it.rot, it.trans),
+            float(it.voxel_size),
+            float(it.truncdist), float(it.max_weight), carve, int(has_cap),
+            int(has_margin), cap, margin))
+    kernels.launch_table("fusion", table, depth.data_ptr(), H, W, fx, fy,
+                         cx, cy)
 
 
 def integrate_tsdf(tsdf: torch.Tensor, weights: torch.Tensor,
@@ -143,33 +251,12 @@ def integrate_tsdf(tsdf: torch.Tensor, weights: torch.Tensor,
                    rel_rot_oc, rel_trans_oc, intr, voxel_size, truncdist,
                    max_weight: float, carve_dist=None,
                    carve_weight_cap=None, carve_margin=None):
-    """Kernel K1 wrapper (see :func:`integrate_tsdf_plain`); updates
-    ``tsdf`` and ``weights`` in place and returns them."""
-    if not tsdf.is_cuda:
-        return integrate_tsdf_plain(tsdf, weights, depth, assoc_weights,
-                                    rel_rot_oc, rel_trans_oc, intr,
-                                    voxel_size, truncdist, max_weight,
-                                    carve_dist, carve_weight_cap,
-                                    carve_margin)
-    Z, Y, X = tsdf.shape
-    H, W = depth.shape
-    depth = depth.contiguous()
-    assoc_weights = assoc_weights.to(torch.float32).contiguous()
-    kernels.check_cuda("integrate_tsdf", tsdf, weights, depth,
-                       assoc_weights)
-    if tsdf.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise ValueError("integrate_tsdf: the CUDA kernel takes float32 "
-                         "volumes")
-    fx, fy, cx, cy = intrinsics(intr)
-    carve, has_cap, cap, has_margin, margin = _carve_flags(
-        truncdist, carve_dist, carve_weight_cap, carve_margin)
-    kernels.launch("fusion", tsdf.data_ptr(), weights.data_ptr(),
-                   depth.data_ptr(), assoc_weights.data_ptr(),
-                   Z, Y, X, H, W, *kernels.pose_args(rel_rot_oc,
-                                                     rel_trans_oc),
-                   fx, fy, cx, cy, float(voxel_size), float(truncdist),
-                   float(max_weight), carve, int(has_cap), cap,
-                   int(has_margin), margin, shape=(Z, Y, X))
+    """:func:`integrate_tsdf_batched` of one volume; updates ``tsdf`` and
+    ``weights`` in place and returns them."""
+    integrate_tsdf_batched([FusionItem(
+        tsdf, weights, assoc_weights, rel_rot_oc, rel_trans_oc, voxel_size,
+        truncdist, max_weight, carve_dist, carve_weight_cap, carve_margin)],
+        depth, intr)
     return tsdf, weights
 
 

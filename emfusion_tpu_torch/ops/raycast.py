@@ -252,6 +252,6 @@ def raycast_volume(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
                    mask.data_ptr(), Z, Y, X, height, width,
                    *kernels.pose_args(rel_rot_co, rel_trans_co),
                    fx, fy, cx, cy, float(voxel_size), float(truncdist),
-                   int(max_steps), shape=(Z, Y, X))
+                   int(max_steps), shapes=[(Z, Y, X)])
     return {"raylengths": rl, "vertices": verts, "normals": norms,
             "mask": mask}

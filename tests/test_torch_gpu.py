@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at small ragged shapes (sizes that are not multiples of the
 kernels' block sizes), on a scene fused by the plain versions; K1-K4 also
-at object shapes (64^3 and 37x41x53 volumes at two object voxel sizes)
-and the pipeline's fusion over a pool with an invisible slot.
+at object shapes (64^3 and 37x41x53 volumes at two object voxel sizes),
+the pipeline's fusion over a pool with an invisible slot, and K1 and K2
+over work tables of 1 to 18 volumes of mixed shapes.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -21,6 +22,7 @@ from emfusion_tpu_torch import kernels
 from emfusion_tpu_torch.config import Params
 from emfusion_tpu_torch.geometry import camera, capture, sampling
 from emfusion_tpu_torch.ops import fusion, raycast, warp
+from emfusion_tpu_torch.ops.fusion import FusionItem
 from emfusion_tpu_torch.pipeline import EMFusionPipeline
 from emfusion_tpu_torch.volume import fg_probs
 from synthetic import SyntheticScene
@@ -381,10 +383,10 @@ def test_object_raycast_kernel(cuda, obj_scene):
 
 
 def test_fusion_skips_invisible_slot(cuda):
-    """The pipeline's fusion launches K1 for the background and for each
-    active object the raycast saw, and for no other slot: an active but
+    """The pipeline's fusion launches K1 once, over the background and
+    each active object the raycast saw, and no other slot: an active but
     invisible slot and an empty one keep their volumes bit for bit (K1
-    works in place, so a launch would change them)."""
+    works in place, so fusing them would change them)."""
     o = build_object_scene((64, 64, 64), 0.009)
     sc = SyntheticScene(H=H, W=W, f=0.8 * W, floor_y=0.6)
     params = Params(frameSize=(W, H), fx=sc.f, fy=sc.f, cx=sc.cx, cy=sc.cy,
@@ -408,7 +410,7 @@ def test_fusion_skips_invisible_slot(cuda):
     by_shape = dict(kernels.launches_by_shape)
     pipe.integrate(o["depth"].to(cuda))
     torch.cuda.synchronize()
-    assert kernels.launches["fusion"] == n0 + 2
+    assert kernels.launches["fusion"] == n0 + 1       # one batched launch
     for shape in ((32, 32, 32), (64, 64, 64)):     # background, object
         key = ("fusion", shape)
         assert kernels.launches_by_shape[key] == by_shape.get(key, 0) + 1
@@ -416,3 +418,147 @@ def test_fusion_skips_invisible_slot(cuda):
     for k in (1, 2):
         assert torch.equal(p.tsdf[k], before[k][0])
         assert torch.equal(p.weights[k], before[k][1])
+
+
+# ---------------------------------------------------------------------
+# K1 and K2 over work tables: the background and object volumes of mixed
+# shapes in one launch (bit for bit against the plain versions)
+def misaligned(v):
+    """A copy of ``v`` 4 bytes past a 16-byte boundary: K1 then takes its
+    one-voxel-a-lane path although X is a multiple of 4."""
+    buf = torch.empty(v.numel() + 1, device=v.device)
+    out = buf[1:].view(v.shape)
+    out.copy_(v)
+    return out
+
+
+def fusion_models(cuda, scene, n):
+    """``n`` fusion items on the card as (tsdf, weights, assoc, R, t, vs,
+    td, carve kwargs): the scene's background volume (37x45x51, one voxel
+    a lane) with carve rules, then object volumes cycling through: a
+    sphere in 64^3 at 9 mm, in 37x41x53 at 6 mm, the background volume
+    around the camera (voxels behind it), a 64^3 volume wholly beside the
+    image, an all-zero 64^3 volume (only the -1 and 0 rules fire), a
+    16-byte-misaligned 64^3 copy, and a random 8x40x256 volume whose rows
+    run out of the image on one side (pieces of a row skipped, others
+    fused)."""
+    T = np.linalg.inv(cam_to_vol(2))
+    depth = scene["depth"].to(cuda)
+    rng = np.random.RandomState(n)
+    models = [(scene["tsdf"], scene["wts"], T[:3, :3], T[:3, 3], VOXEL,
+               TRUNC, dict(carve_dist=0.8 * TRUNC, carve_weight_cap=0.0,
+                           carve_margin=0.25))]
+    o64 = build_object_scene((64, 64, 64), 0.009)
+    o53 = build_object_scene((37, 41, 53), 0.006)
+    cycle = [
+        (o64["tsdf"], o64["wts"], o64["T"][:3, :3], o64["T"][:3, 3],
+         0.009, 0.09),
+        (o53["tsdf"], o53["wts"], o53["T"][:3, :3], o53["T"][:3, 3],
+         0.006, 0.06),
+        (scene["tsdf"], scene["wts"], torch.eye(3),
+         torch.tensor([0.1, 0.0, 0.3]), VOXEL, TRUNC),
+        (o64["tsdf"], o64["wts"], torch.eye(3),
+         torch.tensor([3.0, 0.0, 1.0]), 0.009, 0.09),
+        (torch.zeros(64, 64, 64), torch.zeros(64, 64, 64), torch.eye(3),
+         torch.tensor([0.0, 0.1, 1.0]), 0.012, 0.06),
+        (o64["tsdf"], o64["wts"], o64["T"][:3, :3], o64["T"][:3, 3],
+         0.009, 0.09),
+        (torch.tensor(rng.uniform(-1, 1, (8, 40, 256)), dtype=torch.float32),
+         torch.tensor(rng.choice([0.0, 2.0], (8, 40, 256)),
+                      dtype=torch.float32),
+         torch.eye(3), torch.tensor([0.2, 0.0, 1.0]), 0.01, 0.05)]
+    for i in range(n - 1):
+        t, w, R, tr, vs, td = cycle[i % len(cycle)]
+        shift = torch.tensor(rng.uniform(-0.05, 0.05, 3), dtype=torch.float32)
+        models.append((t, w, R, torch.as_tensor(tr) + shift, vs, td, {}))
+    out = []
+    for i, (t, w, R, tr, vs, td, kw) in enumerate(models):
+        assoc = torch.tensor(rng.uniform(0, 1, (H, W)).astype(np.float32),
+                             device=cuda)
+        out.append((t.to(cuda), w.to(cuda), assoc, torch.as_tensor(R),
+                    torch.as_tensor(tr), vs, td, kw,
+                    i > 0 and (i - 1) % len(cycle) == 5))
+    return depth, out
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 17, 18])
+def test_batched_fusion_kernel(cuda, scene, n):
+    """K1 over ``n`` volumes in one launch (18: two launches, 17 and 1)
+    against the plain version per volume, bit for bit; every volume is
+    updated in place and only its own."""
+    depth, models = fusion_models(cuda, scene, n)
+    kept, ref = [], []
+    for t, w, assoc, R, tr, vs, td, kw, mis in models:
+        kt = misaligned(t) if mis else t.clone()
+        kw_ = misaligned(w) if mis else w.clone()
+        kept.append(FusionItem(kt, kw_, assoc, R, tr, vs, td, 64.0, **kw))
+        qt, qw = t.clone(), w.clone()
+        fusion.integrate_tsdf_plain(qt, qw, depth, assoc, R.to(cuda),
+                                    tr.to(cuda), scene["intr"], vs, td, 64.0,
+                                    **kw)
+        ref.append((qt, qw))
+    before = kernels.launches["fusion"]
+    fusion.integrate_tsdf_batched(kept, depth, scene["intr"])
+    torch.cuda.synchronize()
+    assert kernels.launches["fusion"] == before + (1 if n <= 17 else 2)
+    for it, (qt, qw) in zip(kept, ref):
+        assert torch.equal(it.tsdf, qt) and torch.equal(it.weights, qw)
+    assert not torch.equal(kept[0].weights, models[0][1])
+
+
+def sample_models(cuda, scene, n):
+    """``n`` sample items on the card: the background at every pixel's
+    point, then object items cycling through: the 64^3 sphere with its
+    counts at its points, the 37x41x53 one at a strided subset, an item
+    with no points, all-zero counts, and the background volume as an
+    object with random counts."""
+    T = torch.tensor(cam_to_vol(2))
+    items = [sampling.SampleItem(scene["tsdf"].to(cuda),
+                                 scene["pts"].to(cuda), T[:3, :3], T[:3, 3],
+                                 VOXEL)]
+    o64 = build_object_scene((64, 64, 64), 0.009)
+    o53 = build_object_scene((37, 41, 53), 0.006)
+    p64 = o64["pts"].reshape(3, -1).to(cuda)
+    p53 = o53["pts"].reshape(3, -1)[:, ::3].contiguous().to(cuda)
+    rng = np.random.RandomState(n)
+    counts = torch.tensor(rng.randint(0, 3, (2,) + SHAPE).astype(np.float32))
+    cycle = [(o64["tsdf"], o64["fgc"], p64, o64["Tco"], 0.009),
+             (o53["tsdf"], o53["fgc"], p53, o53["Tco"], 0.006),
+             (o64["tsdf"], o64["fgc"], p64[:, :0], o64["Tco"], 0.009),
+             (o64["tsdf"], torch.zeros_like(o64["fgc"]), p64, o64["Tco"],
+              0.009),
+             (scene["tsdf"], counts, scene["pts"].to(cuda), T, VOXEL)]
+    for i in range(n - 1):
+        vol, fgc, pts, Tm, vs = cycle[i % len(cycle)]
+        items.append(sampling.SampleItem(vol.to(cuda), pts, Tm[:3, :3],
+                                         Tm[:3, 3], vs,
+                                         counts=fgc.to(cuda)))
+    return items
+
+
+@pytest.mark.parametrize("n", [1, 2, 6, 17, 18])
+def test_batched_sample_kernel(cuda, scene, n):
+    """K2 over ``n`` items in one launch against the plain version per
+    item, bit for bit: ψ and, for objects, the foreground probability
+    from the counts; the all-zero counts give 0. Items without points
+    are not sent to the kernel (18 items hold 15 with points)."""
+    items = sample_models(cuda, scene, n)
+    before = kernels.launches["sample"]
+    k = sampling.sample_items(items)
+    torch.cuda.synchronize()
+    assert kernels.launches["sample"] == before + 1
+    q = sampling.sample_items_plain([
+        sampling.SampleItem(it.vol, it.points, it.rot.to(cuda),
+                            it.trans.to(cuda), it.voxel_size,
+                            counts=it.counts) for it in items])
+    for it, (kp, kf), (qp, qf) in zip(items, k, q):
+        assert kp.shape == it.points.shape[1:]
+        assert torch.equal(kp, qp)
+        assert (kf is None) == (it.counts is None)
+        if kf is not None:
+            assert torch.equal(kf, qf)
+            if not it.counts.any():
+                assert not kf.any()
+    assert (k[0][0] != 0).any()
+    if n > 1:
+        assert (k[1][1] > 0.5).sum() > 100

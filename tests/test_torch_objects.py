@@ -33,8 +33,10 @@ from emfusion_tpu.volume import fg_probs as jax_fg_probs
 from emfusion_tpu_torch import kernels
 from emfusion_tpu_torch import segmentation as seg
 from emfusion_tpu_torch.config import Params
-from emfusion_tpu_torch.geometry.sampling import trilinear_sample_channels
-from emfusion_tpu_torch.ops.association import object_association_weights
+from emfusion_tpu_torch.geometry.sampling import (
+    SampleItem, sample_items, trilinear_sample_channels,
+)
+from emfusion_tpu_torch.ops.association import weights_from_samples
 from emfusion_tpu_torch.ops.fusion import integrate_fg_mask
 from emfusion_tpu_torch.ops.raycast import raycast_object
 from emfusion_tpu_torch.ops.render import make_colormap, render_phong
@@ -110,8 +112,9 @@ def test_fg_probs_matches_jax():
 
 def test_object_association_weights_match_jax(world):
     """``w`` and ``fg_vals`` of the object form: the Laplace term times the
-    fg probability sampled at the same point. The same arithmetic in the
-    same order: within 1e-6 relative."""
+    fg probability at the same point, which K2's wrapper
+    (``sample_items``) blends from the fg/bg counts. The same arithmetic
+    in the same order: within 1e-6 relative."""
     tp = JaxParams(**GATE).tsdfParams
     R, tr = rel_co(world)
     vs, td = obj(world, "voxel_size"), obj(world, "truncdist")
@@ -122,9 +125,10 @@ def test_object_association_weights_match_jax(world):
         jnp.asarray(tr), vs, td, *args,
         fg_prob_vol=jax_fg_probs(jnp.asarray(obj(world, "fg_counts"))))
     before = dict(kernels.launches)
-    w, fg = object_association_weights(
-        t(obj(world, "tsdf")), fg_probs(t(obj(world, "fg_counts"))), t(pts),
-        t(R), t(tr), float(vs), float(td), *args)
+    [(psi, fg)] = sample_items([SampleItem(
+        t(obj(world, "tsdf")), t(pts), t(R), t(tr), float(vs),
+        counts=t(obj(world, "fg_counts")))])
+    w = weights_from_samples(psi, float(td), *args, fg_vals=fg)
     assert kernels.launches == before
     np.testing.assert_allclose(w.numpy(), np.asarray(w_ref), rtol=1e-6,
                                atol=1e-7)

@@ -18,7 +18,9 @@ from emfusion_tpu.geometry.sampling import (
 from emfusion_tpu.ops import association as jassoc
 from emfusion_tpu_torch import kernels
 from emfusion_tpu_torch.geometry import capture as pcap
-from emfusion_tpu_torch.geometry.sampling import sample_volume_at_points
+from emfusion_tpu_torch.geometry.sampling import (
+    SampleItem, sample_items, sample_volume_at_points,
+)
 from emfusion_tpu_torch.ops import association as passoc
 from test_torch_fusion import RES, TRUNC, VOXEL, fused_scene, rel_co
 
@@ -63,7 +65,8 @@ def test_sample_volume_at_points_matches_jax(margin, jitter):
 
 
 def test_association_weights_match_jax():
-    """Laplace mixture and per-pixel normalisation (no objects): 1e-6
+    """Laplace mixture and per-pixel normalisation (no objects), from the
+    ψ sample of K2's wrapper (``sample_items``, a one-item table): 1e-6
     relative, with the same invalid pixels."""
     tsdf, _, depths, intr = fused_scene()
     H, W = depths[2].shape
@@ -79,8 +82,9 @@ def test_association_weights_match_jax():
     ref_n, _ = jassoc.normalize_associations(ref_w, jnp.zeros((0, H, W)),
                                              jnp.zeros((0,), bool))
     tt = [torch.tensor(a) for a in (tsdf, pts, R, t)]
-    w = passoc.association_weights(*tt, *args)
-    lap, inv = passoc.compute_laplace(*tt, *args[:3])
+    [(psi, _)] = sample_items([SampleItem(*tt, VOXEL)])
+    w = passoc.weights_from_samples(psi, *args[1:])
+    lap, inv = passoc.laplace_from_psi(psi, *args[1:3])
     n, _ = passoc.normalize_associations(w, torch.zeros((0, H, W)),
                                          torch.zeros(0, dtype=torch.bool))
     np.testing.assert_array_equal(inv.numpy(), np.asarray(ref_inv))
