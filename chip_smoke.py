@@ -40,7 +40,19 @@
 7. Fills every slot of that pipeline's pool (``max_objects``, 16) with a
    copy of one of its two objects, centred on a grid across the image,
    and holds K1 and K2 over the background and all 16 slots.
-8. Runs a small scene through the pipeline on the card and on the CPU
+8. Runs the accelerator path: the object path's scene and masks over
+   40 frames under the JAX package's accelerator tracking configuration
+   (``tracking_stride=3``, ``estep_scale=2``, ``motion_model="constvel"``,
+   ``capture_backend="band"``: one batched LM over both objects' top 4096
+   points). Prints its phases, LM iterations (camera and batched), device
+   reads per batched LM iteration, peak memory and launches; fails as the
+   object path does, and also if a frame launched K3 at the object shape
+   more than twice (once per LM stage, every slot in one launch) or the
+   batched LM read the device more than twice an iteration. Holds K3 over
+   that path's final two-slot table (2 x 4096 points), over the camera's
+   stride-3 points, and over a full pool (16 x 4096, the pool of step 7);
+   profiles three frames of the path (``chiprun_out/accel_profile_ops.txt``).
+9. Runs a small scene through the pipeline on the card and on the CPU
    (plain versions) and compares the camera poses; then a small object
    scene, comparing the live objects and the camera and object poses.
 
@@ -51,10 +63,12 @@ against its plain version at the main path's image and grid sizes.
 Prints the card's name and power limit, one JSON line with the numbers
 of every kernel (K6 with 0 launches; the ``*_object`` rows are the
 object-path holds of step 6 and the ``*_pool`` rows those of step 7,
-both with the object path's launches that touched an object volume,
-while the other rows carry the background-only main path's; the K1 rows
-also carry ``bound_all_ms``, the bound if every voxel were read and
-written), and as its last line ``{"ok": true, "device": ...}``.
+both with the object path's launches that touched an object volume; the
+``capture_*_accel`` rows are step 8's, with the accelerator path's K3
+launches at the camera's or the objects' shape; the other rows carry the
+background-only main path's; the K1 rows also carry ``bound_all_ms``,
+the bound if every voxel were read and written), and as its last line
+``{"ok": true, "device": ...}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -80,6 +94,7 @@ SFU_PER_S = 16 * 132 * 1.98e9
 VOXEL_CUT = 0.01              # ATE limit: one voxel of the 1 cm volume
 N_FRAMES = 24                 # frames of the main path run
 OBJ_FRAMES = 40               # frames of the object path run
+ACCEL_FRAMES = 40             # frames of the accelerator path run
 PROFILE_FRAMES = 3            # frames of the profiled window
 GRID = (600, 896)             # K6's reference-plane grid at 640x480
 
@@ -110,6 +125,15 @@ OBJECT_ROWS = [(f"{name}_object", src, replaces, kernel)
 POOL_ROWS = [(f"{name}_pool", src, replaces, kernel)
              for name, src, replaces, kernel in KERNEL_ROWS
              if kernel in ("fusion", "sample")]
+# K3 on the accelerator path: the camera's stride-3 capture, a batched LM
+# stage's table of both objects, and of a full pool
+ACCEL_ROWS = [(f"capture_{what}_accel",) + KERNEL_ROWS[2][1:]
+              for what in ("camera", "objects", "pool")]
+# the JAX package's accelerator tracking configuration: what its `auto`
+# knobs resolve to on a chip (pipeline.py:167-176, 261-264, 387-411),
+# volumes kept float32
+ACCEL = dict(tracking_stride=3, estep_scale=2, motion_model="constvel",
+             capture_backend="band")
 # the small card-vs-CPU object scene: 160x120, 2 cm background voxels,
 # 32^3 objects, masks every third frame, thresholds for its small masks
 SMALL_OBJECTS = dict(globalVolumeDims=(128, 128, 128), globalVoxelSize=0.02,
@@ -369,12 +393,38 @@ def hold_sample(torch, items, library=False):
         bound=bound(nbytes, ops), library_ms=lib)
 
 
+def window_voxels(torch, anchor, shape):
+    """The distinct voxels of a volume of ``shape`` that the 6^3 windows
+    at the (3, N) anchors read (clipped), marked in chunks of points."""
+    Z, Y, X = shape
+    ax, ay, az = anchor[0].long(), anchor[1].long(), anchor[2].long()
+    win = torch.arange(6, device=ax.device)
+    zc = torch.clamp(az[:, None] + win, 0, Z - 1)
+    yc = torch.clamp(ay[:, None] + win, 0, Y - 1)
+    xc = torch.clamp(ax[:, None] + win, 0, X - 1)
+    seen = torch.zeros(Z * Y * X, dtype=torch.bool, device=ax.device)
+    for c0 in range(0, ax.numel(), 32768):
+        sl = slice(c0, c0 + 32768)
+        idx = ((zc[sl, :, None, None] * Y + yc[sl, None, :, None]) * X
+               + xc[sl, None, None, :])
+        seen[idx.reshape(-1)] = True
+    return int(seen.sum())
+
+
+def capture_bound(n_points, n_vox):
+    """K3's bound: per point its 12 bytes read, its 2 x 216 cache values
+    (4 bytes each) and 3 anchors (12 bytes) written, each window voxel's
+    tsdf and weight read once; 20 float32 operations a point (the rigid
+    transform, the grid coordinates and the floors)."""
+    return bound(12 * n_points + 2 * 216 * 4 * n_points + 12 * n_points
+                 + 8 * n_vox, 20 * n_points)
+
+
 def hold_capture(torch, vols, pts, R, t, vs):
     """K3 (exact: the same voxel reads and the same anchors)."""
     from emfusion_tpu_torch.geometry.capture import (
         capture_neighborhoods, capture_neighborhoods_plain,
     )
-    Z, Y, X = vols[0].shape
     Rd, td = R.cuda(), t.cuda()
     kc, ka = capture_neighborhoods(vols, pts, R, t, vs)
     qc, qa = capture_neighborhoods_plain(vols, pts, Rd, td, vs)
@@ -382,20 +432,6 @@ def hold_capture(torch, vols, pts, R, t, vs):
     err = max_err(kc, qc) if anchor_mismatch == 0 else float("inf")
     del kc, qc
     N = pts.shape[1]
-    ax, ay, az = qa[0].long(), qa[1].long(), qa[2].long()
-    win = torch.arange(6, device=ax.device)
-    zc = torch.clamp(az[:, None] + win, 0, Z - 1)
-    yc = torch.clamp(ay[:, None] + win, 0, Y - 1)
-    xc = torch.clamp(ax[:, None] + win, 0, X - 1)
-    # the distinct voxels the windows read, marked in chunks of points
-    seen = torch.zeros(Z * Y * X, dtype=torch.bool, device=ax.device)
-    for c0 in range(0, N, 32768):
-        sl = slice(c0, c0 + 32768)
-        idx = ((zc[sl, :, None, None] * Y + yc[sl, None, :, None]) * X
-               + xc[sl, None, None, :])
-        seen[idx.reshape(-1)] = True
-    n_vox = int(seen.sum())
-    del seen
     return dict(
         max_abs_err=err, tol=0.0, anchor_mismatch=anchor_mismatch,
         points=N,
@@ -403,8 +439,36 @@ def hold_capture(torch, vols, pts, R, t, vs):
             vols, pts, R, t, vs), 10),
         plain_ms=time_ms(torch, lambda: capture_neighborhoods_plain(
             vols, pts, Rd, td, vs), 3),
-        bound=bound(12 * N + 2 * 216 * 4 * N + 12 * N + 8 * n_vox, 20 * N),
+        bound=capture_bound(N, window_voxels(torch, qa, vols[0].shape)),
         library_ms=None)
+
+
+def hold_capture_batched(torch, tsdfs, weights, pts, rel, vs):
+    """K3 over a batched LM stage's table, every slot in one launch
+    (exact, as :func:`hold_capture`): ``pts`` (S, 3, M), ``rel`` (S, 4,
+    4) camera-to-object, ``vs`` (S,)."""
+    from emfusion_tpu_torch.geometry.capture import (
+        capture_neighborhoods_batched, capture_neighborhoods_batched_plain,
+    )
+    R, t = rel[:, :3, :3], rel[:, :3, 3]
+    Rd, td = R.cuda(), t.cuda()
+    kc, ka = capture_neighborhoods_batched(tsdfs, weights, pts, R, t, vs)
+    qc, qa = capture_neighborhoods_batched_plain(tsdfs, weights, pts, Rd, td,
+                                                 vs)
+    anchor_mismatch = int((ka != qa).sum())
+    err = max_err(kc, qc) if anchor_mismatch == 0 else float("inf")
+    del kc, qc
+    S, _, M = pts.shape
+    n_vox = sum(window_voxels(torch, qa[s], tsdfs[s].shape)
+                for s in range(S))
+    return dict(
+        max_abs_err=err, tol=0.0, anchor_mismatch=anchor_mismatch,
+        points=S * M, items=S, shapes=[list(v.shape) for v in tsdfs],
+        ms=graph_ms(torch, lambda: capture_neighborhoods_batched(
+            tsdfs, weights, pts, R, t, vs), 10),
+        plain_ms=time_ms(torch, lambda: capture_neighborhoods_batched_plain(
+            tsdfs, weights, pts, Rd, td, vs), 3),
+        bound=capture_bound(S * M, n_vox), library_ms=None)
 
 
 def hold_raycast(torch, tsdf, weights, R, t, intr, vs, td, H, W, max_steps,
@@ -686,13 +750,12 @@ def object_kernel_phases(torch, pipe, depth_raw):
     return rows
 
 
-def pool_kernel_phases(torch, pipe, depth_raw):
-    """K1 and K2 at a full pool: every one of the ``max_objects`` slots
-    live and visible, each a copy of one of the object path's final
-    object volumes (in turn), its centre moved to a point of a grid
-    spread across the image at the object's depth, its orientation kept.
-    Replaces ``pipe``'s pool; the tables are the pipeline's own
-    (``fusion_items``, ``estep_items``). Returns the rows."""
+def fill_pool(torch, pipe):
+    """Replaces ``pipe``'s pool with a full one: every one of the
+    ``max_objects`` slots live and visible, each a copy of one of the
+    pool's live object volumes (in turn), its centre moved to a point of
+    a grid spread across the image at the object's depth, its orientation
+    kept."""
     from emfusion_tpu_torch.geometry.se3 import pose_inverse
     from emfusion_tpu_torch.pipeline import empty_pool
 
@@ -717,6 +780,14 @@ def pool_kernel_phases(torch, pipe, depth_raw):
     pool.visible[:] = True
     pool.object_id[:] = torch.arange(1, K + 1, dtype=torch.int32)
     pipe.state.objs = pool
+
+
+def pool_kernel_phases(torch, pipe, depth_raw):
+    """K1 and K2 at a full pool (:func:`fill_pool`, which replaces
+    ``pipe``'s pool); the tables are the pipeline's own (``fusion_items``,
+    ``estep_items``). Returns the rows."""
+    K = pipe.K
+    fill_pool(torch, pipe)
     depth, points = pipe.preprocess(depth_raw)
     return {"sample_pool": hold_sample(
                 torch, pipe.estep_items(points, list(range(K)))[0]),
@@ -799,26 +870,33 @@ def run_frames(torch, pipe, frames):
     """Drive ``pipe`` over ``frames`` through ``process_frame``: per-frame
     host ms around a synchronised frame, the kernel launches of exactly
     this run (per kernel, and per kernel and volume shape), the peak
-    device memory, and per frame the LM iterations (camera, then each
-    tracked object)."""
+    device memory, per frame the LM iterations (camera, then each
+    tracked object), and per frame its launches per kernel and volume
+    shape and the batched object LM's counts (``last_batched_lm``, or
+    None)."""
     from emfusion_tpu_torch import kernels
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    e2e, lm_iters = [], []
+    e2e, lm_iters, per_frame = [], [], []
     for i, depth in enumerate(frames):
+        before = dict(kernels.launches_by_shape)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.process_frame(None, depth, timestamp=float(i))
         torch.cuda.synchronize()
         e2e.append(1e3 * (time.perf_counter() - t0))
+        per_frame.append(dict(
+            by_shape={k: v - before.get(k, 0)
+                      for k, v in kernels.launches_by_shape.items()},
+            batched_lm=pipe.last_batched_lm if i > 0 else None))
         if i > 0:
             lm_iters.append([pipe.last_track_stats["iterations"]] + [
                 st["iterations"]
                 for st in pipe.last_obj_track_stats.values()])
     return (e2e, dict(kernels.launches), dict(kernels.launches_by_shape),
-            torch.cuda.max_memory_allocated(), lm_iters)
+            torch.cuda.max_memory_allocated(), lm_iters, per_frame)
 
 
 def camera_ate(pipe, n_frames):
@@ -853,7 +931,7 @@ def main_path(torch, params, scene, n_frames, rng, report):
     frames = [sensor_depth(scene.render(gt_pose(i)), rng)
               for i in range(n_frames)]
     pipe = EMFusionPipeline(params)
-    e2e, launches, _, peak, lm_iters = run_frames(torch, pipe, frames)
+    e2e, launches, _, peak, lm_iters, _ = run_frames(torch, pipe, frames)
     ate = camera_ate(pipe, n_frames)
     phases = pipe.timer.ms_per_call()
     report["main_path"] = dict(
@@ -934,7 +1012,8 @@ def object_path(torch, params, scene, n_frames, rng, report):
 
     frames, masks = object_scene(scene, params, n_frames, rng)
     pipe = EMFusionPipeline(params, mask_provider(masks))
-    e2e, launches, by_shape, peak, lm_iters = run_frames(torch, pipe, frames)
+    e2e, launches, by_shape, peak, lm_iters, _ = run_frames(torch, pipe,
+                                                             frames)
     ate = camera_ate(pipe, n_frames)
     phases = pipe.timer.ms_per_call()
     rec = motion_recovery(pipe)
@@ -980,20 +1059,143 @@ def object_path(torch, params, scene, n_frames, rng, report):
               f"object {oid} {r['dx_est'] * 1e3:.2f} / "
               f"{r['dx_true'] * 1e3:.2f} mm = {r['recovery']:.3f}"
               for oid, r in rec.items()), flush=True)
-    check_launches("object path", launches, PATH_KERNELS, pipe.timer)
-    check_launches("object path at the object shape", obj_launches,
+    check_objects("object path", pipe, launches, obj_launches, rec, ate)
+    return obj_launches, pipe
+
+
+def check_objects(name, pipe, launches, obj_launches, rec, ate):
+    """Fails if a kernel of the path never ran (or K1 and K2 not once per
+    fusion and per E-step), if K1-K4 never ran at the object shape, if an
+    object is lost, if an object's x-motion recovers less than 0.35 or
+    more than 2.0 of the truth (the JAX gate's band), or if the camera
+    ATE reaches a voxel."""
+    check_launches(name, launches, PATH_KERNELS, pipe.timer)
+    check_launches(f"{name} at the object shape", obj_launches,
                    [row[3] for row in OBJECT_ROWS])
     if len(rec) != len(MOVERS) or \
             sorted(r["mover"] for r in rec.values()) != list(
                 range(len(MOVERS))):
-        raise RuntimeError(f"object lost: live objects {rec}")
+        raise RuntimeError(f"{name}: object lost: live objects {rec}")
     bad = {o: r for o, r in rec.items() if not 0.35 < r["recovery"] < 2.0}
     if bad:
-        raise RuntimeError(f"object motion not recovered: {bad}")
+        raise RuntimeError(f"{name}: object motion not recovered: {bad}")
     if not ate["rmse"] < VOXEL_CUT:
-        raise RuntimeError(f"object path ATE {ate['rmse']} m >= "
-                           f"{VOXEL_CUT} m")
-    return obj_launches, pipe
+        raise RuntimeError(f"{name}: ATE {ate['rmse']} m >= {VOXEL_CUT} m")
+
+
+def accel_path(torch, params, scene, n_frames, rng, report):
+    """The accelerator path: the object path's scene and masks under the
+    JAX package's accelerator tracking configuration (``ACCEL``). Fails
+    as the object path does (:func:`check_objects`), and also if a frame
+    launched K3 at the object shape more than twice (once per batched LM
+    stage) or the batched LM read the device more than twice per pass of
+    its loop. Returns the path's K3 launches at the camera's and at the
+    objects' shape, and the pipeline."""
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    params = dataclasses.replace(params, **ACCEL)
+    frames, masks = object_scene(scene, params, n_frames, rng)
+    pipe = EMFusionPipeline(params, mask_provider(masks))
+    if (pipe.object_lm, pipe.escale, pipe.motion_model) != (
+            "batched", 2, "constvel"):
+        raise RuntimeError("accel path: the configuration did not resolve")
+    e2e, launches, by_shape, peak, lm_iters, per_frame = run_frames(
+        torch, pipe, frames)
+    ate = camera_ate(pipe, n_frames)
+    phases = pipe.timer.ms_per_call()
+    rec = motion_recovery(pipe)
+    obj_shape = tuple(pipe.state.objs.tsdf.shape[1:])
+    bg_shape = tuple(pipe.state.bg_tsdf.shape)
+    obj_launches = {k: by_shape.get((k, obj_shape), 0) for k in launches}
+    k3_obj = [f["by_shape"].get(("capture", obj_shape), 0) for f in per_frame]
+    lms = [f["batched_lm"] for f in per_frame if f["batched_lm"]]
+    if len(lms) != n_frames - 1:
+        raise RuntimeError(f"accel path: the batched object LM ran in "
+                           f"{len(lms)} of {n_frames - 1} frames")
+    reads = [lm["host_reads"] / lm["loop_iterations"] for lm in lms]
+    cam_it = float(np.mean([it[0] for it in lm_iters]))
+    obj_it = [n for it in lm_iters for n in it[1:]]
+    loop_it = [lm["loop_iterations"] for lm in lms]
+    report["accel_path"] = dict(
+        frames=n_frames, config=ACCEL, mask_frames=sorted(masks),
+        e2e_ms_per_frame=float(np.mean(e2e[1:])), e2e_ms_frame0=e2e[0],
+        e2e_ms=e2e, phase_ms_per_call=phases,
+        phase_calls=dict(pipe.timer.counts), max_memory_allocated=peak,
+        launches=launches, object_shape_launches=obj_launches,
+        k3_object_shape_launches_per_frame=k3_obj,
+        k3_camera_shape_launches=by_shape.get(("capture", bg_shape), 0),
+        ate=ate, camera_lm_iterations_mean=cam_it,
+        object_lm_iterations_mean=float(np.mean(obj_it)),
+        batched_lm_loop_iterations_mean=float(np.mean(loop_it)),
+        batched_lm_points=[lm["points"] for lm in lms],
+        host_reads_per_batched_iteration_mean=float(np.mean(reads)),
+        host_reads_per_batched_iteration_max=float(max(reads)),
+        lm_iterations=lm_iters, live_objects=pipe.active_object_ids,
+        recovery=rec)
+    print(f"accel path: {n_frames} frames {params.width}x{params.height} "
+          f"into {params.globalVolumeDims[0]}^3 with "
+          f"{len(MOVERS)} moving objects under {ACCEL}, e2e "
+          f"{np.mean(e2e[1:]):.3f} ms/frame (frames 1..), frame 0 "
+          f"{e2e[0]:.3f} ms", flush=True)
+    print("accel path phase ms per call: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
+    print("accel path launches per frame: " + ", ".join(
+        f"{k} {v / n_frames:.2f}" for k, v in launches.items())
+        + f"; K3 at the object shape {list(obj_shape)} per frame: max "
+        f"{max(k3_obj)}, total {sum(k3_obj)}", flush=True)
+    print(f"accel path LM iterations per call: camera {cam_it:.1f}, "
+          f"batched loop {np.mean(loop_it):.1f} (per object "
+          f"{np.mean(obj_it):.1f}, {lms[-1]['points']} points a slot); "
+          f"device reads per batched iteration mean {np.mean(reads):.3f}, "
+          f"max {max(reads):.3f}", flush=True)
+    print(f"accel path: peak memory {peak / 2**30:.3f} GiB; live objects "
+          f"{pipe.active_object_ids}; camera ATE rmse "
+          f"{ate['rmse'] * 1e3:.3f} mm; x-motion recovery " + ", ".join(
+              f"object {oid} {r['recovery']:.3f}"
+              for oid, r in rec.items()), flush=True)
+    check_objects("accel path", pipe, launches, obj_launches, rec, ate)
+    if max(k3_obj) > 2:
+        raise RuntimeError(f"accel path: K3 launched {max(k3_obj)} times "
+                           "at the object shape in a frame (at most 2)")
+    if max(reads) > 2:
+        raise RuntimeError(f"accel path: the batched LM read the device "
+                           f"{max(reads)} times an iteration (at most 2)")
+    return dict(camera=report["accel_path"]["k3_camera_shape_launches"],
+                objects=obj_launches["capture"]), pipe
+
+
+def accel_kernel_phases(torch, pipe, depth_raw):
+    """K3 against its plain version on the accelerator path's final
+    state: the camera's capture of its stride-3 points at the constant-
+    velocity start, and a batched LM stage's table of the live slots
+    (:meth:`EMFusionPipeline.batched_lm_inputs`). Returns the rows."""
+    from emfusion_tpu_torch.geometry.se3 import pose_inverse, reorthonormalize
+
+    s = pipe.state
+    _, points = pipe.preprocess(depth_raw)
+    k = pipe.stride
+    delta = pipe.motion_delta()
+    rel = reorthonormalize(pose_inverse(s.bg_pose) @ s.cam_pose @ delta)
+    live = [int(j) for j in np.nonzero(pipe._h_active)[0]]
+    tsdfs, wts, vs, pts, _, rel_o, _, _ = pipe.batched_lm_inputs(points,
+                                                                 live)
+    return {
+        "capture_camera_accel": hold_capture(
+            torch, (s.bg_tsdf, s.bg_weights),
+            points[:, ::k, ::k].reshape(3, -1), rel[:3, :3], rel[:3, 3],
+            pipe.voxel),
+        "capture_objects_accel": hold_capture_batched(torch, tsdfs, wts, pts,
+                                                      rel_o, vs)}
+
+
+def accel_pool_phase(torch, pipe, depth_raw):
+    """K3 over a batched LM stage's table at a full pool (:func:`fill_pool`,
+    which replaces ``pipe``'s pool): 16 slots of their top 4096 points."""
+    fill_pool(torch, pipe)
+    _, points = pipe.preprocess(depth_raw)
+    tsdfs, wts, vs, pts, _, rel_o, _, _ = pipe.batched_lm_inputs(
+        points, list(range(pipe.K)))
+    return hold_capture_batched(torch, tsdfs, wts, pts, rel_o, vs)
 
 
 def profile_frames(torch, pipe, frames, report, key):
@@ -1174,17 +1376,36 @@ def main() -> int:
     for name, r in obj_rows.items():
         print_row(name, r)
     rows.update(obj_rows)
+
+    acc_launches, pipe = accel_path(torch, params, scene, ACCEL_FRAMES, rng,
+                                    report)
+    more = [sensor_depth(scene.render(gt_pose(i), movers_at(i))[0], rng)
+            for i in range(ACCEL_FRAMES, ACCEL_FRAMES + PROFILE_FRAMES + 1)]
+    acc_rows = accel_kernel_phases(torch, pipe, more[0])
+    profile_frames(torch, pipe, more[1:], report, "accel_profile")
+    acc_rows["capture_pool_accel"] = accel_pool_phase(torch, pipe, more[0])
+    del pipe
+    torch.cuda.empty_cache()
+    for name, r in acc_rows.items():
+        print_row(name, r)
+    rows.update(acc_rows)
     small_reference(torch, np.random.default_rng(args.seed), report)
 
     bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]]
+    row_launches = {name: (obj_launches if name in obj_rows
+                           else launches)[kernel]
+                    for name, _, _, kernel in (KERNEL_ROWS + OBJECT_ROWS
+                                               + POOL_ROWS)}
+    row_launches.update(capture_camera_accel=acc_launches["camera"],
+                        capture_objects_accel=acc_launches["objects"],
+                        capture_pool_accel=acc_launches["objects"])
     table = []
-    for name, src, replaces, kernel in KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS:
+    for name, src, replaces, kernel in (KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS
+                                        + ACCEL_ROWS):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": (obj_launches if name in obj_rows
-                         else launches)[kernel],
+            "replaces": replaces, "launches": row_launches[name],
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

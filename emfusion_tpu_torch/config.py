@@ -343,30 +343,42 @@ class Resolved:
     tracking_stride: int
     estep_scale: int
     motion_model: str
+    # "serial": one LM per object slot over every tracking point;
+    # "batched": one LM over every live slot's top-``obj_track_points``
+    # points (0: every point)
+    object_lm: str
+    obj_track_points: int
 
 
 def resolve_params(params: Params) -> Resolved:
-    """Resolve the ``auto`` knobs the way the JAX package resolves them on
-    the CPU, which is its exact reference path (``pipeline.py:158-176,
-    261-264, 387-389``):
+    """Resolve the ``auto`` knobs: ``auto`` gives the JAX package's exact
+    reference path (what it picks on the CPU, ``pipeline.py:158-176,
+    261-264, 387-411``); the knobs of its accelerator configuration are
+    honoured when asked for explicitly.
 
     * ``volume_dtype``: ``auto``/``float32`` -> float32. ``bfloat16``
       volumes are not ported yet and raise ``NotImplementedError``.
     * ``tracking_stride``: 0 -> 1 (every pixel); any positive stride is
       honoured.
-    * ``estep_scale``: 0 -> 1. A coarser E-step grid is not ported yet.
-    * ``motion_model``: ``auto`` -> ``static`` (the LM starts at the
-      previous pose). ``constvel`` is not ported yet.
+    * ``estep_scale``: 0 -> 1; a scale ``s`` > 1 computes the association
+      weights on the ``[::s, ::s]`` pixel grid and upsamples them.
+    * ``motion_model``: ``auto`` -> ``static`` (the camera LM starts at the
+      previous pose); ``constvel`` starts and captures at a constant-
+      velocity prediction from the last two recorded poses.
+    * ``capture_backend`` chooses the object LM's form, as
+      ``pipeline.py:407-411, 1107-1112`` does: ``band`` runs one batched
+      LM over every live slot, each on its top ``obj_track_points``
+      association-weighted points (0: every point); ``auto`` and
+      ``gather`` run one LM per slot over every tracking point. The
+      camera LM always takes K3's exact capture: the band capture (and
+      ``camera_refine_points``, which refines it) is a TPU formulation
+      that the port does not have.
 
-    The backend knobs (``fusion_backend``, ``raycast_backend``,
-    ``estep_backend``, ``capture_backend``, ``bilateral_backend``) only
-    choose between TPU formulations of one function. The port has one
-    direct CUDA kernel for each function and ignores them, and so it
-    ignores ``matmul_bf16`` and ``camera_refine_points`` (the latter
-    refines the banded capture, which the port does not have). It also
-    ignores ``obj_track_points``, the point budget of the batched object
-    LM: each object LM runs over all tracking points, as the JAX
-    package's serial path does. ``estep_obj_subset`` is honoured.
+    The other backend knobs (``fusion_backend``, ``raycast_backend``,
+    ``estep_backend``, ``bilateral_backend``) only choose between TPU
+    formulations of one function. The port has one direct CUDA kernel for
+    each function and ignores them, and so it ignores ``matmul_bf16``.
+    ``estep_obj_subset`` is honoured.
     """
     vd = params.volume_dtype
     if vd == "auto":
@@ -375,17 +387,15 @@ def resolve_params(params: Params) -> Resolved:
         raise NotImplementedError(
             f"volume_dtype={vd!r}: only float32 volumes are ported "
             "(ROADMAP queue 1)")
-    escale = params.estep_scale or 1
-    if escale != 1:
-        raise NotImplementedError(
-            f"estep_scale={escale}: only the full-resolution E-step is "
-            "ported (ROADMAP queue 1)")
     mm = "static" if params.motion_model == "auto" else params.motion_model
-    if mm != "static":
-        raise NotImplementedError(
-            f"motion_model={mm!r}: only the static model is ported "
-            "(ROADMAP queue 1)")
-    stride = params.tracking_stride or 1
-    return Resolved(volume_dtype=vd, tracking_stride=stride,
-                    estep_scale=escale, motion_model=mm)
-
+    if mm not in ("static", "constvel"):
+        raise ValueError(f"motion_model={mm!r}: 'auto', 'static' or "
+                         "'constvel'")
+    batched = params.capture_backend == "band"
+    return Resolved(volume_dtype=vd,
+                    tracking_stride=params.tracking_stride or 1,
+                    estep_scale=max(params.estep_scale or 1, 1),
+                    motion_model=mm,
+                    object_lm="batched" if batched else "serial",
+                    obj_track_points=(max(params.obj_track_points, 0)
+                                      if batched else 0))

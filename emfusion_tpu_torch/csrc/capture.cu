@@ -1,4 +1,5 @@
-// K3: the camera LM's capture of each point's 6x6x6 voxel window.
+// K3: the LMs' capture of each point's 6x6x6 voxel window, for the camera
+// (one item) or for every object slot of a batched LM stage in one launch.
 //
 // Replaces the two TPU kernels of emfusion_tpu/ops/pallas/band_pallas.py
 // (_band_kernel, which resampled per-column z-bands of the volume, and
@@ -8,7 +9,10 @@
 // exact voxel reads. Hopper gathers directly, so this is the exact form,
 // geometry/capture.capture_neighborhoods: anchor = floor(v) - 2 per axis
 // (unclipped, from the same grid transform as the samplers), and the
-// window's voxel reads clipped to the volume, for tsdf and weights.
+// window's voxel reads clipped to the volume, for tsdf and weights. The
+// batched object LM (geometry/capture.capture_neighborhoods_batched, the
+// JAX package's lane-window take over the stacked pool) is the same
+// function per slot: each slot is an item of the launch's work table.
 //
 // Bound on the card: bytes. At 640x480, stride 1, the cache it writes is
 // 307,200 x 2 x 216 x 4 B = 531 MB, ~0.16 ms at 3.35 TB/s; the voxel
@@ -16,62 +20,101 @@
 // is (C, 6, 6, 6, N) with points minor, so the design puts the point on
 // the thread index (every store is coalesced) and one (dz, dy) window row
 // on blockIdx.y, so 36 blocks per point range are in flight and each
-// thread's six x reads sit in one or two cache lines.
+// thread's six x reads sit in one or two cache lines. A batched stage of
+// S slots x 4096 points writes only S x 7 MB, so one launch for all slots
+// (not one per slot) is the design there; the table is passed by value
+// (__grid_constant__) and a block finds its item among the block offsets.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 #define EMF_WIN 6
 #define EMF_ANCHOR_OFF 2
+#define EMF_CAPTURE_BLOCK 256
 
-__global__ void emf_capture_kernel(const float* __restrict__ tsdf,
-                                   const float* __restrict__ wts,
-                                   const float* __restrict__ pts,
-                                   float* __restrict__ cache,
-                                   int* __restrict__ anchor, int N, int Z,
-                                   int Y, int X, EmfPose P, float vs) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// One volume of the launch. Mirrored by kernels.CaptureArgs.
+struct EmfCaptureItem {
+  const float* tsdf;  // (Z, Y, X)
+  const float* wts;   // (Z, Y, X)
+  const float* pts;   // (3, n) camera points
+  float* cache;       // (2, 6, 6, 6, n)
+  int* anchor;        // (3, n)
+  int n, Z, Y, X;
+  EmfPose P;          // camera -> volume
+  float vs;
+};
+
+struct EmfCaptureTable {
+  int n;
+  int block_end[EMF_MAX_ITEMS];  // cumulative block counts
+  EmfCaptureItem items[EMF_MAX_ITEMS];
+};
+
+__global__ void __launch_bounds__(EMF_CAPTURE_BLOCK)
+    emf_capture_kernel(const __grid_constant__ EmfCaptureTable T) {
+  const int b = blockIdx.x;
+  int k = 0;
+  while (b >= T.block_end[k]) ++k;
+  const EmfCaptureItem& it = T.items[k];
+  const int i = (b - (k ? T.block_end[k - 1] : 0)) * EMF_CAPTURE_BLOCK +
+                threadIdx.x;
+  const int N = it.n;
   if (i >= N) return;
+  const int Z = it.Z, Y = it.Y, X = it.X;
   const int row = blockIdx.y;  // dz * WIN + dy
   const int dz = row / EMF_WIN, dy = row % EMF_WIN;
-  float px = pts[i], py = pts[(size_t)N + i], pz = pts[2 * (size_t)N + i];
+  const float px = it.pts[i], py = it.pts[(size_t)N + i],
+              pz = it.pts[2 * (size_t)N + i];
   float wx, wy, wz;
-  emf_apply(P, px, py, pz, wx, wy, wz);
-  float vx = wx / vs + 0.5f * (float)(X - 1);
-  float vy = wy / vs + 0.5f * (float)(Y - 1);
-  float vz = wz / vs + 0.5f * (float)(Z - 1);
-  int ax = (int)floorf(vx) - EMF_ANCHOR_OFF;
-  int ay = (int)floorf(vy) - EMF_ANCHOR_OFF;
-  int az = (int)floorf(vz) - EMF_ANCHOR_OFF;
+  emf_apply(it.P, px, py, pz, wx, wy, wz);
+  const float vx = wx / it.vs + 0.5f * (float)(X - 1);
+  const float vy = wy / it.vs + 0.5f * (float)(Y - 1);
+  const float vz = wz / it.vs + 0.5f * (float)(Z - 1);
+  const int ax = (int)floorf(vx) - EMF_ANCHOR_OFF;
+  const int ay = (int)floorf(vy) - EMF_ANCHOR_OFF;
+  const int az = (int)floorf(vz) - EMF_ANCHOR_OFF;
   if (row == 0) {
-    anchor[i] = ax;
-    anchor[(size_t)N + i] = ay;
-    anchor[2 * (size_t)N + i] = az;
+    it.anchor[i] = ax;
+    it.anchor[(size_t)N + i] = ay;
+    it.anchor[2 * (size_t)N + i] = az;
   }
   const int zc = emf_clampi(az + dz, 0, Z - 1);
   const int yc = emf_clampi(ay + dy, 0, Y - 1);
   const size_t rowbase = ((size_t)zc * Y + yc) * X;
   const size_t ch = (size_t)EMF_WIN * EMF_WIN * EMF_WIN * N;
-  float* out = cache + (size_t)row * EMF_WIN * N + i;
+  float* out = it.cache + (size_t)row * EMF_WIN * N + i;
 #pragma unroll
   for (int dx = 0; dx < EMF_WIN; ++dx) {
-    size_t idx = rowbase + emf_clampi(ax + dx, 0, X - 1);
-    out[(size_t)dx * N] = __ldg(tsdf + idx);
-    out[ch + (size_t)dx * N] = __ldg(wts + idx);
+    const size_t idx = rowbase + emf_clampi(ax + dx, 0, X - 1);
+    out[(size_t)dx * N] = __ldg(it.tsdf + idx);
+    out[ch + (size_t)dx * N] = __ldg(it.wts + idx);
   }
 }
 
-extern "C" int emf_capture(const float* tsdf, const float* wts,
-                           const float* pts, float* cache, int* anchor, int N,
-                           int Z, int Y, int X, float r00, float r01,
-                           float r02, float r10, float r11, float r12,
-                           float r20, float r21, float r22, float t0,
-                           float t1, float t2, float vs, void* stream) {
-  if (N <= 0) return 0;
-  EmfPose P = {r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
-  const int block = 256;
-  dim3 grid((N + block - 1) / block, EMF_WIN * EMF_WIN);
-  emf_capture_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      tsdf, wts, pts, cache, anchor, N, Z, Y, X, P, vs);
+extern "C" int emf_max_items() { return EMF_MAX_ITEMS; }
+
+// items: n host-side items (1 <= n <= EMF_MAX_ITEMS). Launches nothing
+// when no item has a point. Returns a cudaError_t.
+extern "C" int emf_capture(const EmfCaptureItem* items, int n,
+                           void* stream) {
+  if (n < 1 || n > EMF_MAX_ITEMS) return (int)cudaErrorInvalidValue;
+  EmfCaptureTable T;
+  T.n = n;
+  long long blocks = 0;
+  for (int k = 0; k < EMF_MAX_ITEMS; ++k) {
+    if (k < n) {
+      const EmfCaptureItem& it = items[k];
+      if (it.n < 0) return (int)cudaErrorInvalidValue;
+      T.items[k] = it;
+      blocks += (it.n + EMF_CAPTURE_BLOCK - 1) / EMF_CAPTURE_BLOCK;
+    } else {
+      T.items[k] = EmfCaptureItem{};
+    }
+    T.block_end[k] = (int)blocks;
+  }
+  if (blocks == 0) return 0;
+  dim3 grid((unsigned)blocks, EMF_WIN * EMF_WIN);
+  emf_capture_kernel<<<grid, EMF_CAPTURE_BLOCK, 0, (cudaStream_t)stream>>>(
+      T);
   return (int)cudaGetLastError();
 }

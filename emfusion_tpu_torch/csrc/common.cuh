@@ -14,8 +14,8 @@
 #include <cuda_runtime.h>
 
 // Items of one launch of the kernels that take a work table (K1 in
-// fusion.cu, K2 in sample.cu): 17 items of ~120 bytes and their block
-// offsets fit the 4 KB parameter bank. The host reads it through each of
+// fusion.cu, K2 in sample.cu, K3 in capture.cu): 17 items of ~120 bytes
+// and their block offsets fit the 4 KB parameter bank. The host reads it through each of
 // those libraries' emf_max_items().
 #define EMF_MAX_ITEMS 17
 

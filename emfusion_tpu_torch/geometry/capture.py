@@ -14,8 +14,15 @@ exact while ``v_local`` stays inside the window. A drift check
 ``(C, 6, 6, 6, N)`` with the point index minor; anchors ``(3, N)`` int32
 (x, y, z), unclipped.
 
-:func:`capture_neighborhoods` on a CUDA tensor launches K3; on a CPU
-tensor it takes :func:`capture_neighborhoods_plain`.
+The batched object LM captures S slots at once
+(:func:`capture_neighborhoods_batched`: caches ``(S, 2, 6, 6, 6, M)``,
+anchors ``(S, 3, M)``), and the cache samplers below take such leading
+slot dimensions too: points ``(..., 3, N)``, rotations ``(..., 3, 3)``,
+translations ``(..., 3)`` and voxel sizes ``(...)`` or a scalar.
+
+On a CUDA tensor the capture launches K3, one launch for the camera or
+for all slots of a batch (a work table, :func:`kernels.launch_table`); on
+a CPU tensor it takes :func:`capture_neighborhoods_plain`.
 """
 
 from __future__ import annotations
@@ -54,46 +61,128 @@ def capture_neighborhoods_plain(vols, points_cam: torch.Tensor, rel_rot,
     return cache, anchor
 
 
+def capture_neighborhoods_batched_plain(tsdfs, weights, points_cam,
+                                        rel_rot, rel_trans, voxel_sizes):
+    """Plain PyTorch version of :func:`capture_neighborhoods_batched`:
+    :func:`capture_neighborhoods_plain` per slot, stacked."""
+    out = [capture_neighborhoods_plain((tsdfs[s], weights[s]),
+                                       points_cam[s], rel_rot[s],
+                                       rel_trans[s], voxel_sizes[s])
+           for s in range(len(points_cam))]
+    return (torch.stack([c for c, _ in out]),
+            torch.stack([a for _, a in out]))
+
+
+def _launch_capture(jobs) -> None:
+    """K3 over ``jobs``: (tsdf, weights, points (3, N), rot, trans,
+    voxel size, cache out (2, 6, 6, 6, N), anchor out (3, N)) each, in
+    one launch (a work table); jobs without points are not sent. Float32
+    (Z, Y, X) volumes and (3, N) points, contiguous, on one CUDA device;
+    anything else raises."""
+    table = []
+    for tsdf, wts, pts, rot, trans, vs, cache, anchor in jobs:
+        if tsdf.dim() != 3 or wts.shape != tsdf.shape or any(
+                v.dtype != torch.float32 for v in (tsdf, wts, pts)):
+            raise ValueError("capture_neighborhoods: the CUDA kernel takes "
+                             "two float32 (Z, Y, X) volumes (tsdf, "
+                             "weights) and float32 (3, N) points")
+        kernels.check_cuda("capture_neighborhoods", tsdf, wts, pts, cache,
+                           anchor)
+        N = pts.shape[1]
+        if N == 0:
+            continue
+        Z, Y, X = tsdf.shape
+        table.append(kernels.CaptureArgs(
+            tsdf.data_ptr(), wts.data_ptr(), pts.data_ptr(),
+            cache.data_ptr(), anchor.data_ptr(), N, Z, Y, X,
+            kernels.pose_array(rot, trans), float(vs)))
+    kernels.launch_table("capture", table)
+
+
 def capture_neighborhoods(vols, points_cam: torch.Tensor, rel_rot,
                           rel_trans, voxel_size):
-    """Kernel K3 wrapper (see :func:`capture_neighborhoods_plain`). The
-    kernel takes two float32 volumes, ``(tsdf, weights)``, which need not
-    be stacked (a stack of two 512^3 volumes would copy 1 GB)."""
+    """Kernel K3 wrapper (see :func:`capture_neighborhoods_plain`): a
+    one-item launch. The kernel takes two float32 volumes, ``(tsdf,
+    weights)``, which need not be stacked (a stack of two 512^3 volumes
+    would copy 1 GB)."""
     if not vols[0].is_cuda:
         return capture_neighborhoods_plain(vols, points_cam, rel_rot,
                                            rel_trans, voxel_size)
     if len(vols) != 2:
         raise ValueError("capture_neighborhoods: the CUDA kernel takes two "
                          "volumes (tsdf, weights)")
-    tsdf, wts = vols[0].contiguous(), vols[1].contiguous()
-    Z, Y, X = tsdf.shape
     pts = points_cam.contiguous()
     N = pts.shape[1]
+    dev = vols[0].device
     cache = torch.empty((2, WIN, WIN, WIN, N), dtype=torch.float32,
-                        device=tsdf.device)
-    anchor = torch.empty((3, N), dtype=torch.int32, device=tsdf.device)
-    kernels.check_cuda("capture_neighborhoods", tsdf, wts, pts, cache,
-                       anchor)
-    kernels.launch("capture", tsdf.data_ptr(), wts.data_ptr(),
-                   pts.data_ptr(), cache.data_ptr(), anchor.data_ptr(),
-                   N, Z, Y, X, *kernels.pose_args(rel_rot, rel_trans),
-                   float(voxel_size), shapes=[(Z, Y, X)])
+                        device=dev)
+    anchor = torch.empty((3, N), dtype=torch.int32, device=dev)
+    _launch_capture([(vols[0], vols[1], pts, rel_rot, rel_trans,
+                      voxel_size, cache, anchor)])
+    return cache, anchor
+
+
+def capture_neighborhoods_batched(tsdfs, weights, points_cam: torch.Tensor,
+                                  rel_rot, rel_trans, voxel_sizes):
+    """The capture of S slots (``capture.py:112-176`` of the JAX package):
+    ``tsdfs``/``weights`` S (Z, Y, X) volumes each (a sequence, or a
+    stacked (S, Z, Y, X) tensor; shapes may differ between slots),
+    ``points_cam`` (S, 3, M), ``rel_rot`` (S, 3, 3), ``rel_trans`` (S, 3)
+    and ``voxel_sizes`` (S,) on the host. Returns ``(cache (S, 2, 6, 6,
+    6, M) f32, anchor (S, 3, M) int32)``, each slot's the clipped voxel
+    reads of :func:`capture_neighborhoods_plain`. On the card, one K3
+    launch for every slot."""
+    if not points_cam.is_cuda:
+        return capture_neighborhoods_batched_plain(
+            tsdfs, weights, points_cam, rel_rot, rel_trans, voxel_sizes)
+    S, _, M = points_cam.shape
+    pts = points_cam.contiguous()
+    cache = torch.empty((S, 2, WIN, WIN, WIN, M), dtype=torch.float32,
+                        device=pts.device)
+    anchor = torch.empty((S, 3, M), dtype=torch.int32, device=pts.device)
+    _launch_capture([(tsdfs[s], weights[s], pts[s], rel_rot[s],
+                      rel_trans[s], voxel_sizes[s], cache[s], anchor[s])
+                     for s in range(S)])
     return cache, anchor
 
 
 def _tents(vl: torch.Tensor) -> torch.Tensor:
-    """(WIN, N) hat-function weights: tent(vl - d)."""
+    """(..., WIN, N) hat-function weights: tent(vl - d)."""
     d = torch.arange(WIN, dtype=torch.float32, device=vl.device)[:, None]
-    return torch.clamp(1.0 - torch.abs(vl[None, :] - d), min=0.0)
+    return torch.clamp(1.0 - torch.abs(vl[..., None, :] - d), min=0.0)
+
+
+def _grid(points_cam, rel_rot, rel_trans, voxel_size, shape):
+    """:func:`~emfusion_tpu_torch.geometry.sampling.transform_to_grid`
+    over leading slot dimensions (points (..., 3, N)), with the same
+    products and sums in the same order."""
+    Z, Y, X = shape
+    dev = points_cam.device
+    R = torch.as_tensor(rel_rot, dtype=torch.float32).to(dev)[..., None]
+    t = torch.as_tensor(rel_trans, dtype=torch.float32).to(dev)[..., None]
+    vs = torch.as_tensor(voxel_size, dtype=torch.float32).to(dev)[..., None]
+    px = points_cam[..., 0, :]
+    py = points_cam[..., 1, :]
+    pz = points_cam[..., 2, :]
+    wx = R[..., 0, 0, :] * px + R[..., 0, 1, :] * py + R[..., 0, 2, :] * pz \
+        + t[..., 0, :]
+    wy = R[..., 1, 0, :] * px + R[..., 1, 1, :] * py + R[..., 1, 2, :] * pz \
+        + t[..., 1, :]
+    wz = R[..., 2, 0, :] * px + R[..., 2, 1, :] * py + R[..., 2, 2, :] * pz \
+        + t[..., 2, :]
+    vx = wx / vs + (X - 1.0) / 2.0
+    vy = wy / vs + (Y - 1.0) / 2.0
+    vz = wz / vs + (Z - 1.0) / 2.0
+    return vx, vy, vz, pz
 
 
 def _local_coords(anchor, points_cam, rel_rot, rel_trans, voxel_size,
                   shape):
-    vx, vy, vz, pz = transform_to_grid(points_cam, rel_rot, rel_trans,
-                                       voxel_size, shape)
-    lx = vx - anchor[0].to(torch.float32)
-    ly = vy - anchor[1].to(torch.float32)
-    lz = vz - anchor[2].to(torch.float32)
+    vx, vy, vz, pz = _grid(points_cam, rel_rot, rel_trans, voxel_size,
+                           shape)
+    lx = vx - anchor[..., 0, :].to(torch.float32)
+    ly = vy - anchor[..., 1, :].to(torch.float32)
+    lz = vz - anchor[..., 2, :].to(torch.float32)
     return (vx, vy, vz, pz), (lx, ly, lz)
 
 
@@ -115,25 +204,26 @@ def _window_ok(lx, ly, lz):
 def out_of_window_count(anchor, points_cam, rel_rot, rel_trans, voxel_size,
                         shape) -> torch.Tensor:
     """Number of relevant points outside their cached windows at this
-    pose (0-d int tensor)."""
+    pose (int tensor, one per slot)."""
     (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
         anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
     rel = _relevant(vx, vy, vz, pz, shape)
-    return torch.sum(rel & ~_window_ok(lx, ly, lz))
+    return torch.sum(rel & ~_window_ok(lx, ly, lz), dim=-1)
 
 
 def drift_ok(anchor, points_cam, rel_rot, rel_trans, voxel_size, shape,
              tol: float = 0.01) -> torch.Tensor:
-    """True (0-d bool tensor) iff at most ``tol`` of the relevant points
-    left their windows (``vl`` outside [0, WIN-2] on an axis)."""
+    """True (bool tensor, one per slot) iff at most ``tol`` of the
+    relevant points left their windows (``vl`` outside [0, WIN-2] on an
+    axis)."""
     (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
         anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
     rel = _relevant(vx, vy, vz, pz, shape)
     hi = WIN - 2.0
     bad = (lx < 0) | (lx > hi) | (ly < 0) | (ly > hi) \
         | (lz < 0) | (lz > hi)
-    nrel = torch.clamp(torch.sum(rel.to(torch.float32)), min=1.0)
-    nbad = torch.sum((rel & bad).to(torch.float32))
+    nrel = torch.clamp(torch.sum(rel.to(torch.float32), dim=-1), min=1.0)
+    nbad = torch.sum((rel & bad).to(torch.float32), dim=-1)
     return nbad <= tol * nrel
 
 
@@ -141,17 +231,17 @@ def sample_value_from_cache(cache: torch.Tensor, anchor, points_cam,
                             rel_rot, rel_trans, voxel_size, shape,
                             margin: int = 1) -> torch.Tensor:
     """Cache equivalent of ``sample_volume_at_points`` (same validity).
-    ``cache`` (C, W, W, W, N) -> (C, N)."""
+    ``cache`` (..., C, W, W, W, N) -> (..., C, N)."""
     Z, Y, X = shape
     (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
         anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
     valid = (pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0) \
         & (vx + margin < X) & (vy + margin < Y) & (vz + margin < Z) \
         & _window_ok(lx, ly, lz)
-    cx = torch.sum(cache * _tents(lx)[None, None, None], dim=3)
-    cy = torch.sum(cx * _tents(ly)[None, None], dim=2)
-    out = torch.sum(cy * _tents(lz)[None], dim=1)
-    return torch.where(valid[None], out, 0.0)
+    cx = torch.sum(cache * _tents(lx)[..., None, None, None, :, :], dim=-2)
+    cy = torch.sum(cx * _tents(ly)[..., None, None, :, :], dim=-2)
+    out = torch.sum(cy * _tents(lz)[..., None, :, :], dim=-2)
+    return torch.where(valid[..., None, :], out, 0.0)
 
 
 def sample_system_from_cache(cache_t: torch.Tensor, anchor, points_cam,
@@ -159,7 +249,7 @@ def sample_system_from_cache(cache_t: torch.Tensor, anchor, points_cam,
     """Cache equivalent of ``sample_system_at_points``: residual psi
     (margin-1 validity) and the finite-difference gradient (margin 2, with
     the direct sampler's per-shift validity). ``cache_t`` is the TSDF
-    channel (W, W, W, N). Returns (psi (N,), g3 (3, N))."""
+    channel (..., W, W, W, N). Returns (psi (..., N), g3 (..., 3, N))."""
     Z, Y, X = shape
     (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
         anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
@@ -167,16 +257,19 @@ def sample_system_from_cache(cache_t: torch.Tensor, anchor, points_cam,
     ty, ty1 = _tents(ly), _tents(ly + 1.0)
     tz, tz1 = _tents(lz), _tents(lz + 1.0)
 
-    cx = torch.sum(cache_t * tx[None, None], dim=2)          # (W, W, N)
-    cx1 = torch.sum(cache_t * tx1[None, None], dim=2)
-    cy = torch.sum(cx * ty[None], dim=1)                     # (W, N)
-    cy1 = torch.sum(cx * ty1[None], dim=1)
-    cy_x1 = torch.sum(cx1 * ty[None], dim=1)
+    def over(t, lead):
+        return t[(Ellipsis,) + (None,) * lead + (slice(None), slice(None))]
 
-    base_val = torch.sum(cy * tz, dim=0)                     # (N,)
-    sx = torch.sum(cy_x1 * tz, dim=0)
-    sy = torch.sum(cy1 * tz, dim=0)
-    sz = torch.sum(cy * tz1, dim=0)
+    cx = torch.sum(cache_t * over(tx, 2), dim=-2)            # (W, W, N)
+    cx1 = torch.sum(cache_t * over(tx1, 2), dim=-2)
+    cy = torch.sum(cx * over(ty, 1), dim=-2)                 # (W, N)
+    cy1 = torch.sum(cx * over(ty1, 1), dim=-2)
+    cy_x1 = torch.sum(cx1 * over(ty, 1), dim=-2)
+
+    base_val = torch.sum(cy * tz, dim=-2)                    # (N,)
+    sx = torch.sum(cy_x1 * tz, dim=-2)
+    sy = torch.sum(cy1 * tz, dim=-2)
+    sz = torch.sum(cy * tz1, dim=-2)
 
     inside = (pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0) \
         & _window_ok(lx, ly, lz)
@@ -194,6 +287,7 @@ def sample_system_from_cache(cache_t: torch.Tensor, anchor, points_cam,
     sx = torch.where(vld(1, 0, 0), sx, 0.0)
     sy = torch.where(vld(0, 1, 0), sy, 0.0)
     sz = torch.where(vld(0, 0, 1), sz, 0.0)
-    g3 = torch.stack([sx - base, sy - base, sz - base]) \
-        / torch.as_tensor(voxel_size, dtype=torch.float32).to(cache_t.device)
+    vs = torch.as_tensor(voxel_size, dtype=torch.float32).to(cache_t.device)
+    g3 = torch.stack([sx - base, sy - base, sz - base], dim=-2) \
+        / vs[..., None, None]
     return psi, g3

@@ -18,11 +18,12 @@ the kernels that take volumes: a launch counts once under each shape it
 touched, so the background's and an object's are apart);
 :func:`launch` is the only place that adds to them.
 
-K1 (fusion) and K2 (sample) take a work table: a host array of
-:class:`FuseArgs` / :class:`SampleArgs`, one per volume, which the C
-entry copies into the kernel's parameters, so the background and every
-object slot take one launch (:func:`launch_table`; more volumes than the
-sources' ``EMF_MAX_ITEMS`` take one launch per that many).
+K1 (fusion), K2 (sample) and K3 (capture) take a work table: a host
+array of :class:`FuseArgs` / :class:`SampleArgs` / :class:`CaptureArgs`,
+one per volume, which the C entry copies into the kernel's parameters, so
+the background and every object slot take one launch
+(:func:`launch_table`; more volumes than the sources' ``EMF_MAX_ITEMS``
+take one launch per that many).
 """
 
 from __future__ import annotations
@@ -54,8 +55,7 @@ KERNELS = {
     "fusion": ("fusion.cu", "emf_fusion",
                [_P, _I, _P, _I, _I] + [_F] * 4),
     "sample": ("sample.cu", "emf_sample", [_P, _I]),
-    "capture": ("capture.cu", "emf_capture",
-                [_P] * 5 + [_I] * 4 + _POSE + [_F]),
+    "capture": ("capture.cu", "emf_capture", [_P, _I]),
     "raycast": ("raycast.cu", "emf_raycast",
                 [_P] * 6 + [_I] * 5 + _POSE + [_F] * 6 + [_I]),
     "bilateral": ("bilateral.cu", "emf_bilateral",
@@ -80,6 +80,14 @@ class SampleArgs(ctypes.Structure):
                 ("out_fg", _P), ("stride", _I), ("n", _I), ("Z", _I),
                 ("Y", _I), ("X", _I), ("pose", _F * 12), ("vs", _F),
                 ("margin", _F)]
+
+
+class CaptureArgs(ctypes.Structure):
+    """One volume of a K3 launch (``EmfCaptureItem`` in
+    ``csrc/capture.cu``)."""
+    _fields_ = [("tsdf", _P), ("wts", _P), ("pts", _P), ("cache", _P),
+                ("anchor", _P), ("n", _I), ("Z", _I), ("Y", _I), ("X", _I),
+                ("pose", _F * 12), ("vs", _F)]
 
 
 launches = {name: 0 for name in KERNELS}
@@ -183,8 +191,8 @@ def launch(name: str, *args, shapes=()) -> None:
 
 
 def launch_table(name: str, table, *args) -> None:
-    """Launch work-table kernel ``name`` (K1 or K2) over ``table``, a list
-    of its ctypes items, followed by ``args``: one launch for as many
+    """Launch work-table kernel ``name`` (K1, K2 or K3) over ``table``, a
+    list of its ctypes items, followed by ``args``: one launch for as many
     items as the kernel's source takes (``emf_max_items``), each counted
     under the shapes of its items' volumes."""
     cap = _lib(name).emf_max_items()

@@ -2,8 +2,9 @@
 card, at small ragged shapes (sizes that are not multiples of the
 kernels' block sizes), on a scene fused by the plain versions; K1-K4 also
 at object shapes (64^3 and 37x41x53 volumes at two object voxel sizes),
-the pipeline's fusion over a pool with an invisible slot, and K1 and K2
-over work tables of 1 to 18 volumes of mixed shapes.
+the pipeline's fusion over a pool with an invisible slot, K1, K2 and K3
+over work tables of 1 to 18 volumes of mixed shapes, and the batched
+object LM on the card against the same call on the CPU.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -24,6 +25,7 @@ from emfusion_tpu_torch.geometry import camera, capture, sampling
 from emfusion_tpu_torch.ops import fusion, raycast, warp
 from emfusion_tpu_torch.ops.fusion import FusionItem
 from emfusion_tpu_torch.pipeline import EMFusionPipeline
+from emfusion_tpu_torch.tracking import TrackConfig, track_volumes_batched
 from emfusion_tpu_torch.volume import fg_probs
 from synthetic import SyntheticScene
 
@@ -562,3 +564,112 @@ def test_batched_sample_kernel(cuda, scene, n):
     assert (k[0][0] != 0).any()
     if n > 1:
         assert (k[1][1] > 0.5).sum() > 100
+
+
+def capture_slots(cuda, n, m):
+    """``n`` slots of a batched capture on the card, cycling through the
+    64^3 sphere at 9 mm and a 40^3 crop of it at 6 mm, each at its
+    frame-2 pose, moved up to 5 cm, with ``m`` of its points (a strided
+    pick of the image's, so some lie beyond the volume and some are
+    invalid)."""
+    o64 = build_object_scene((64, 64, 64), 0.009)
+    o40 = build_object_scene((40, 40, 40), 0.006)
+    rng = np.random.RandomState(n)
+    tsdfs, wts, pts, rots, trans, vss = [], [], [], [], [], []
+    for i in range(n):
+        o = (o64, o40)[i % 2]
+        flat = o["pts"].reshape(3, -1)
+        step = flat.shape[1] // m
+        pts.append(flat[:, (i % step)::step][:, :m])
+        tsdfs.append(o["tsdf"].to(cuda))
+        wts.append(o["wts"].to(cuda))
+        rots.append(o["Tco"][:3, :3])
+        trans.append(o["Tco"][:3, 3] + torch.tensor(
+            rng.uniform(-0.05, 0.05, 3), dtype=torch.float32))
+        vss.append(o["vs"])
+    return (tsdfs, wts, torch.stack(pts).to(cuda), torch.stack(rots),
+            torch.stack(trans), torch.tensor(vss, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("n", [1, 3, 18])
+def test_batched_capture_kernel(cuda, n):
+    """K3 over ``n`` slots in one launch (18: two launches, 17 and 1),
+    mixed 64^3 and 40^3 volumes, 1000 points a slot (not a multiple of
+    the 256-point block), against the plain version per slot, bit for
+    bit; each launch counts once under each volume shape it touched."""
+    tsdfs, wts, pts, rots, trans, vss = capture_slots(cuda, n, 1000)
+    before = kernels.launches["capture"]
+    by_shape = dict(kernels.launches_by_shape)
+    kc, ka = capture.capture_neighborhoods_batched(tsdfs, wts, pts, rots,
+                                                   trans, vss)
+    torch.cuda.synchronize()
+    assert kernels.launches["capture"] == before + (1 if n <= 17 else 2)
+    want = {}
+    for i0 in range(0, n, 17):
+        for shape in {tuple(t.shape) for t in tsdfs[i0:i0 + 17]}:
+            want[shape] = want.get(shape, 0) + 1
+    for shape, count in want.items():
+        key = ("capture", shape)
+        assert kernels.launches_by_shape[key] == by_shape.get(key, 0) + count
+    qc, qa = capture.capture_neighborhoods_batched_plain(
+        tsdfs, wts, pts, rots.to(cuda), trans.to(cuda), vss)
+    assert kc.shape == (n, 2, 6, 6, 6, 1000)
+    assert torch.equal(ka, qa) and torch.equal(kc, qc)
+    inside = ((qa >= 0) & (qa + 6 <= 40)).all(dim=1)
+    assert inside.any() and (~inside).any()
+
+
+def rot_angle(a, b):
+    d = a[:3, :3].double().T @ b[:3, :3].double()
+    v = torch.stack([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0], d[1, 0] - d[0, 1]])
+    return float(torch.arcsin(torch.clamp(v.norm() / 2.0, max=1.0)))
+
+
+def test_batched_lm_card_matches_cpu(cuda):
+    """``track_volumes_batched`` on the card (one K3 launch per stage)
+    against the same call on the CPU: three slots of the 64^3 sphere at
+    frame 1's points (a frame it was fused from, so both LMs converge),
+    one at the frame's camera-to-object transform, one 1.9 voxels off it,
+    one inactive, 30 iterations (the first two converge in stage 2). The
+    card sums the systems in another order: the tolerances of the CPU
+    test against the JAX package (tests/test_torch_batched_lm.py),
+    translations within 0.01 voxel, rotations within 1e-4 rad, the same
+    converged flags and re-captures, iterations within 3, the last
+    weights within 1e-5."""
+    o = build_object_scene((64, 64, 64), 0.009)
+    sc = SyntheticScene(H=H, W=W, f=0.8 * W, floor_y=0.6)
+    cam, T = obj_to_cam(1)
+    d, m = sc.render(cam, OBJ_CENTRE)
+    flat = camera.backproject_depth(camera.preprocess_depth(torch.tensor(d)),
+                                    o["intr"]).reshape(3, -1)
+    mask = torch.tensor(m).reshape(-1).float()
+    idx = torch.sort(mask, descending=True, stable=True).indices[:2048]
+    vs = o["vs"]
+    rels = torch.tensor(np.linalg.inv(T)).repeat(3, 1, 1)
+    rels[1, :3, 3] += torch.tensor([1.5, -1.0, 0.5]) * vs
+    args = dict(voxel_sizes=torch.full((3,), vs),
+                rel_poses=rels, cfg=TrackConfig(max_iter=30),
+                active=torch.tensor([True, True, False]))
+    pts = flat[:, idx].repeat(3, 1, 1)
+    asc = mask[idx].repeat(3, 1)
+    q, qs = track_volumes_batched([o["tsdf"]] * 3, [o["wts"]] * 3,
+                                  points=pts, assoc=asc, **args)
+    assert qs["converged"].all() and qs["recaptures"].tolist() == [1, 1, 0]
+    before = kernels.launches["capture"]
+    k, ks = track_volumes_batched([o["tsdf"].to(cuda)] * 3,
+                                  [o["wts"].to(cuda)] * 3,
+                                  points=pts.to(cuda), assoc=asc.to(cuda),
+                                  **args)
+    torch.cuda.synchronize()
+    assert kernels.launches["capture"] == before + 1 + int(
+        ks["recaptures"].any())
+    for s in range(3):
+        assert (k[s, :3, 3] - q[s, :3, 3]).norm() < 0.01 * vs, s
+        assert rot_angle(k[s], q[s]) < 1e-4, s
+    assert torch.equal(ks["converged"], qs["converged"])
+    assert torch.equal(ks["recaptures"], qs["recaptures"])
+    assert (ks["iterations"] - qs["iterations"]).abs().max() <= 3
+    for key in ("track_weights", "huber_weights"):
+        assert torch.allclose(ks[key].cpu(), qs[key], rtol=0, atol=1e-5), key
+    assert (qs["huber_weights"][:2] != 0).sum(dim=1).min() > 100
+    assert ks["host_reads"] <= 2 * ks["loop_iterations"]

@@ -117,18 +117,41 @@ def test_default_config_parses_as_in_jax():
     assert port.globalVolumeDims == (512, 512, 512)
 
 
-@pytest.mark.parametrize("knob, value", [
-    ("volume_dtype", "bfloat16"), ("estep_scale", 2),
-    ("motion_model", "constvel")])
-def test_unported_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("knob, value, error", [
+    ("volume_dtype", "bfloat16", NotImplementedError),
+    ("volume_dtype", "float16", NotImplementedError),
+    ("motion_model", "accelerated", ValueError)])
+def test_unported_knobs_raise(knob, value, error):
+    """bf16 volume storage (and any other than float32) is not ported; a
+    motion model the JAX package does not have is refused."""
+    with pytest.raises(error):
         resolve_params(Params(**{knob: value}))
+
+
+@pytest.mark.parametrize("over, want", [
+    (dict(estep_scale=2), dict(estep_scale=2)),
+    (dict(motion_model="constvel"), dict(motion_model="constvel")),
+    (dict(capture_backend="band"),
+     dict(object_lm="batched", obj_track_points=4096)),
+    (dict(capture_backend="band", obj_track_points=0),
+     dict(object_lm="batched", obj_track_points=0)),
+    (dict(capture_backend="gather"),
+     dict(object_lm="serial", obj_track_points=0))])
+def test_accelerator_knobs_resolve(over, want):
+    """The JAX package's accelerator knobs, asked for explicitly, resolve
+    as it resolves them (``pipeline.py:167-176, 261-264, 387-411``):
+    ``band`` capture means the batched object LM over the top
+    ``obj_track_points`` points (0: every point)."""
+    r = resolve_params(Params(**over))
+    assert {k: getattr(r, k) for k in want} == want
+    assert r.volume_dtype == "float32"
 
 
 def test_auto_knobs_resolve_to_the_exact_path():
     r = resolve_params(Params())
     assert (r.volume_dtype, r.tracking_stride, r.estep_scale,
-            r.motion_model) == ("float32", 1, 1, "static")
+            r.motion_model, r.object_lm, r.obj_track_points) == (
+                "float32", 1, 1, "static", "serial", 0)
     assert resolve_params(Params(tracking_stride=3)).tracking_stride == 3
 
 
