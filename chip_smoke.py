@@ -16,21 +16,26 @@
    the fusion's voxel classes (in the image, behind the camera, changed)
    from which its bound is counted.
 3. Runs the main path, ``EMFusionPipeline.process_frame`` without
-   objects, over 24 frames of a smooth ground-truth camera path; fails
-   unless every kernel of the path was launched in that run, K1 once per
-   fusion and K2 once per E-step, and the camera ATE is under 1 voxel.
+   objects, over 24 frames of a smooth ground-truth camera path with the
+   default LM sampler (gather, the exact path); fails unless every kernel
+   of the path was launched in that run, K1 once per fusion and K2 once
+   per E-step, and the camera ATE is under 1 voxel. Prints the camera
+   LM's iterations a call, ms an iteration, re-captures and dropped
+   points. Then (after step 4) runs the same frames with the capture
+   sampler (which also launches K3) and prints both samplers' LM figures
+   side by side.
 4. Profiles three more frames with ``torch.profiler``: the device's busy
    share of the wall time and the device ops that took most of it (the
    full table goes to ``chiprun_out/profile_ops.txt``).
-5. Runs the object path: the pipeline with a mask provider over 40
-   frames of the scene with two moving spheres (r 0.15 and 0.12 m, 1.3
-   and 1.5 m away, 5 mm a frame along x), ground-truth masks on the mask
-   frames 0 and 30 (spawn, then match). Prints its phase times, e2e,
-   peak memory, launches per frame and LM iterations; fails if an object
-   is lost, if an object's x-motion recovers less than 0.35 or more than
-   2.0 of the truth, if the camera ATE reaches 1 voxel, if a kernel of
-   the path never ran, if K1-K4 never ran at the object shape, or unless
-   K1 launched once per fusion and K2 once per E-step.
+5. Runs the object path (gather sampler): the pipeline with a mask provider
+   over 40 frames of the scene with two moving spheres (r 0.15 and 0.12 m, 1.3
+   and 1.5 m away, 5 mm a frame along x), ground-truth masks on the mask frames
+   0 and 30 (spawn, then match). Prints its phase times, e2e, peak memory,
+   launches per frame and LM iterations; fails if an object is lost, if an
+   object's x-motion recovers less than 0.35 or more than 2.0 of the truth, if
+   the camera ATE reaches 1 voxel, if a kernel of the path never ran, if K1, K2
+   and K4 never ran at the object shape, or unless K1 launched once per fusion
+   and K2 once per E-step.
 6. Holds K1 and K2 against their plain versions over the object path's
    final work tables (the background and both slots, as the pipeline
    builds them), and K3-K4 at an object's shapes (its 64^3 volume at its
@@ -44,15 +49,32 @@
    40 frames under the JAX package's accelerator tracking configuration
    (``tracking_stride=3``, ``estep_scale=2``, ``motion_model="constvel"``,
    ``capture_backend="band"``: one batched LM over both objects' top 4096
-   points). Prints its phases, LM iterations (camera and batched), device
-   reads per batched LM iteration, peak memory and launches; fails as the
-   object path does, and also if a frame launched K3 at the object shape
-   more than twice (once per LM stage, every slot in one launch) or the
-   batched LM read the device more than twice an iteration. Holds K3 over
+   points, and the camera LM with the capture sampler, which the
+   configuration's ``auto`` sampler resolves to, as the JAX package's
+   ``auto`` picks on a chip). Prints its phases, LM iterations (camera
+   and batched), device reads per batched LM iteration, peak memory and
+   launches; fails as the object path does, and also if a frame launched
+   K3 at the object shape more than twice (once per LM stage, every slot
+   in one launch) or the batched LM read the device more than twice an
+   iteration. Holds K3 over
    that path's final two-slot table (2 x 4096 points), over the camera's
    stride-3 points, and over a full pool (16 x 4096, the pool of step 7);
    profiles three frames of the path (``chiprun_out/accel_profile_ops.txt``).
-9. Runs a small scene through the pipeline on the card and on the CPU
+9. Runs the CLI path: writes a 40-frame 640x480 TUM-format sequence of
+   the object path's scene with the port's PNG encoder (with ground
+   truth, calibration and ``.plk`` masks at frames 0 and 30), runs
+   ``apps.run_emfusion.main`` on the card over frames 0-19 with a
+   checkpoint, then ``--resume`` over frames 20-39, then
+   ``apps.evaluate``; loads the final checkpoint and times the 512^3
+   sparse mesh extraction, ``write_results`` and a checkpoint save.
+   Prints the PNG decode ms/frame, the CLI's steady ms/frame, the
+   launches per frame, the ATE, the objects' recovery and the mesh;
+   fails on a camera ATE of 1 cm or more, a lost object, a recovery
+   outside 0.35-2.0, a missing export directory, an empty mesh, or a
+   background mesh whose median distance to the scene's surfaces is half
+   a voxel or more. Its files live in ``chip_smoke_work/``, removed at
+   the end.
+10. Runs a small scene through the pipeline on the card and on the CPU
    (plain versions) and compares the camera poses; then a small object
    scene, comparing the live objects and the camera and object poses.
 
@@ -66,8 +88,11 @@ object-path holds of step 6 and the ``*_pool`` rows those of step 7,
 both with the object path's launches that touched an object volume; the
 ``capture_*_accel`` rows are step 8's, with the accelerator path's K3
 launches at the camera's or the objects' shape; the other rows carry the
-background-only main path's; the K1 rows also carry ``bound_all_ms``,
-the bound if every voxel were read and written), and as its last line
+background-only main path's, except K3's: the exact paths' LMs gather,
+so the ``capture`` row carries the main path's capture run's launches
+and ``capture_object`` the accelerator path's at the object shape; the
+K1 rows also carry ``bound_all_ms``, the bound if every voxel were read
+and written), and as its last line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
@@ -95,6 +120,8 @@ VOXEL_CUT = 0.01              # ATE limit: one voxel of the 1 cm volume
 N_FRAMES = 24                 # frames of the main path run
 OBJ_FRAMES = 40               # frames of the object path run
 ACCEL_FRAMES = 40             # frames of the accelerator path run
+CLI_FRAMES = 40               # frames of the CLI path's sequence
+CLI_SPLIT = 20                # the CLI path resumes from its checkpoint here
 PROFILE_FRAMES = 3            # frames of the profiled window
 GRID = (600, 896)             # K6's reference-plane grid at 640x480
 
@@ -115,8 +142,12 @@ KERNEL_ROWS = [
     ("warp_to_pixels", "emfusion_tpu_torch/csrc/warp.cu",
      "emfusion_tpu/ops/pallas/warp_pallas.py:180", "warp"),
 ]
-# K6 (warp) is not on the main path: the fusion kernel makes its pick
-PATH_KERNELS = [row[3] for row in KERNEL_ROWS if row[3] != "warp"]
+# K6 (warp) is not on the main path: the fusion kernel makes its pick;
+# K3 (capture) is on the paths whose LMs run the capture sampler (the
+# main path's capture run, the accelerator path), not on the exact paths,
+# whose LMs gather (the default sampler)
+CAPTURE_PATH_KERNELS = [row[3] for row in KERNEL_ROWS if row[3] != "warp"]
+PATH_KERNELS = [k for k in CAPTURE_PATH_KERNELS if k != "capture"]
 # the same kernels held at an object's shapes (object_kernel_phases), and
 # K1 and K2 over a full pool (pool_kernel_phases)
 OBJECT_ROWS = [(f"{name}_object", src, replaces, kernel)
@@ -872,8 +903,9 @@ def run_frames(torch, pipe, frames):
     this run (per kernel, and per kernel and volume shape), the peak
     device memory, per frame the LM iterations (camera, then each
     tracked object), and per frame its launches per kernel and volume
-    shape and the batched object LM's counts (``last_batched_lm``, or
-    None)."""
+    shape, the batched object LM's counts (``last_batched_lm``, or None)
+    and the LMs' iterations, re-captures and dropped points
+    (``lm_counts``)."""
     from emfusion_tpu_torch import kernels
 
     torch.cuda.synchronize()
@@ -890,7 +922,8 @@ def run_frames(torch, pipe, frames):
         per_frame.append(dict(
             by_shape={k: v - before.get(k, 0)
                       for k, v in kernels.launches_by_shape.items()},
-            batched_lm=pipe.last_batched_lm if i > 0 else None))
+            batched_lm=pipe.last_batched_lm if i > 0 else None,
+            lm=pipe.lm_counts() if i > 0 else None))
         if i > 0:
             lm_iters.append([pipe.last_track_stats["iterations"]] + [
                 st["iterations"]
@@ -923,35 +956,79 @@ def check_launches(name, launches, kernels_of_path, timer=None):
                                f"fusion and per E-step {want}")
 
 
-def main_path(torch, params, scene, n_frames, rng, report):
+def lm_summary(per_frame):
+    """The LMs' re-captures and dropped points over a run's frames (per
+    LM call): the camera's and, pooled, the objects'."""
+    cam = [f["lm"]["camera"] for f in per_frame if f["lm"]]
+    obj = [st for f in per_frame if f["lm"]
+           for st in f["lm"]["objects"].values()]
+
+    def agg(calls):
+        return dict(calls=len(calls),
+                    recaptures_total=int(sum(c["recaptures"] or 0
+                                             for c in calls)),
+                    recaptures_max=int(max((c["recaptures"] or 0
+                                            for c in calls), default=0)),
+                    dropped_points_total=int(sum(c["dropped_points"] or 0
+                                                 for c in calls)),
+                    dropped_points_max=int(max((c["dropped_points"] or 0
+                                                for c in calls),
+                                               default=0)))
+    return dict(camera=agg(cam), objects=agg(obj))
+
+
+def print_lm_summary(name, summ):
+    print(f"{name} LM re-captures / dropped points per call: " + "; ".join(
+        f"{who} ({s['calls']} calls): re-captures total "
+        f"{s['recaptures_total']}, max {s['recaptures_max']}; dropped "
+        f"points total {s['dropped_points_total']}, max "
+        f"{s['dropped_points_max']}"
+        for who, s in summ.items() if s["calls"]), flush=True)
+
+
+def main_path(torch, params, frames, report, sampler=None,
+              key="main_path"):
     """The port's main path without objects, through the entry points a
-    user calls."""
+    user calls, over ``frames`` with the LM sampler ``sampler`` (None:
+    the default, gather). Reports its LM's iterations a call and ms an
+    iteration (``track_camera`` ms over iterations)."""
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
-    frames = [sensor_depth(scene.render(gt_pose(i)), rng)
-              for i in range(n_frames)]
-    pipe = EMFusionPipeline(params)
-    e2e, launches, _, peak, lm_iters, _ = run_frames(torch, pipe, frames)
+    n_frames = len(frames)
+    pipe = EMFusionPipeline(params, sampler=sampler)
+    e2e, launches, _, peak, lm_iters, per_frame = run_frames(torch, pipe,
+                                                             frames)
     ate = camera_ate(pipe, n_frames)
     phases = pipe.timer.ms_per_call()
-    report["main_path"] = dict(
-        frames=n_frames, e2e_ms_per_frame=float(np.mean(e2e[1:])),
+    it = float(np.mean([i[0] for i in lm_iters]))
+    lm = lm_summary(per_frame)
+    report[key] = dict(
+        frames=n_frames, sampler=pipe.sampler,
+        e2e_ms_per_frame=float(np.mean(e2e[1:])),
         e2e_ms_frame0=e2e[0], phase_ms_per_call=phases,
         max_memory_allocated=peak, launches=launches, ate=ate,
-        camera_lm_iterations_mean=float(np.mean([it[0] for it in lm_iters])),
+        camera_lm_iterations_mean=it,
+        camera_lm_ms_per_iteration=phases["track_camera"] / it,
+        lm_iterations=[i[0] for i in lm_iters], lm=lm,
         lm_last=pipe.last_track_stats and {
             k: v for k, v in pipe.last_track_stats.items()
             if not torch.is_tensor(v)})
-    print(f"main path: {n_frames} frames 640x480 into 512^3, "
-          f"e2e {np.mean(e2e[1:]):.3f} ms/frame (frames 1..), "
-          f"frame 0 {e2e[0]:.3f} ms", flush=True)
+    print(f"{key}: {n_frames} frames 640x480 into 512^3, LM sampler "
+          f"{pipe.sampler}, e2e {np.mean(e2e[1:]):.3f} ms/frame (frames "
+          f"1..), frame 0 {e2e[0]:.3f} ms", flush=True)
     print("phase ms per call: " + ", ".join(
         f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
+    print(f"{key} camera LM: {it:.2f} iterations a call, "
+          f"{phases['track_camera']:.3f} ms a call, "
+          f"{phases['track_camera'] / it:.4f} ms an iteration", flush=True)
+    print_lm_summary(key, lm)
     print(f"peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
           f"ATE rmse {ate['rmse'] * 1e3:.3f} mm", flush=True)
-    check_launches("main path", launches, PATH_KERNELS, pipe.timer)
+    check_launches(key, launches, CAPTURE_PATH_KERNELS
+                   if pipe.sampler == "capture" else PATH_KERNELS,
+                   pipe.timer)
     if not ate["rmse"] < VOXEL_CUT:
-        raise RuntimeError(f"ATE {ate['rmse']} m >= {VOXEL_CUT} m")
+        raise RuntimeError(f"{key}: ATE {ate['rmse']} m >= {VOXEL_CUT} m")
     return launches, pipe
 
 
@@ -1012,8 +1089,9 @@ def object_path(torch, params, scene, n_frames, rng, report):
 
     frames, masks = object_scene(scene, params, n_frames, rng)
     pipe = EMFusionPipeline(params, mask_provider(masks))
-    e2e, launches, by_shape, peak, lm_iters, _ = run_frames(torch, pipe,
-                                                             frames)
+    e2e, launches, by_shape, peak, lm_iters, per_frame = run_frames(
+        torch, pipe, frames)
+    lm = lm_summary(per_frame)
     ate = camera_ate(pipe, n_frames)
     phases = pipe.timer.ms_per_call()
     rec = motion_recovery(pipe)
@@ -1035,8 +1113,9 @@ def object_path(torch, params, scene, n_frames, rng, report):
         object_lm_iterations_mean=float(np.mean(obj_it)),
         object_lm_at_max_iter=int(sum(n >= params.maxTrackingIter
                                       for n in obj_it)),
-        object_lms=len(obj_it), lm_iterations=lm_iters,
-        live_objects=pipe.active_object_ids, recovery=rec,
+        object_lms=len(obj_it), lm_iterations=lm_iters, lm=lm,
+        sampler=pipe.sampler, live_objects=pipe.active_object_ids,
+        recovery=rec,
         voxel_sizes={oid: float(pipe.state.objs.voxel_size[pipe._slot_of(
             oid)]) for oid in pipe.active_object_ids})
     print(f"object path: {n_frames} frames 640x480 into 512^3 with "
@@ -1052,7 +1131,9 @@ def object_path(torch, params, scene, n_frames, rng, report):
     print(f"object path LM iterations per call: camera {cam_it:.1f}, "
           f"object {np.mean(obj_it):.1f} ({len(obj_it)} object LMs, "
           f"{sum(n >= params.maxTrackingIter for n in obj_it)} at the "
-          f"{params.maxTrackingIter}-iteration cap)", flush=True)
+          f"{params.maxTrackingIter}-iteration cap), sampler "
+          f"{pipe.sampler}", flush=True)
+    print_lm_summary("object path", lm)
     print(f"object path: peak memory {peak / 2**30:.3f} GiB; live objects "
           f"{pipe.active_object_ids}; camera ATE rmse "
           f"{ate['rmse'] * 1e3:.3f} mm; x-motion recovery " + ", ".join(
@@ -1065,13 +1146,16 @@ def object_path(torch, params, scene, n_frames, rng, report):
 
 def check_objects(name, pipe, launches, obj_launches, rec, ate):
     """Fails if a kernel of the path never ran (or K1 and K2 not once per
-    fusion and per E-step), if K1-K4 never ran at the object shape, if an
-    object is lost, if an object's x-motion recovers less than 0.35 or
-    more than 2.0 of the truth (the JAX gate's band), or if the camera
-    ATE reaches a voxel."""
-    check_launches(name, launches, PATH_KERNELS, pipe.timer)
+    fusion and per E-step), if K1, K2 and K4 (and K3 where the LMs
+    capture) never ran at the object shape, if an object is lost, if an
+    object's x-motion recovers less than 0.35 or more than 2.0 of the
+    truth (the JAX gate's band), or if the camera ATE reaches a voxel."""
+    capture = pipe.sampler == "capture" or pipe.object_lm == "batched"
+    check_launches(name, launches, CAPTURE_PATH_KERNELS if capture
+                   else PATH_KERNELS, pipe.timer)
     check_launches(f"{name} at the object shape", obj_launches,
-                   [row[3] for row in OBJECT_ROWS])
+                   [row[3] for row in OBJECT_ROWS
+                    if capture or row[3] != "capture"])
     if len(rec) != len(MOVERS) or \
             sorted(r["mover"] for r in rec.values()) != list(
                 range(len(MOVERS))):
@@ -1096,8 +1180,8 @@ def accel_path(torch, params, scene, n_frames, rng, report):
     params = dataclasses.replace(params, **ACCEL)
     frames, masks = object_scene(scene, params, n_frames, rng)
     pipe = EMFusionPipeline(params, mask_provider(masks))
-    if (pipe.object_lm, pipe.escale, pipe.motion_model) != (
-            "batched", 2, "constvel"):
+    if (pipe.object_lm, pipe.escale, pipe.motion_model, pipe.sampler) != (
+            "batched", 2, "constvel", "capture"):
         raise RuntimeError("accel path: the configuration did not resolve")
     e2e, launches, by_shape, peak, lm_iters, per_frame = run_frames(
         torch, pipe, frames)
@@ -1116,6 +1200,7 @@ def accel_path(torch, params, scene, n_frames, rng, report):
     cam_it = float(np.mean([it[0] for it in lm_iters]))
     obj_it = [n for it in lm_iters for n in it[1:]]
     loop_it = [lm["loop_iterations"] for lm in lms]
+    lm_counts = lm_summary(per_frame)
     report["accel_path"] = dict(
         frames=n_frames, config=ACCEL, mask_frames=sorted(masks),
         e2e_ms_per_frame=float(np.mean(e2e[1:])), e2e_ms_frame0=e2e[0],
@@ -1130,8 +1215,8 @@ def accel_path(torch, params, scene, n_frames, rng, report):
         batched_lm_points=[lm["points"] for lm in lms],
         host_reads_per_batched_iteration_mean=float(np.mean(reads)),
         host_reads_per_batched_iteration_max=float(max(reads)),
-        lm_iterations=lm_iters, live_objects=pipe.active_object_ids,
-        recovery=rec)
+        lm_iterations=lm_iters, lm=lm_counts,
+        live_objects=pipe.active_object_ids, recovery=rec)
     print(f"accel path: {n_frames} frames {params.width}x{params.height} "
           f"into {params.globalVolumeDims[0]}^3 with "
           f"{len(MOVERS)} moving objects under {ACCEL}, e2e "
@@ -1148,6 +1233,7 @@ def accel_path(torch, params, scene, n_frames, rng, report):
           f"{np.mean(obj_it):.1f}, {lms[-1]['points']} points a slot); "
           f"device reads per batched iteration mean {np.mean(reads):.3f}, "
           f"max {max(reads):.3f}", flush=True)
+    print_lm_summary("accel path", lm_counts)
     print(f"accel path: peak memory {peak / 2**30:.3f} GiB; live objects "
           f"{pipe.active_object_ids}; camera ATE rmse "
           f"{ate['rmse'] * 1e3:.3f} mm; x-motion recovery " + ", ".join(
@@ -1196,6 +1282,258 @@ def accel_pool_phase(torch, pipe, depth_raw):
     tsdfs, wts, vs, pts, _, rel_o, _, _ = pipe.batched_lm_inputs(
         points, list(range(pipe.K)))
     return hold_capture_batched(torch, tsdfs, wts, pts, rel_o, vs)
+
+
+# the export tree of tests/test_pipeline.py::test_export_tree
+EXPORT_TREE = ("output", "masks", "assoc_weights/bg/preTrack",
+               "assoc_weights/bg/postTrack", "assoc_weights/{oid}/preTrack",
+               "assoc_weights/{oid}/postTrack", "track_weights/bg",
+               "track_weights/{oid}", "huber_weights/bg",
+               "huber_weights/{oid}", "fg_probs/{oid}")
+
+
+def write_tum_sequence(root, params, scene, n_frames, rng):
+    """The object path's scene as a TUM-format directory, written with the
+    port's PNG encoder: ``rgb/`` (the depth shaded to grey), ``depth/``
+    (x5000 uint16), ``associations.txt``, ``groundtruth.txt`` (``gt_pose``),
+    ``calibration.txt`` and ``masks/Mask%04d.plk`` on the mask frames.
+    Returns the frames' timestamps."""
+    from emfusion_tpu_torch.io.codecs import write_png
+    from emfusion_tpu_torch.io.writers import _rot_to_quat
+    from emfusion_tpu_torch.segmentation import (
+        Detection, make_score_vector, save_detections,
+    )
+
+    frames, masks = object_scene(scene, params, n_frames, rng)
+    for sub in ("rgb", "depth", "masks"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    stamps, assoc, gt = [], [], []
+    for i, depth in enumerate(frames):
+        ts = f"{1000 + i / 30:.6f}"
+        grey = np.clip(255 - depth * 60, 0, 255).astype(np.uint8)
+        write_png(os.path.join(root, "rgb", f"{ts}.png"),
+                  np.stack([grey] * 3, -1))
+        write_png(os.path.join(root, "depth", f"{ts}.png"),
+                  np.round(depth * 5000).astype(np.uint16))
+        T = gt_pose(i)
+        q = _rot_to_quat(T[:3, :3])
+        assoc.append(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png\n")
+        gt.append(f"{ts} {T[0, 3]} {T[1, 3]} {T[2, 3]} "
+                  f"{q[0]} {q[1]} {q[2]} {q[3]}\n")
+        stamps.append(float(ts))
+    for f, ms in masks.items():
+        save_detections(os.path.join(root, "masks", f"Mask{f:04d}.plk"),
+                        [Detection(mask=m, scores=make_score_vector(3, 0.9))
+                         for m in ms])
+    for name, lines in (
+            ("associations.txt", assoc), ("groundtruth.txt", gt),
+            ("calibration.txt", [f"{params.fx} {params.fy} {params.cx} "
+                                 f"{params.cy}\n"])):
+        with open(os.path.join(root, name), "w") as f:
+            f.writelines(lines)
+    return stamps
+
+
+def run_cli(module, argv):
+    """``module.main(argv)``, its standard output captured and echoed;
+    fails unless it returns 0. Returns (output, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"  | {line}", flush=True)
+    if rc != 0:
+        raise RuntimeError(f"{module.__name__} {argv} exited {rc}")
+    return out, secs
+
+
+def scene_distance(scene, pts, objects):
+    """Each point's distance to the nearest surface of the scene's
+    spheres and planes and the ``objects`` spheres (unsigned)."""
+    d = np.full(len(pts), np.inf)
+    for c, r in list(scene.spheres) + list(objects):
+        d = np.minimum(d, np.abs(np.linalg.norm(pts - c, axis=1) - r))
+    for n, p0 in scene.planes:
+        d = np.minimum(d, np.abs((pts - p0) @ n))
+    return d
+
+
+def cli_path(torch, params, scene, rng, report, config):
+    """Step 9, the CLI path: a TUM-format sequence of the object path's
+    scene through ``apps.run_emfusion.main`` on the card, frames 0-19
+    with a checkpoint, then ``--resume`` for frames 20-39 (a checkpoint
+    at the end too), then ``apps.evaluate``; then the final checkpoint
+    loaded, its 512^3 background meshed, ``write_results`` and a
+    checkpoint save timed. Fails on a camera ATE of 1 cm or more, a lost
+    object, an x-motion recovery outside 0.35-2.0, a missing export
+    directory, an empty mesh, or a background mesh whose median distance
+    to the scene's surfaces is half a voxel or more. Returns the launches
+    of both runs."""
+    import shutil
+
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch.apps import evaluate, run_emfusion
+    from emfusion_tpu_torch.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+    from emfusion_tpu_torch.eval.ate import load_trajectory
+    from emfusion_tpu_torch.io.readers import TUMReader
+    from emfusion_tpu_torch.io.writers import (
+        background_mesh, read_volume_bin, write_results,
+    )
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    work = os.path.join(HERE, "chip_smoke_work")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        seq, ck = os.path.join(work, "seq"), os.path.join(work, "ck.npz")
+        out1, out2 = os.path.join(work, "out1"), os.path.join(work, "out2")
+        t0 = time.perf_counter()
+        stamps = write_tum_sequence(seq, params, scene, CLI_FRAMES, rng)
+        write_s = time.perf_counter() - t0
+        reader = TUMReader(seq)
+        reader.init()
+        reader.close()
+        n_dec = min(10, CLI_FRAMES)
+        t0 = time.perf_counter()
+        for i in range(n_dec):
+            reader._read_frame(i)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / n_dec
+        print(f"cli path: {CLI_FRAMES}-frame TUM sequence written in "
+              f"{write_s:.3f} s; PNG decode (rgb + depth) {decode_ms:.3f} "
+              f"ms/frame", flush=True)
+
+        common = ["-t", seq, "-m", os.path.join(seq, "masks"), "-c",
+                  config, "--checkpoint", ck,
+                  "--checkpoint-every", str(CLI_SPLIT)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        text1, run1_s = run_cli(run_emfusion, common + [
+            "-e", out1, "--frames", str(CLI_SPLIT)])
+        text2, run2_s = run_cli(run_emfusion, common + ["-e", out2,
+                                                        "--resume"])
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        steady = [float(line.split()[1]) for line in
+                  (text1 + text2).splitlines()
+                  if line.startswith("steady-state:")]
+        ev, _ = run_cli(evaluate, [out2, os.path.join(seq,
+                                                      "groundtruth.txt"),
+                                   "--json"])
+        ate = json.loads(ev)["camera"]
+
+        # the state at frame 40: load, mesh, write, save
+        pipe = EMFusionPipeline(params)
+        t0 = time.perf_counter()
+        load_checkpoint(pipe, ck)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if pipe.frame != CLI_FRAMES:
+            raise RuntimeError(f"cli path: the final checkpoint is at frame "
+                               f"{pipe.frame}, not {CLI_FRAMES}")
+        t0 = time.perf_counter()
+        verts, norms, tris = background_mesh(pipe)
+        mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_results(pipe, os.path.join(work, "out3"), export_volumes=True)
+        results_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_checkpoint(pipe, os.path.join(work, "ck2.npz"))
+        save_s = time.perf_counter() - t0
+        ck_mb = os.path.getsize(ck) / 2 ** 20
+        vol, _, _ = read_volume_bin(os.path.join(work, "out3", "tsdfs",
+                                                 "bg_tsdf.bin"))
+        if not np.array_equal(vol, pipe.state.bg_tsdf.cpu().numpy()):
+            raise RuntimeError("cli path: tsdfs/bg_tsdf.bin does not hold "
+                               "the background volume")
+        world = verts @ pipe.state.bg_pose[:3, :3].numpy().T \
+            + pipe.state.bg_pose[:3, 3].numpy()
+        dist = scene_distance(scene, world, movers_at(CLI_FRAMES - 1))
+        med = float(np.median(dist)) if len(dist) else float("inf")
+
+        live = sorted(int(f[5:-4]) for f in os.listdir(out2)
+                      if f.startswith("mesh_") and f[5:-4].isdigit())
+        missing = [sub.format(oid=oid) for oid in live
+                   for sub in EXPORT_TREE
+                   if not (os.path.isdir(os.path.join(out2, sub.format(
+                       oid=oid))) and os.listdir(os.path.join(
+                           out2, sub.format(oid=oid))))]
+        frame_of = {s: i for i, s in enumerate(stamps)}
+        rec = {}
+        for oid in live:
+            traj = load_trajectory(os.path.join(
+                out2, f"poses-{oid}-corrected.txt"))
+            fs = sorted(frame_of[s] for s in traj)
+            first, last = (traj[stamps[fs[0]]][:3, 3],
+                           traj[stamps[fs[-1]]][:3, 3])
+            j = int(np.argmin([np.linalg.norm(first - c)
+                               for c, _ in movers_at(fs[0])]))
+            true = movers_at(fs[-1])[j][0][0] - movers_at(fs[0])[j][0][0]
+            rec[oid] = dict(mover=j, frames=[fs[0], fs[-1]],
+                            dx_est=float(last[0] - first[0]),
+                            dx_true=float(true))
+            rec[oid]["recovery"] = rec[oid]["dx_est"] / rec[oid]["dx_true"]
+        obj_verts = {}
+        for oid in live:
+            with open(os.path.join(out2, f"mesh_{oid}.ply")) as f:
+                for line in f:
+                    if line.startswith("element vertex"):
+                        obj_verts[oid] = int(line.split()[-1])
+                        break
+        report["cli_path"] = dict(
+            frames=CLI_FRAMES, resumed_at=CLI_SPLIT,
+            sequence_write_s=write_s, png_decode_ms_per_frame=decode_ms,
+            run_s=[run1_s, run2_s], steady_ms_per_frame=steady,
+            launches=launches,
+            launches_per_frame={k: v / CLI_FRAMES
+                                for k, v in launches.items()},
+            ate=ate, live_objects=live, recovery=rec,
+            checkpoint_load_s=load_s, checkpoint_save_s=save_s,
+            checkpoint_mb=ck_mb, mesh_extract_s=mesh_s,
+            mesh_vertices=len(verts), mesh_triangles=len(tris),
+            mesh_median_scene_distance_m=med, object_mesh_vertices=obj_verts,
+            write_results_s=results_s, missing_exports=missing)
+        print(f"cli path: frames 0-{CLI_SPLIT - 1} {run1_s:.3f} s, resumed "
+              f"{CLI_SPLIT}-{CLI_FRAMES - 1} {run2_s:.3f} s; steady-state "
+              f"{steady} ms/frame; launches per frame " + ", ".join(
+                  f"{k} {v / CLI_FRAMES:.2f}" for k, v in launches.items()),
+              flush=True)
+        print(f"cli path: camera ATE rmse {ate['ate_rmse'] * 1e3:.3f} mm "
+              f"({ate['pairs']} pairs); live objects {live}; x-motion "
+              "recovery " + ", ".join(f"object {o} {r['recovery']:.3f}"
+                                      for o, r in rec.items()), flush=True)
+        print(f"cli path: checkpoint {ck_mb:.1f} MiB, load {load_s:.3f} s, "
+              f"save {save_s:.3f} s; 512^3 sparse extraction {mesh_s:.3f} s, "
+              f"{len(verts)} vertices, {len(tris)} triangles, median "
+              f"distance to the scene {med * 1e3:.3f} mm; object meshes "
+              f"{obj_verts} vertices; write_results (with volumes) "
+              f"{results_s:.3f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check_launches("cli path", launches, PATH_KERNELS)
+    if not ate["ate_rmse"] < VOXEL_CUT:
+        raise RuntimeError(f"cli path: ATE {ate['ate_rmse']} m >= "
+                           f"{VOXEL_CUT} m")
+    if len(rec) != len(MOVERS) or sorted(
+            r["mover"] for r in rec.values()) != list(range(len(MOVERS))):
+        raise RuntimeError(f"cli path: object lost: live objects {rec}")
+    bad = {o: r for o, r in rec.items() if not 0.35 < r["recovery"] < 2.0}
+    if bad:
+        raise RuntimeError(f"cli path: object motion not recovered: {bad}")
+    if missing:
+        raise RuntimeError(f"cli path: missing exports {missing}")
+    if not len(verts) or not all(obj_verts.values()):
+        raise RuntimeError("cli path: an empty mesh")
+    if not med < 0.5 * params.globalVoxelSize:
+        raise RuntimeError(f"cli path: the background mesh lies {med} m "
+                           "(median) from the scene")
+    return launches
 
 
 def profile_frames(torch, pipe, frames, report, key):
@@ -1333,6 +1671,16 @@ def main() -> int:
     report = {"card": card}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     t0 = time.perf_counter()
+    laps = report["step_s"] = {}
+    last = [t0]
+
+    def lap(name):
+        """Seconds since the previous step ended, printed and kept."""
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+        print(f"step {name}: {laps[name]:.1f} s", flush=True)
+
     build_s = kernels.build()
     print(f"kernels built in {build_s:.1f} s", flush=True)
     report["ptxas"] = ptxas_lines(kernels.build_log)
@@ -1356,13 +1704,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, r in rows.items():
         print_row(name, r)
+    lap("kernels")
 
-    launches, pipe = main_path(torch, params, scene, N_FRAMES, rng, report)
+    frames = [sensor_depth(scene.render(gt_pose(i)), rng)
+              for i in range(N_FRAMES)]
+    launches, pipe = main_path(torch, params, frames, report)
     profile_frames(torch, pipe, [
         sensor_depth(scene.render(gt_pose(N_FRAMES + i)), rng)
         for i in range(PROFILE_FRAMES)], report, "profile")
     del pipe
     torch.cuda.empty_cache()
+    # the same frames with the capture sampler, the exact paths' LM before
+    # the gather sampler came (and the JAX package's on its chips)
+    cap_launches, pipe = main_path(torch, params, frames, report,
+                                   sampler="capture",
+                                   key="main_path_capture")
+    del pipe
+    torch.cuda.empty_cache()
+    g, c = report["main_path"], report["main_path_capture"]
+    print("camera LM, gather against capture on the same frames: "
+          f"iterations a call {g['camera_lm_iterations_mean']:.2f} / "
+          f"{c['camera_lm_iterations_mean']:.2f}, ms an iteration "
+          f"{g['camera_lm_ms_per_iteration']:.4f} / "
+          f"{c['camera_lm_ms_per_iteration']:.4f}, track_camera ms "
+          f"{g['phase_ms_per_call']['track_camera']:.3f} / "
+          f"{c['phase_ms_per_call']['track_camera']:.3f}, ATE mm "
+          f"{g['ate']['rmse'] * 1e3:.4f} / {c['ate']['rmse'] * 1e3:.4f}",
+          flush=True)
+    lap("main_path")
 
     obj_launches, pipe = object_path(torch, params, scene, OBJ_FRAMES, rng,
                                      report)
@@ -1376,6 +1745,7 @@ def main() -> int:
     for name, r in obj_rows.items():
         print_row(name, r)
     rows.update(obj_rows)
+    lap("object_path")
 
     acc_launches, pipe = accel_path(torch, params, scene, ACCEL_FRAMES, rng,
                                     report)
@@ -1389,16 +1759,26 @@ def main() -> int:
     for name, r in acc_rows.items():
         print_row(name, r)
     rows.update(acc_rows)
+    lap("accel_path")
+    cli_launches = cli_path(torch, params, scene, rng, report, os.path.join(
+        HERE, "configs", "default.cfg"))
+    lap("cli_path")
     small_reference(torch, np.random.default_rng(args.seed), report)
+    lap("small_reference")
 
     bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]]
     row_launches = {name: (obj_launches if name in obj_rows
                            else launches)[kernel]
                     for name, _, _, kernel in (KERNEL_ROWS + OBJECT_ROWS
                                                + POOL_ROWS)}
-    row_launches.update(capture_camera_accel=acc_launches["camera"],
+    # K3 runs on the paths whose LMs capture: at the background's shape
+    # the main path's capture run, at the objects' the accelerator path
+    row_launches.update(capture=cap_launches["capture"],
+                        capture_object=acc_launches["objects"],
+                        capture_camera_accel=acc_launches["camera"],
                         capture_objects_accel=acc_launches["objects"],
                         capture_pool_accel=acc_launches["objects"])
+    report["cli_path_launches"] = cli_launches
     table = []
     for name, src, replaces, kernel in (KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS
                                         + ACCEL_ROWS):

@@ -1,0 +1,221 @@
+"""EM-Fusion CLI of the PyTorch port.
+
+    python -m emfusion_tpu_torch.apps.run_emfusion -t TUMDIR -e OUT \\
+        [-m MASKDIR] [-c CONFIG] [--device cuda|cpu]
+
+The flags of ``emfusion_tpu/apps/run_emfusion.py`` (the reference app's,
+``apps/EM-Fusion.cpp:217-256``):
+
+  --tumdir/-t      TUM RGB-D sequence directory (with associations.txt)
+  --dir/-d         Co-Fusion style directory (Color%04d.png/Depth%04d.exr)
+  --colordir / --depthdir   subdirectory names for -d
+  --exportdir/-e   write results (poses, meshes, renderings)
+  --export-volume  also dump raw TSDF volumes
+  --config/-c      INI config file (reference config format)
+  --maskdir/-m     replay preprocessed masks (Mask%04d.plk)
+  --background     headless (no GUI display; always the case here)
+  --show-slam      reserved (3D visualization not implemented)
+  --frames, --frame-meshes, --checkpoint, --checkpoint-every, --resume
+
+with ``--device`` (``cuda``, the default, or ``cpu``) for the JAX
+package's ``--platform``, and ``--profile DIR`` writing a
+``torch.profiler`` trace. ``--serve`` and ``--turntable`` need the viewers,
+which are not ported yet (ROADMAP queue 1): asking for them exits with
+status 2. Without a card, ``--device cuda`` raises.
+
+The frame size comes from the data; where it differs from the config's,
+the intrinsics are scaled with it (``config.fit_frame_size``) before a
+``calibration.txt`` beside the data overrides them. The per-phase report
+on stderr is timed with CUDA events (``PhaseTimer(mode="events")``), so
+timing does not serialise the run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import statistics
+import sys
+import time
+
+VIEWERS_TODO = ("needs the live viewer and the turntable renderer "
+                "(viz.py, viz_server.py), which the port does not have yet "
+                "(ROADMAP queue 1 item 5, the viewers)")
+
+
+def build_parser():
+    ap = argparse.ArgumentParser("emfusion-tpu-torch")
+    ap.add_argument("--tumdir", "-t", help="TUM RGB-D directory")
+    ap.add_argument("--dir", "-d", dest="dir_", help="Co-Fusion directory")
+    ap.add_argument("--colordir", default="colour")
+    ap.add_argument("--depthdir", default="depth_noise")
+    ap.add_argument("--exportdir", "-e", help="export results here")
+    ap.add_argument("--export-volume", action="store_true")
+    ap.add_argument("--config", "-c", help="INI config file")
+    ap.add_argument("--maskdir", "-m", help="preprocessed mask dir")
+    ap.add_argument("--background", action="store_true",
+                    help="run headless (no display)")
+    ap.add_argument("--show-slam", action="store_true")
+    ap.add_argument("--turntable", type=int, default=0, metavar="N",
+                    help="render N orbit views after the run (not ported "
+                         "yet: exits with status 2)")
+    ap.add_argument("--frame-meshes", type=int, default=0, metavar="N",
+                    help="export per-frame meshes every N frames "
+                         "(frame_meshes/ tree)")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="process at most N frames")
+    ap.add_argument("--serve", type=int, default=0, metavar="PORT",
+                    help="live HTTP viewer (not ported yet: exits with "
+                         "status 2)")
+    ap.add_argument("--serve-host", default="127.0.0.1")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="compute device (default cuda; raises without "
+                         "a card)")
+    ap.add_argument("--profile", help="torch.profiler trace directory")
+    ap.add_argument("--checkpoint", help="checkpoint file (.npz)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="write --checkpoint every N frames")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint if it exists")
+    return ap
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(name)s: %(message)s")
+    args = build_parser().parse_args(argv)
+    if not args.tumdir and not args.dir_:
+        print("error: need --tumdir or --dir", file=sys.stderr)
+        return 2
+    if args.serve or args.turntable:
+        flag = "--serve" if args.serve else "--turntable"
+        print(f"error: {flag} {VIEWERS_TODO}", file=sys.stderr)
+        return 2
+
+    from emfusion_tpu_torch.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+    from emfusion_tpu_torch.config import (
+        Params, fit_frame_size, load_calibration, load_config,
+    )
+    from emfusion_tpu_torch.device import resolve_device
+    from emfusion_tpu_torch.io.readers import CoFusionReader, TUMReader
+    from emfusion_tpu_torch.io.writers import write_frame_meshes, \
+        write_results
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+    from emfusion_tpu_torch.profiling import PhaseTimer
+    from emfusion_tpu_torch.segmentation import ReplayMaskProvider
+
+    device = resolve_device(args.device)
+    params = Params()
+    if args.config:
+        params = load_config(args.config, params)
+    if args.tumdir:
+        reader = TUMReader(args.tumdir)
+        calib = os.path.join(args.tumdir, "calibration.txt")
+    else:
+        reader = CoFusionReader(args.dir_, args.colordir, args.depthdir)
+        calib = os.path.join(args.dir_, "calibration.txt")
+    reader.init()
+    probe = reader.peek()
+    if probe is not None:
+        dh, dw = probe.depth.shape[:2]
+        if (dw, dh) != tuple(params.frameSize):
+            print(f"frameSize {tuple(params.frameSize)} -> dataset "
+                  f"({dw}, {dh}), intrinsics scaled with it")
+            params = fit_frame_size(params, dw, dh)
+    if os.path.exists(calib):
+        params = load_calibration(calib, params)
+
+    provider = ReplayMaskProvider(args.maskdir) if args.maskdir else None
+    pipe = EMFusionPipeline(params, provider, device=device,
+                            save_output=bool(args.exportdir))
+    pipe.timer = PhaseTimer(device, mode="events")
+
+    skip_until = 0
+    if args.checkpoint and args.resume and os.path.exists(args.checkpoint):
+        load_checkpoint(pipe, args.checkpoint)
+        skip_until = pipe.frame
+        print(f"resumed from {args.checkpoint} at frame {skip_until}")
+
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        prof = profile(activities=acts)
+        prof.__enter__()
+
+    t_start = time.time()
+    n = 0
+    frame_times = []
+    stop = False
+
+    def do_frame(frame, nxt):
+        """Process ``frame``; then start the upload of the next frame's
+        depth (the one-frame lookahead), then the exports."""
+        nonlocal n, stop
+        t_f = time.time()
+        pipe.process_frame(frame.rgb, frame.depth, timestamp=frame.timestamp)
+        if nxt is not None:
+            pipe.prefetch_depth(nxt.depth)
+        frame_times.append(time.time() - t_f)
+        if args.exportdir:
+            pipe.outputs["renderings"][n] = pipe.render()
+            if args.frame_meshes and pipe.frame % args.frame_meshes == 0:
+                write_frame_meshes(
+                    pipe, os.path.join(args.exportdir, "frame_meshes"),
+                    pipe.frame)
+        n += 1
+        if (args.checkpoint and args.checkpoint_every
+                and pipe.frame % args.checkpoint_every == 0):
+            save_checkpoint(pipe, args.checkpoint)
+        if n % 10 == 0:
+            fps = n / (time.time() - t_start)
+            print(f"frame {n}/{reader.num_frames}  {fps:.2f} fps  "
+                  f"objects={pipe.active_object_ids}", flush=True)
+        if args.frames and n >= args.frames:
+            stop = True
+
+    try:
+        pending = None
+        for nxt in reader.frames():
+            if nxt.index < skip_until:
+                continue
+            if pending is not None:
+                do_frame(pending, nxt)
+                if stop:
+                    pending = None
+                    break
+            pending = nxt
+        if pending is not None and not stop:
+            do_frame(pending, None)
+    finally:
+        reader.close()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.profile,
+                                                  "trace.json"))
+
+    elapsed = time.time() - t_start
+    print(f"processed {n} frames in {elapsed:.1f}s "
+          f"({n / max(elapsed, 1e-9):.2f} fps)")
+    if len(frame_times) >= 6:
+        tail = frame_times[len(frame_times) // 2:]
+        steady = statistics.median(tail)
+        print(f"steady-state: {steady * 1e3:.3f} ms/frame "
+              f"({1.0 / max(steady, 1e-9):.2f} fps, median of last "
+              f"{len(tail)} frames)")
+    print(pipe.timer.summary(), file=sys.stderr)
+
+    if args.exportdir:
+        write_results(pipe, args.exportdir,
+                      export_volumes=args.export_volume)
+        print(f"results written to {args.exportdir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

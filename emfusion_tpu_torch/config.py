@@ -12,6 +12,7 @@ build. :func:`resolve_params` says what each of them means in this port.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -336,6 +337,33 @@ def load_config(path: str, base: Optional[Params] = None) -> Params:
     return params
 
 
+def load_calibration(path: str, params: Params) -> Params:
+    """Override intrinsics from a dataset ``calibration.txt`` (fx fy cx cy),
+    mirroring ``apps/EM-Fusion.cpp:401-411``."""
+    with open(path) as f:
+        vals = f.read().split()
+    fx, fy, cx, cy = (float(x) for x in vals[:4])
+    return dataclasses.replace(params, fx=fx, fy=fy, cx=cx, cy=cy)
+
+
+def fit_frame_size(params: Params, width: int, height: int) -> Params:
+    """``params`` for frames of ``width`` x ``height``: the frame size and
+    the intrinsics scaled with it, per axis by the ratio of the sizes
+    (``f * s``; ``(c + 0.5) * s - 0.5`` for the principal point, pixel
+    centres at integers). The JAX CLI takes the frame size from the data
+    but keeps the intrinsics (``apps/run_emfusion.py:123-130``), which
+    then describe another image; a ``calibration.txt`` given for the
+    data's own size is read after this and wins."""
+    if (width, height) == tuple(params.frameSize):
+        return params
+    sx = width / params.frameSize[0]
+    sy = height / params.frameSize[1]
+    return dataclasses.replace(
+        params, frameSize=(width, height), fx=params.fx * sx,
+        cx=(params.cx + 0.5) * sx - 0.5, fy=params.fy * sy,
+        cy=(params.cy + 0.5) * sy - 0.5)
+
+
 @dataclass(frozen=True)
 class Resolved:
     """The port's reading of the ``auto`` knobs of :class:`Params`."""
@@ -348,9 +376,15 @@ class Resolved:
     # points (0: every point)
     object_lm: str
     obj_track_points: int
+    # the LM sampler of the camera and the serial object LMs:
+    # "gather" (exact) or "capture"
+    sampler: str
 
 
-def resolve_params(params: Params) -> Resolved:
+SAMPLERS = ("auto", "gather", "capture")
+
+
+def resolve_params(params: Params, sampler: Optional[str] = None) -> Resolved:
     """Resolve the ``auto`` knobs: ``auto`` gives the JAX package's exact
     reference path (what it picks on the CPU, ``pipeline.py:158-176,
     261-264, 387-411``); the knobs of its accelerator configuration are
@@ -369,10 +403,18 @@ def resolve_params(params: Params) -> Resolved:
       ``pipeline.py:407-411, 1107-1112`` does: ``band`` runs one batched
       LM over every live slot, each on its top ``obj_track_points``
       association-weighted points (0: every point); ``auto`` and
-      ``gather`` run one LM per slot over every tracking point. The
-      camera LM always takes K3's exact capture: the band capture (and
+      ``gather`` run one LM per slot over every tracking point.
+
+    * ``sampler``, the LM sampler of the camera and the serial object
+      LMs (``TrackConfig.sampler``): None reads ``EMF_TRACK_SAMPLER``,
+      default ``auto``, as the JAX pipeline does (``pipeline.py:147-155``);
+      ``gather`` and ``capture`` are honoured. ``auto`` is ``capture``
+      under ``capture_backend="band"``, the accelerator configuration
+      (where the JAX package's ``auto`` captures too), and ``gather``, the
+      exact path, otherwise, on every device. The band capture (and
       ``camera_refine_points``, which refines it) is a TPU formulation
-      that the port does not have.
+      that the port does not have: its capture is K3's exact window
+      gather.
 
     The other backend knobs (``fusion_backend``, ``raycast_backend``,
     ``estep_backend``, ``bilateral_backend``) only choose between TPU
@@ -392,10 +434,17 @@ def resolve_params(params: Params) -> Resolved:
         raise ValueError(f"motion_model={mm!r}: 'auto', 'static' or "
                          "'constvel'")
     batched = params.capture_backend == "band"
+    if sampler is None:
+        sampler = os.environ.get("EMF_TRACK_SAMPLER", "auto")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler={sampler!r}: one of {SAMPLERS}")
+    if sampler == "auto":
+        sampler = "capture" if batched else "gather"
     return Resolved(volume_dtype=vd,
                     tracking_stride=params.tracking_stride or 1,
                     estep_scale=max(params.estep_scale or 1, 1),
                     motion_model=mm,
                     object_lm="batched" if batched else "serial",
                     obj_track_points=(max(params.obj_track_points, 0)
-                                      if batched else 0))
+                                      if batched else 0),
+                    sampler=sampler)

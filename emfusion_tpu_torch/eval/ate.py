@@ -1,13 +1,12 @@
-"""Absolute Trajectory Error (ATE) evaluation.
+"""Absolute Trajectory Error / Relative Pose Error evaluation.
 
 In-repo reimplementation of the TUM RGB-D benchmark evaluation math
 (Sturm et al., IROS 2012) that the reference drives through external
 scripts (``eval_tum.sh:29-39``, ``eval_co-fusion.sh:49-76``):
 Horn-alignment of estimated to ground-truth trajectories followed by
-RMSE of translational residuals (ATE). The reference repo does not ship
-this math; it is the standard public protocol. (A copy of the JAX
-package's ``eval/ate.py``, ATE only: RPE and trajectory files come with
-the CLI.)
+RMSE of translational residuals (ATE), and fixed-delta relative pose
+errors (RPE). The reference repo does not ship this math; it is the
+standard public protocol. A copy of the JAX package's ``eval/ate.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +14,40 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+
+
+def load_trajectory(path: str) -> Dict[float, np.ndarray]:
+    """Load a TUM-format trajectory ``stamp tx ty tz qx qy qz qw`` into
+    {stamp: 4x4 pose}."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(v) for v in line.split()]
+            if len(vals) < 8:
+                continue
+            stamp, tx, ty, tz, qx, qy, qz, qw = vals[:8]
+            out[stamp] = _pose_from_quat(tx, ty, tz, qx, qy, qz, qw)
+    return out
+
+
+def _pose_from_quat(tx, ty, tz, qx, qy, qz, qw) -> np.ndarray:
+    n = np.sqrt(qx * qx + qy * qy + qz * qz + qw * qw)
+    qx, qy, qz, qw = qx / n, qy / n, qz / n, qw / n
+    R = np.array([
+        [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw),
+         2 * (qx * qz + qy * qw)],
+        [2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz),
+         2 * (qy * qz - qx * qw)],
+        [2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw),
+         1 - 2 * (qx * qx + qy * qy)],
+    ])
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = [tx, ty, tz]
+    return T
 
 
 def associate(est: Dict[float, np.ndarray], gt: Dict[float, np.ndarray],
@@ -83,3 +116,29 @@ def evaluate_ate(est: Dict, gt: Dict, max_difference: float = 0.02) -> dict:
         "pairs": len(pairs),
     }
 
+
+def evaluate_rpe(est: Dict, gt: Dict, delta: int = 1,
+                 max_difference: float = 0.02) -> dict:
+    """RPE over fixed index delta (evaluate_rpe.py, fixed_delta frames)."""
+    pairs = associate(est, gt, max_difference)
+    if len(pairs) < delta + 1:
+        raise ValueError("not enough matched poses for RPE")
+    trans_errs, rot_errs = [], []
+    for i in range(len(pairs) - delta):
+        a0, b0 = pairs[i]
+        a1, b1 = pairs[i + delta]
+        dE = np.linalg.inv(est[a0]) @ est[a1]
+        dG = np.linalg.inv(gt[b0]) @ gt[b1]
+        E = np.linalg.inv(dG) @ dE
+        trans_errs.append(np.linalg.norm(E[:3, 3]))
+        ang = np.clip((np.trace(E[:3, :3]) - 1) / 2, -1, 1)
+        rot_errs.append(np.arccos(ang))
+    trans_errs = np.array(trans_errs)
+    rot_errs = np.array(rot_errs)
+    return {
+        "trans_rmse": float(np.sqrt(np.mean(trans_errs ** 2))),
+        "trans_mean": float(trans_errs.mean()),
+        "rot_rmse_deg": float(np.degrees(np.sqrt(np.mean(rot_errs ** 2)))),
+        "rot_mean_deg": float(np.degrees(rot_errs.mean())),
+        "pairs": len(trans_errs),
+    }

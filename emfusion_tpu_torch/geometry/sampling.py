@@ -11,7 +11,9 @@ E-step, each at its own points (a :class:`SampleItem`), and an object's
 foreground probability from its fg/bg counts at the same points. CUDA
 tensors launch the kernel; CPU tensors take :func:`sample_items_plain`.
 :func:`sample_volume_at_points` on a single-channel volume is its
-one-item form.
+one-item form. :func:`sample_system_at_points` is the exact (gather) LM's
+sampler: plain PyTorch on every device, as in the JAX package, where it
+is XLA code outside any Pallas kernel.
 
 The plain versions divide by tensors on the volume's device rather than
 by Python floats: PyTorch turns a division by a Python scalar on the GPU
@@ -242,6 +244,69 @@ def sample_items(items: Sequence[SampleItem]) -> Samples:
             float(it.margin)))
     kernels.launch_table("sample", table)
     return results
+
+
+def sample_system_at_points(vol: torch.Tensor, points_cam: torch.Tensor,
+                            rel_rot, rel_trans, voxel_size):
+    """The LM's residual and finite-difference gradient in one gather
+    (``sampling.py:178-267`` of the JAX package): the margin-1 value
+    (``kernel_getVolumeVals``, ``TSDF.cu:662-726``) and the margin-2 base
+    and three axis-shifted trilerps whose differences give the SDF
+    gradient (``kernel_computePoseGradients``, ``TSDF.cu:603-660``), all
+    from the 3x3x3 corner neighbourhood of each point, gathered once
+    (one ``torch.take`` of a (3, 3, 3, ...) index tensor; each corner
+    index clipped to the volume per axis).
+
+    Returns ``(psi, g3)``: ``psi`` of the points' trailing shape and
+    ``g3`` (3,) + trailing, already divided by ``voxel_size``."""
+    Z, Y, X = vol.shape
+    dev = vol.device
+    vx, vy, vz, pz = transform_to_grid(points_cam, rel_rot, rel_trans,
+                                       voxel_size, (Z, Y, X))
+    x0 = torch.floor(vx).to(torch.int32)
+    y0 = torch.floor(vy).to(torch.int32)
+    z0 = torch.floor(vz).to(torch.int32)
+    fx = vx - x0
+    fy = vy - y0
+    fz = vz - z0
+    d = torch.arange(3, dtype=torch.int64, device=dev).reshape(
+        (3,) + (1,) * x0.dim())
+    xi = torch.clamp(x0.long() + d, 0, X - 1)
+    yi = torch.clamp(y0.long() + d, 0, Y - 1)
+    zi = torch.clamp(z0.long() + d, 0, Z - 1)
+    idx = (zi[:, None, None] * Y + yi[None, :, None]) * X \
+        + xi[None, None, :]
+    c = torch.take(vol, idx)                     # c[dz][dy][dx]
+
+    def trilerp(oz, oy, ox):
+        def lx(dy, dz):
+            return c[dz, dy, ox] * (1 - fx) + c[dz, dy, ox + 1] * fx
+
+        def ly(dz):
+            return lx(oy, dz) * (1 - fy) + lx(oy + 1, dz) * fy
+
+        return ly(oz) * (1 - fz) + ly(oz + 1) * fz
+
+    base_val = trilerp(0, 0, 0)
+    inside = (pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0)
+    valid1 = inside & (vx + 1 < X) & (vy + 1 < Y) & (vz + 1 < Z)
+    valid2 = inside & (vx + 2 < X) & (vy + 2 < Y) & (vz + 2 < Z)
+    psi = torch.where(valid1, base_val, 0.0)
+    base = torch.where(valid2, base_val, 0.0)
+
+    # the validity of each shifted trilerp is evaluated on the shifted
+    # coordinates, as sample_volume_at_points(grid_offset=e) would
+    def vld(ex, ey, ez):
+        return ((pz > 0)
+                & (vx + ex >= 0.0) & (vy + ey >= 0.0) & (vz + ez >= 0.0)
+                & (vx + ex + 2 < X) & (vy + ey + 2 < Y) & (vz + ez + 2 < Z))
+
+    sx = torch.where(vld(1, 0, 0), trilerp(0, 0, 1), 0.0)
+    sy = torch.where(vld(0, 1, 0), trilerp(0, 1, 0), 0.0)
+    sz = torch.where(vld(0, 0, 1), trilerp(1, 0, 0), 0.0)
+    g3 = torch.stack([sx - base, sy - base, sz - base]) \
+        / scalar(voxel_size, vol)
+    return psi, g3
 
 
 def sample_volume_at_points(vol: torch.Tensor, points_cam: torch.Tensor,

@@ -26,11 +26,23 @@ slots (``pipeline.py:513-539``). Each slot runs its own raycast (K4). The
 lifecycle (match, spawn, resize, delete) runs on the host at the mask
 cadence, as in the reference (``EMFusion.cpp:329-558``).
 
-The JAX package's accelerator configuration is run by asking for its
-knobs: ``tracking_stride=3``, ``estep_scale=2`` (the association weights
-on the ``[::2, ::2]`` pixel grid, upsampled), ``motion_model="constvel"``
-(the camera LM starts at a constant-velocity prediction from the last two
-recorded poses) and ``capture_backend="band"`` (the batched object LM).
+The camera LM and the serial object LMs run the pipeline's ``sampler``
+(``EMF_TRACK_SAMPLER`` or the constructor's argument, as the JAX pipeline
+reads it; :func:`~emfusion_tpu_torch.config.resolve_params` resolves
+``auto``): the exact gather sampler on every device, or ``capture``, the
+JAX package's accelerator sampler. The JAX package's accelerator
+configuration is run by asking for its knobs:
+``tracking_stride=3``, ``estep_scale=2`` (the association weights on the
+``[::2, ::2]`` pixel grid, upsampled), ``motion_model="constvel"`` (the
+camera LM starts at a constant-velocity prediction from the last two
+recorded poses) and ``capture_backend="band"`` (the batched object LM,
+and the capture sampler for the camera LM).
+
+With ``save_output`` the frame keeps the images of the export tree in
+:attr:`EMFusionPipeline.outputs` (``io.writers.write_results`` writes
+them); :meth:`EMFusionPipeline.prefetch_depth` uploads the next frame's
+depth ahead, and :meth:`EMFusionPipeline.lm_counts` reports the last
+frame's LM iterations, re-captures and dropped points.
 
 The volumes and images live on the compute device and the kernels update
 the volumes in place; the 4x4 poses, voxel sizes and slot flags live on
@@ -71,6 +83,7 @@ from emfusion_tpu_torch.profiling import PhaseTimer
 from emfusion_tpu_torch.tracking import (
     TrackConfig, track_volume, track_volumes_batched,
 )
+from emfusion_tpu_torch.viz import visualize_detections
 from emfusion_tpu_torch.volume import fg_probs, make_volume
 
 logger = logging.getLogger("emfusion_tpu_torch")
@@ -399,11 +412,19 @@ class EMFusionPipeline:
 
     def __init__(self, params: Params,
                  mask_provider: Optional[seg_mod.MaskProvider] = None,
-                 device=None):
+                 device=None, sampler: Optional[str] = None,
+                 save_output: bool = False):
+        """``sampler``: the LM sampler of the camera and the serial object
+        LMs; None reads ``EMF_TRACK_SAMPLER``, default ``auto``, as the
+        JAX pipeline does (``pipeline.py:147-155``), and
+        :func:`~emfusion_tpu_torch.config.resolve_params` resolves it
+        with the other knobs. ``save_output`` keeps the per-
+        frame images of the export tree in :attr:`outputs`."""
         self.device = resolve_device(device)
         self.params = params
         self.mask_provider = mask_provider
-        resolved = resolve_params(params)
+        self.save_output = save_output
+        resolved = resolve_params(params, sampler)
         self.stride = resolved.tracking_stride
         self.escale = resolved.estep_scale
         self.motion_model = resolved.motion_model
@@ -418,7 +439,8 @@ class EMFusionPipeline:
         self.track_cfg = TrackConfig(
             tau=tp.tau, eps1=tp.eps1, eps2=tp.eps2, nu_init=tp.nu_init,
             huber_thresh=tp.huberThresh, max_tsdf_weight=tp.maxTSDFWeight,
-            max_iter=params.maxTrackingIter)
+            max_iter=params.maxTrackingIter, sampler=resolved.sampler)
+        self.sampler = resolved.sampler
         self.voxel = params.globalVoxelSize
         self.trunc = params.global_truncdist
         self.colormap = make_colormap()
@@ -442,6 +464,19 @@ class EMFusionPipeline:
         # the batched object LM's device reads and loop passes
         self.last_batched_lm: Optional[dict] = None
         self.timer = PhaseTimer(self.device)
+        # per-frame images of the export tree (pipeline.py:204-211 of the
+        # JAX package), host numpy, filled when save_output is set; the
+        # caller puts its renderings under "renderings"
+        self.outputs: Dict[str, dict] = {
+            "bg_assoc_pre": {}, "bg_assoc_post": {},
+            "obj_assoc_pre": {}, "obj_assoc_post": {},
+            "renderings": {}, "masks": {}, "mask_vis": {},
+            "track_weights_bg": {}, "huber_weights_bg": {},
+            "obj_track_weights": {}, "obj_huber_weights": {},
+            "fg_probs": {},
+        }
+        # the next frame's raw depth, uploaded ahead (prefetch_depth)
+        self._prefetched = None
 
     def _init_state(self) -> PipelineState:
         p = self.params
@@ -491,12 +526,32 @@ class EMFusionPipeline:
         return self.state.objs.object_id.numpy()
 
     # ------------------------------------------------------------------
+    def prefetch_depth(self, depth_raw: np.ndarray) -> None:
+        """Start the upload of the next frame's raw depth now, from a
+        pinned host buffer with a non-blocking copy, so it overlaps this
+        frame's device work (``pipeline.py:1047-1059``). The next
+        :meth:`process_frame` takes it when its depth is this array; every
+        frame clears the buffer, used or not, so a stale upload is never
+        taken for another frame. The CLI calls it right after a frame,
+        before that frame's rendering and exports."""
+        host = torch.from_numpy(np.ascontiguousarray(depth_raw, np.float32))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        self._prefetched = (depth_raw,
+                            host.to(self.device, non_blocking=True), host)
+
+    def _upload_depth(self, depth_raw) -> torch.Tensor:
+        pf, self._prefetched = self._prefetched, None
+        if pf is not None and pf[0] is depth_raw:
+            return pf[1]
+        return torch.as_tensor(np.asarray(depth_raw, np.float32)).to(
+            self.device)
+
     def preprocess(self, depth_raw):
         """Bilateral filter + patching, then the point map
         (``pipeline.py:817-831``)."""
         p = self.params
-        raw = torch.as_tensor(np.asarray(depth_raw, np.float32)).to(
-            self.device)
+        raw = self._upload_depth(depth_raw)
         depth = preprocess_depth(raw, p.bilateral_kernel_size,
                                  p.bilateral_sigma_depth,
                                  p.bilateral_sigma_spatial)
@@ -510,14 +565,17 @@ class EMFusionPipeline:
         """Camera-to-object transform of slot ``k``."""
         return pose_inverse(self.state.objs.pose[k]) @ self.state.cam_pose
 
-    def estep(self, points: torch.Tensor, slots: List[int]) -> None:
+    def estep(self, points: torch.Tensor, slots: List[int],
+              fg_out: bool = False) -> Optional[Dict[int, torch.Tensor]]:
         """computeAssociationWeights (``EMFusion.cpp:635-670``,
         ``pipeline.py:276-380``) for the background and the object slots
         ``slots`` (the others keep weight 0): the normalised association
         images. One K2 launch samples every model. With ``estep_scale`` s
         > 1 the weights are computed and normalised on the ``[::s, ::s]``
         pixel grid, then each is repeated s x s times and cropped to
-        (H, W)."""
+        (H, W). With ``fg_out``, also returns per slot its sampled
+        foreground probability as an (H, W) image (0 at the points it did
+        not evaluate), the JAX E-step's ``fg_out``."""
         tp = self.params.tsdfParams
         s, o = self.state, self.state.objs
         items, culls = self.estep_items(points, slots)
@@ -527,18 +585,22 @@ class EMFusionPipeline:
                                     tp.assocSigma, tp.alpha, tp.uniPrior)
         obj_w = torch.zeros((self.K,) + grid, dtype=torch.float32,
                             device=self.device)
+        fg_imgs = {}
         for k, (psi, fg), cull in zip(slots, samples[1:], culls):
             obj_w[k] = self._object_weights(k, psi, fg, cull, grid)
+            if fg_out:
+                fg_imgs[k] = self._upsample(self._uncull(fg, cull, grid))
         bg_n, obj_n = normalize_associations(bg_w, obj_w,
                                              o.active.to(self.device))
-        if self.escale > 1:
-            bg_n, obj_n = self._upsample(bg_n), self._upsample(obj_n)
-        s.bg_assoc, o.assoc = bg_n, obj_n
+        s.bg_assoc, o.assoc = self._upsample(bg_n), self._upsample(obj_n)
+        return fg_imgs if fg_out else None
 
     def _upsample(self, img: torch.Tensor) -> torch.Tensor:
         """An E-step image of the ``[::s, ::s]`` grid at (H, W): each value
         repeated s x s times, cropped (``pipeline.py:369-372``)."""
         e = self.escale
+        if e == 1:
+            return img
         img = img.repeat_interleave(e, dim=-2).repeat_interleave(e, dim=-1)
         return img[..., :self.H, :self.W].contiguous()
 
@@ -589,13 +651,20 @@ class EMFusionPipeline:
         w_s = weights_from_samples(psi, float(self.state.objs.truncdist[k]),
                                    tp.assocSigma, tp.alpha, tp.uniPrior,
                                    fg)
+        return self._uncull(w_s, cull, grid)
+
+    @staticmethod
+    def _uncull(vals: torch.Tensor, cull, grid) -> torch.Tensor:
+        """Values at a slot's evaluated points as an image of ``grid``:
+        as they are without culling; else 0 except at the culled points
+        inside the box."""
         if cull is None:
-            return w_s
+            return vals
         idx, inside = cull
-        w = torch.zeros(grid[0] * grid[1], dtype=torch.float32,
-                        device=w_s.device)
-        w[idx] = torch.where(inside[idx], w_s, 0.0)
-        return w.reshape(grid)
+        out = torch.zeros(grid[0] * grid[1], dtype=torch.float32,
+                          device=vals.device)
+        out[idx] = torch.where(inside[idx], vals, 0.0)
+        return out.reshape(grid)
 
     def culled_points(self, k: int, points: torch.Tensor):
         """The object E-step's point budget for slot ``k``: the flat
@@ -700,8 +769,11 @@ class EMFusionPipeline:
             o.pose[j] = s.cam_pose @ pose_inverse(rel[i])
             oid = int(o.object_id[j])
             self.last_obj_track_stats[oid] = {
-                key: st[key][i].item()
-                for key in ("iterations", "converged", "recaptures")}
+                key: st[key][i].item() for key in (
+                    "iterations", "converged", "recaptures")}
+            # left on the device: lm_counts() reads it when asked
+            self.last_obj_track_stats[oid]["dropped_points"] = \
+                st["dropped_points"][i]
             self.last_obj_track_weights[oid] = (imgs[0][i].reshape(grid),
                                                 imgs[1][i].reshape(grid))
         self.last_batched_lm = dict(
@@ -833,6 +905,7 @@ class EMFusionPipeline:
             slots = [int(k) for k in np.nonzero(self._h_active)[0]]
             with timer.phase("estep_pre"):
                 self.estep(points, slots)
+            pre = (self.state.bg_assoc, self.state.objs.assoc)
             with timer.phase("track_camera"):
                 self.track_camera(points)
             with timer.phase("estep_mid"):
@@ -841,9 +914,12 @@ class EMFusionPipeline:
                 with timer.phase("track_objects"):
                     self.track_objects(points, slots)
             with timer.phase("estep_post"):
-                self.estep(points, slots)        # post-track, :87
+                fg_imgs = self.estep(points, slots,      # post-track, :87
+                                     fg_out=self.save_output)
             with timer.phase("raycast"):
                 rc = self.raycast(slots)
+            if self.save_output:
+                self._save_frame_outputs(pre, fg_imgs)
             with timer.phase("summary"):
                 summary = frame_summary(rc, self.state.objs.assoc)
             o = self.state.objs
@@ -869,6 +945,59 @@ class EMFusionPipeline:
                 self.integrate_masks(matches, rc)
         self._end_frame(summary, rc, mask_frame, num_instances, matches)
         self.frame += 1
+
+    def _save_frame_outputs(self, pre, fg_imgs) -> None:
+        """The tracked part of a frame's export images, as host numpy
+        (``pipeline.py:1098-1150``): the association images before the
+        camera LM and after the last E-step, the LMs' track and Huber
+        weights on the stride grid, and the objects' sampled foreground
+        probabilities, each object's keyed by its id."""
+        out, f = self.outputs, self.frame
+        o = self.state.objs
+        live = [int(k) for k in np.nonzero(self._h_active)[0]]
+        ids = {k: int(self._h_ids[k]) for k in live}
+        st = self.last_track_stats
+        grid = self._track_grid()
+        out["track_weights_bg"][f] = st["track_weights"].reshape(
+            grid).cpu().numpy()
+        out["huber_weights_bg"][f] = st["huber_weights"].reshape(
+            grid).cpu().numpy()
+        if self.last_obj_track_weights:
+            out["obj_track_weights"][f] = {
+                oid: tw.cpu().numpy()
+                for oid, (tw, _) in self.last_obj_track_weights.items()}
+            out["obj_huber_weights"][f] = {
+                oid: hw.cpu().numpy()
+                for oid, (_, hw) in self.last_obj_track_weights.items()}
+        if fg_imgs:
+            out["fg_probs"][f] = {ids[k]: img.cpu().numpy()
+                                  for k, img in fg_imgs.items()}
+        pre_bg, pre_obj = pre
+        out["bg_assoc_pre"][f] = pre_bg.cpu().numpy()
+        out["bg_assoc_post"][f] = self.state.bg_assoc.cpu().numpy()
+        pre_o, post_o = pre_obj.cpu().numpy(), o.assoc.cpu().numpy()
+        out["obj_assoc_pre"][f] = {ids[k]: pre_o[k] for k in live}
+        out["obj_assoc_post"][f] = {ids[k]: post_o[k] for k in live}
+
+    def flush(self) -> None:
+        """Nothing to wait for: the port ends each frame inside
+        :meth:`process_frame`. Kept so callers of the JAX pipeline's
+        ``flush()`` (before reading poses, state or meshes) run
+        unchanged."""
+
+    def lm_counts(self) -> dict:
+        """The last frame's LM counts as host numbers: ``camera`` and, per
+        tracked object id, ``objects``, each with ``iterations``,
+        ``recaptures`` and ``dropped_points`` (0 under the gather
+        sampler)."""
+        keys = ("iterations", "recaptures", "dropped_points")
+
+        def host(st):
+            return {k: None if st.get(k) is None else int(st[k])
+                    for k in keys}
+        return {"camera": host(self.last_track_stats or {}),
+                "objects": {oid: host(v) for oid, v
+                            in self.last_obj_track_stats.items()}}
 
     def _end_frame(self, summary, rc, mask_frame, num_instances,
                    matches) -> None:
@@ -916,6 +1045,10 @@ class EMFusionPipeline:
         dets = seg_mod.filter_detections(dets, p.FILTER_CLASSES,
                                          p.STATIC_OBJECTS,
                                          min_pixels=p.mask_min_pixels)
+        if self.save_output:
+            self.outputs["masks"][self.frame] = [d.mask for d in dets]
+            self.outputs["mask_vis"][self.frame] = visualize_detections(
+                rgb, dets)                       # MaskRCNN::visualize
         n = len(dets)
         if n == 0:
             return 0

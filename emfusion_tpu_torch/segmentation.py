@@ -142,8 +142,9 @@ class TorchScriptMaskProvider(MaskProvider):
 
     The reference embeds CPython + TF1 Mask R-CNN in-process
     (``src/core/MaskRCNN.cpp:57-117``); here the detector is a
-    TorchScript instance-segmentation model (CPU torch) loaded from a
-    local path (the weights must be provided by the user).
+    TorchScript instance-segmentation model loaded from a local path
+    (the weights must be provided by the user) onto ``device``: ``None``
+    means the card, and raises without one.
 
     Accepted module output shapes (auto-detected per call):
 
@@ -171,10 +172,12 @@ class TorchScriptMaskProvider(MaskProvider):
     """
 
     def __init__(self, model_path: str, score_thresh: float = 0.7,
-                 mask_thresh: float = 0.5):
+                 mask_thresh: float = 0.5, device=None):
         import torch
+        from emfusion_tpu_torch.device import resolve_device
         self._torch = torch
-        self.model = torch.jit.load(model_path, map_location="cpu")
+        self.device = resolve_device(device)
+        self.model = torch.jit.load(model_path, map_location=self.device)
         self.model.eval()
         self.score_thresh = score_thresh
         self.mask_thresh = mask_thresh
@@ -184,7 +187,7 @@ class TorchScriptMaskProvider(MaskProvider):
             return []
         torch = self._torch
         with torch.no_grad():
-            img = torch.from_numpy(np.ascontiguousarray(rgb))
+            img = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
             out = self.model(img)
         return self._parse(out, np.asarray(rgb).shape[:2])
 

@@ -55,7 +55,7 @@ def background_runs():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("EMF_TRACK_SAMPLER", "capture")
         jpipe = JaxPipeline(JaxParams(**cfg), None)
-    pipe = EMFusionPipeline(Params(**cfg), device="cpu")
+    pipe = EMFusionPipeline(Params(**cfg), device="cpu", sampler="capture")
     assert (pipe.stride, pipe.escale, pipe.motion_model) == (3, 2, "constvel")
     before = dict(kernels.launches)
     deltas, snap = [], None
@@ -101,7 +101,8 @@ def test_carry_over_continues_constvel(background_runs):
     3 starts from the JAX package's constant-velocity prediction and ends
     within 1e-4 m and 1e-4 rad of the JAX frame 3's camera pose."""
     snap = background_runs["snap"]
-    pipe = EMFusionPipeline(Params(**background_runs["cfg"]), device="cpu")
+    pipe = EMFusionPipeline(Params(**background_runs["cfg"]), device="cpu",
+                            sampler="capture")
     pipe.load_state(state_from_numpy(snap["arrays"], device="cpu"), frame=3,
                     poses=snap["poses"])
     jd = background_runs["deltas"][3][0]
@@ -119,7 +120,7 @@ def rigid_provider(masks):
     return CallableMaskProvider(detect)
 
 
-def run_rigid(over, snap_at=None):
+def run_rigid(over, snap_at=None, sampler=None):
     """The port over the rigid scene of the JAX object gate; the object's
     trajectory, and the state's arrays after frame ``snap_at``. Before
     every frame from 2 on, the constant-velocity model reads the poses of
@@ -127,7 +128,8 @@ def run_rigid(over, snap_at=None):
     lifecycle, the others at their end)."""
     _, frames, masks, obj_x = _make_sequence(grow=False)
     pipe = EMFusionPipeline(Params(**dict(GATE, **over)),
-                            rigid_provider(masks), device="cpu")
+                            rigid_provider(masks), device="cpu",
+                            sampler=sampler)
     snap, reads = None, []
     for f, depth in enumerate(frames):
         if f >= 2:
@@ -147,7 +149,7 @@ def run_rigid(over, snap_at=None):
 
 @pytest.fixture(scope="module")
 def rigid_accel():
-    return run_rigid(ACCEL, snap_at=4)
+    return run_rigid(ACCEL, snap_at=4, sampler="capture")
 
 
 def test_rigid_scene_gate(rigid_accel):
@@ -236,7 +238,8 @@ def test_receding_object_survives():
                     volumePose=(0.0, 0.0, vol_m / 2), visibilityThresh=100,
                     mask_min_pixels=156, boundary=5, **ACCEL)
     masks = {}
-    pipe = EMFusionPipeline(params, rigid_provider(masks), device="cpu")
+    pipe = EMFusionPipeline(params, rigid_provider(masks), device="cpu",
+                            sampler="capture")
     for f in range(14):
         th = 0.004 * f
         c, s = np.cos(th), np.sin(th)

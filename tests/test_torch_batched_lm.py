@@ -179,6 +179,8 @@ def test_track_volumes_batched_matches_jax(carried):
         np.testing.assert_allclose(st[key].numpy(), np.asarray(ref_st[key]),
                                    rtol=0, atol=1e-5)
     assert not st["track_weights"][2].any()
+    assert st["dropped_points"].shape == (S,)
+    assert st["dropped_points"][2] == 0 and st["dropped_points"].min() >= 0
     assert (st["huber_weights"][:2] != 0).sum(dim=1).min() > 300
     assert st["host_reads"] <= 2 * st["loop_iterations"]
     assert st["loop_iterations"] == it[1]     # stage 1's 15, then slot 1

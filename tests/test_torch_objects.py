@@ -377,7 +377,7 @@ def port_pipeline(world, **over):
     """A port pipeline continuing from the world's JAX state."""
     cfg = dict(GATE, **over)
     jp = world["jp"]
-    pipe = EMFusionPipeline(Params(**cfg), device="cpu")
+    pipe = EMFusionPipeline(Params(**cfg), device="cpu", sampler="capture")
     pipe.load_state(state_from_numpy(world["arrays"], device="cpu"),
                     frame=N_RUN,
                     meta={i: ObjectMeta(**dataclasses.asdict(m))

@@ -40,7 +40,14 @@ def test_import_leaves_jax_out():
     code = ("import sys, emfusion_tpu_torch.pipeline, "
             "emfusion_tpu_torch.eval.ate, emfusion_tpu_torch.kernels, "
             "emfusion_tpu_torch.segmentation, emfusion_tpu_torch.entry, "
-            "emfusion_tpu_torch.detector_post, emfusion_tpu_torch.ops.render; "
+            "emfusion_tpu_torch.detector_post, emfusion_tpu_torch.ops.render, "
+            "emfusion_tpu_torch.checkpoint, emfusion_tpu_torch.viz, "
+            "emfusion_tpu_torch.io.codecs, emfusion_tpu_torch.io.readers, "
+            "emfusion_tpu_torch.io.writers, "
+            "emfusion_tpu_torch.ops.marching_cubes, "
+            "emfusion_tpu_torch.apps.run_emfusion, "
+            "emfusion_tpu_torch.apps.evaluate, "
+            "emfusion_tpu_torch.apps.preprocess_masks; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'emfusion_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -132,11 +139,11 @@ def test_unported_knobs_raise(knob, value, error):
     (dict(estep_scale=2), dict(estep_scale=2)),
     (dict(motion_model="constvel"), dict(motion_model="constvel")),
     (dict(capture_backend="band"),
-     dict(object_lm="batched", obj_track_points=4096)),
+     dict(object_lm="batched", obj_track_points=4096, sampler="capture")),
     (dict(capture_backend="band", obj_track_points=0),
-     dict(object_lm="batched", obj_track_points=0)),
+     dict(object_lm="batched", obj_track_points=0, sampler="capture")),
     (dict(capture_backend="gather"),
-     dict(object_lm="serial", obj_track_points=0))])
+     dict(object_lm="serial", obj_track_points=0, sampler="gather"))])
 def test_accelerator_knobs_resolve(over, want):
     """The JAX package's accelerator knobs, asked for explicitly, resolve
     as it resolves them (``pipeline.py:167-176, 261-264, 387-411``):
@@ -150,8 +157,8 @@ def test_accelerator_knobs_resolve(over, want):
 def test_auto_knobs_resolve_to_the_exact_path():
     r = resolve_params(Params())
     assert (r.volume_dtype, r.tracking_stride, r.estep_scale,
-            r.motion_model, r.object_lm, r.obj_track_points) == (
-                "float32", 1, 1, "static", "serial", 0)
+            r.motion_model, r.object_lm, r.obj_track_points,
+            r.sampler) == ("float32", 1, 1, "static", "serial", 0, "gather")
     assert resolve_params(Params(tracking_stride=3)).tracking_stride == 3
 
 

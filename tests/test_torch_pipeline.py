@@ -59,9 +59,11 @@ def state_arrays(state):
 
 @pytest.fixture(scope="module")
 def runs():
-    """Both packages over the sequence. The JAX side runs its capture
-    sampler (``EMF_TRACK_SAMPLER=capture``, read at construction), the
-    LM sampler the port has; its state is kept after frames 1 and 2."""
+    """Both packages over the sequence, both with the capture sampler
+    (``EMF_TRACK_SAMPLER=capture`` on the JAX side, read at construction;
+    ``sampler="capture"`` on the port's): this file holds the capture LM
+    of both packages, ``test_torch_gather_lm.py`` their default (gather)
+    LM. The JAX state is kept after frames 1 and 2."""
     frames, gt = sequence()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("EMF_TRACK_SAMPLER", "capture")
@@ -74,7 +76,8 @@ def runs():
             snaps[f] = state_arrays(jax_pipe.state)
     jax_poses = {float(f): p for f, p in jax_pipe.poses.items()}
 
-    pipe = EMFusionPipeline(Params(**BASE, **EXACT), device="cpu")
+    pipe = EMFusionPipeline(Params(**BASE, **EXACT), device="cpu",
+                            sampler="capture")
     before = dict(kernels.launches)
     for f, depth in enumerate(frames):
         pipe.process_frame(None, depth, timestamp=float(f))
@@ -135,7 +138,8 @@ def test_state_carry_over_from_jax(runs):
     within rounding of a pixel boundary, where the pose's last bits pick
     the neighbouring pixel."""
     snaps, frames = runs["snaps"], runs["frames"]
-    pipe = EMFusionPipeline(Params(**BASE, **EXACT), device="cpu")
+    pipe = EMFusionPipeline(Params(**BASE, **EXACT), device="cpu",
+                            sampler="capture")
     state = state_from_numpy(snaps[1], device="cpu")
     assert state.bg_tsdf.shape == (RES, RES, RES)
     pipe.load_state(state, frame=2)

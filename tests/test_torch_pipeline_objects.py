@@ -113,7 +113,7 @@ def both(frames, masks, cfg, snap_at=None):
                     lambda p, k: float(np.asarray(p.state.objs.voxel_size)[k]),
                     snap_at)
     pipe = EMFusionPipeline(Params(**cfg), CallableMaskProvider(provider),
-                            device="cpu")
+                            device="cpu", sampler="capture")
     before = dict(kernels.launches)
     port_run = drive(pipe, frames,
                      lambda p, k: float(p.state.objs.voxel_size[k]))
@@ -312,7 +312,7 @@ def test_state_carry_over_from_jax(rigid):
                 ] if f in masks else []
 
     pipe = EMFusionPipeline(Params(**cfg), CallableMaskProvider(provider),
-                            device="cpu")
+                            device="cpu", sampler="capture")
     state = state_from_numpy(snap["arrays"], device="cpu")
     assert state.objs.tsdf.shape == (4, 32, 32, 32)
     pipe.load_state(state, frame=frame,

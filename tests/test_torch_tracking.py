@@ -121,7 +121,7 @@ def test_track_volume_capture_matches_jax(start):
     out, stats = track_volume(torch.tensor(tsdf), torch.tensor(weights),
                               VOXEL, torch.tensor(pts), torch.tensor(assoc),
                               torch.tensor(init),
-                              TrackConfig(max_iter=50))
+                              TrackConfig(max_iter=50, sampler="capture"))
     assert kernels.launches == before
     out = out.numpy()
     assert np.abs(out[:3, 3] - ref[:3, 3]).max() < 1e-4
