@@ -60,6 +60,15 @@
    that path's final two-slot table (2 x 4096 points), over the camera's
    stride-3 points, and over a full pool (16 x 4096, the pool of step 7);
    profiles three frames of the path (``chiprun_out/accel_profile_ops.txt``).
+8b. Runs the same 40 frames and masks again with ``volume_dtype="bfloat16"``
+   (the JAX package's accelerator storage: the background pair in bf16)
+   and prints its e2e ms a frame, peak memory, ATE, recovery, launches
+   and LM counts beside step 8's float32 run; fails as step 8 does. Then
+   holds the bf16 forms on its final state: K1 over the fusion table (the
+   bf16 background and both float32 slots, one launch), K2 over the
+   E-step's table, K3 over the camera's stride-3 points (a bf16 cache)
+   and K4 on the bf16 background, each at max abs error 0 with its bound
+   recounted for bf16 bytes.
 9. Runs the CLI path: writes a 40-frame 640x480 TUM-format sequence of
    the object path's scene with the port's PNG encoder (with ground
    truth, calibration and ``.plk`` masks at frames 0 and 30), runs
@@ -74,6 +83,16 @@
    background mesh whose median distance to the scene's surfaces is half
    a voxel or more. Its files live in ``chip_smoke_work/``, removed at
    the end.
+9b. The viewers: ``apps.run_emfusion --serve PORT --turntable 3`` over 4
+   frames of that sequence (a thread polls ``/status`` while it runs; the
+   three views must decode, the brightest lit: a view from behind the
+   scene sees back faces, which K4 culls); then ``viz_server.LiveViewer`` on
+   loopback and a free port over the CLI path's final state: every
+   endpoint answers (two ``/stream`` parts; ``/frame.png`` and
+   ``/view.png`` decoded by the port's decoder, lit; ``/mesh.bin``
+   parsed), 12 turntable views timed, ``encode_jpeg`` of a 640x480 frame
+   timed, and K4 held at an orbit pose from outside the volume
+   (``raycast_orbit``, with the K4 launches of this step).
 10. Runs a small scene through the pipeline on the card and on the CPU
    (plain versions) and compares the camera poses; then a small object
    scene, comparing the live objects and the camera and object poses.
@@ -87,7 +106,9 @@ of every kernel (K6 with 0 launches; the ``*_object`` rows are the
 object-path holds of step 6 and the ``*_pool`` rows those of step 7,
 both with the object path's launches that touched an object volume; the
 ``capture_*_accel`` rows are step 8's, with the accelerator path's K3
-launches at the camera's or the objects' shape; the other rows carry the
+launches at the camera's or the objects' shape; the ``*_bf16`` rows are
+step 8b's, with its launches at the background's shape (K2 and K1 with
+all their launches); ``raycast_orbit`` is step 9b's; the other rows carry the
 background-only main path's, except K3's: the exact paths' LMs gather,
 so the ``capture`` row carries the main path's capture run's launches
 and ``capture_object`` the accelerator path's at the object shape; the
@@ -160,6 +181,14 @@ POOL_ROWS = [(f"{name}_pool", src, replaces, kernel)
 # stage's table of both objects, and of a full pool
 ACCEL_ROWS = [(f"capture_{what}_accel",) + KERNEL_ROWS[2][1:]
               for what in ("camera", "objects", "pool")]
+# the bf16 forms on the accelerator path with bf16 volumes (step 8b), and
+# K4 from an orbit camera (step 9b)
+BF16_ROWS = [("fusion_bf16",) + KERNEL_ROWS[0][1:],
+             ("sample_bf16",) + KERNEL_ROWS[1][1:],
+             ("capture_camera_bf16",) + KERNEL_ROWS[2][1:],
+             ("raycast_bf16",) + KERNEL_ROWS[3][1:]]
+VIEW_ROWS = [("raycast_orbit",) + KERNEL_ROWS[3][1:]]
+TURNTABLE_VIEWS = 12          # views of the viewer step's turntable
 # the JAX package's accelerator tracking configuration: what its `auto`
 # knobs resolve to on a chip (pipeline.py:167-176, 261-264, 387-411),
 # volumes kept float32
@@ -401,7 +430,8 @@ def hold_sample(torch, items, library=False):
                              for dx in (0, 1)])
         fg = it.counts is not None
         n_vox = distinct(torch, corners) if N else 0
-        nbytes += 16 * N + 4 * n_vox + (4 * N + 8 * n_vox if fg else 0)
+        nbytes += (16 * N + it.vol.element_size() * n_vox
+                   + (4 * N + 8 * n_vox if fg else 0))
         ops += sample_ops(N, int(ok.sum()) if fg else 0)
     lib = None
     if library:
@@ -442,13 +472,14 @@ def window_voxels(torch, anchor, shape):
     return int(seen.sum())
 
 
-def capture_bound(n_points, n_vox):
+def capture_bound(n_points, n_vox, es=4):
     """K3's bound: per point its 12 bytes read, its 2 x 216 cache values
-    (4 bytes each) and 3 anchors (12 bytes) written, each window voxel's
-    tsdf and weight read once; 20 float32 operations a point (the rigid
-    transform, the grid coordinates and the floors)."""
-    return bound(12 * n_points + 2 * 216 * 4 * n_points + 12 * n_points
-                 + 8 * n_vox, 20 * n_points)
+    (``es`` bytes each: 4, or 2 for a bf16 volume) and 3 anchors (12
+    bytes) written, each window voxel's tsdf and weight read once; 20
+    float32 operations a point (the rigid transform, the grid coordinates
+    and the floors)."""
+    return bound(12 * n_points + 2 * 216 * es * n_points + 12 * n_points
+                 + 2 * es * n_vox, 20 * n_points)
 
 
 def hold_capture(torch, vols, pts, R, t, vs):
@@ -470,7 +501,8 @@ def hold_capture(torch, vols, pts, R, t, vs):
             vols, pts, R, t, vs), 10),
         plain_ms=time_ms(torch, lambda: capture_neighborhoods_plain(
             vols, pts, Rd, td, vs), 3),
-        bound=capture_bound(N, window_voxels(torch, qa, vols[0].shape)),
+        bound=capture_bound(N, window_voxels(torch, qa, vols[0].shape),
+                            vols[0].element_size()),
         library_ms=None)
 
 
@@ -499,7 +531,8 @@ def hold_capture_batched(torch, tsdfs, weights, pts, rel, vs):
             tsdfs, weights, pts, R, t, vs), 10),
         plain_ms=time_ms(torch, lambda: capture_neighborhoods_batched_plain(
             tsdfs, weights, pts, Rd, td, vs), 3),
-        bound=capture_bound(S * M, n_vox), library_ms=None)
+        bound=capture_bound(S * M, n_vox, tsdfs[0].element_size()),
+        library_ms=None)
 
 
 def hold_raycast(torch, tsdf, weights, R, t, intr, vs, td, H, W, max_steps,
@@ -541,7 +574,8 @@ def hold_raycast(torch, tsdf, weights, R, t, intr, vs, td, H, W, max_steps,
         plain_ms=time_ms(torch, lambda: raycast_volume_plain(
             tsdf, weights, Rd, tdv, intr, vs, td, H, W, max_steps), 1,
             warmup=0),
-        bound=bound(29 * HW + 8 * distinct(torch, corners),
+        bound=bound(29 * HW + 2 * tsdf.element_size()
+                    * distinct(torch, corners),
                     raycast_ops(st, HW, int(hits.sum()))),
         library_ms=None)
 
@@ -559,7 +593,8 @@ def fusion_traffic(torch, items, after, depth, intr):
     item its association image; 8 per ``BAND`` voxel (tsdf and weight
     read), 4 per ``BEHIND``, ``HOLE`` or ``NEG`` voxel (the weight) and 4
     more where that weight is 0 (the tsdf), 4 per stored value that
-    changed; nothing for a ``SKIP`` voxel. Float32 operations: per voxel
+    changed; nothing for a ``SKIP`` voxel (half of each of those for a
+    bf16 item). Float32 operations: per voxel
     28 (its centre, the rigid transform, the pixel's two divisions,
     products and sums, the in-image test), per ``NEG`` or ``BAND`` voxel
     18 more (the ray factor, the distance and the sdf), per ``BAND`` voxel
@@ -570,7 +605,7 @@ def fusion_traffic(torch, items, after, depth, intr):
         BAND, BEHIND, HOLE, NEG, SKIP, voxel_classes,
     )
     HW = depth.numel()
-    nbytes, ops, n_all = 4 * HW, 0, 0
+    nbytes, ops, n_all, all_bytes = 4 * HW, 0, 0, 0
     c = dict(voxels=0, skip=0, behind=0, hole=0, neg=0, band=0,
              tsdf_changed=0, weights_changed=0, any_changed=0)
     for it, (qt, qw) in zip(items, after):
@@ -582,26 +617,29 @@ def fusion_traffic(torch, items, after, depth, intr):
         rule = (cls == BEHIND) | (cls == HOLE) | (cls == NEG)
         rule_w0 = int((rule & (it.weights == 0)).sum())
         del cls, rule
-        t_ch = qt.view(torch.int32) != it.tsdf.view(torch.int32)
-        w_ch = qw.view(torch.int32) != it.weights.view(torch.int32)
+        es = it.tsdf.element_size()
+        bits = torch.int16 if es == 2 else torch.int32
+        t_ch = qt.view(bits) != it.tsdf.view(bits)
+        w_ch = qw.view(bits) != it.weights.view(bits)
         V = it.tsdf.numel()
         c["voxels"] += V
         for name, v in n.items():
             c[name] += v
+        n_changed = int(t_ch.sum()) + int(w_ch.sum())
         c["tsdf_changed"] += int(t_ch.sum())
         c["weights_changed"] += int(w_ch.sum())
         c["any_changed"] += int((t_ch | w_ch).sum())
         del t_ch, w_ch
-        nbytes += (4 * HW + 8 * n["band"]
-                   + 4 * (n["behind"] + n["hole"] + n["neg"]) + 4 * rule_w0)
+        nbytes += (4 * HW + 2 * es * n["band"]
+                   + es * (n["behind"] + n["hole"] + n["neg"])
+                   + es * rule_w0 + es * n_changed)
         ops += 28 * V + 18 * (n["neg"] + n["band"]) + 12 * n["band"]
         n_all += V
-    nbytes += 4 * (c["tsdf_changed"] + c["weights_changed"])
+        all_bytes += 4 * es * V + 8 * HW
     V = c["voxels"]
     shares = dict(in_image=(c["hole"] + c["neg"] + c["band"]) / V,
                   behind=c["behind"] / V, changed=c["any_changed"] / V)
-    return (bound(nbytes, ops), bound(16 * n_all + 8 * HW * len(items),
-                                      50 * n_all), c, shares)
+    return bound(nbytes, ops), bound(all_bytes, 50 * n_all), c, shares
 
 
 def hold_fusion(torch, items, depth, intr):
@@ -1167,22 +1205,25 @@ def check_objects(name, pipe, launches, obj_launches, rec, ate):
         raise RuntimeError(f"{name}: ATE {ate['rmse']} m >= {VOXEL_CUT} m")
 
 
-def accel_path(torch, params, scene, n_frames, rng, report):
-    """The accelerator path: the object path's scene and masks under the
-    JAX package's accelerator tracking configuration (``ACCEL``). Fails
-    as the object path does (:func:`check_objects`), and also if a frame
+def accel_path(torch, params, frames, masks, report, key="accel_path",
+               volume_dtype="auto"):
+    """The accelerator path: the object path's scene's ``frames`` and
+    ``masks`` under the JAX package's accelerator tracking configuration
+    (``ACCEL``), its volumes stored in ``volume_dtype``. Fails as the
+    object path does (:func:`check_objects`), and also if a frame
     launched K3 at the object shape more than twice (once per batched LM
     stage) or the batched LM read the device more than twice per pass of
-    its loop. Returns the path's K3 launches at the camera's and at the
-    objects' shape, and the pipeline."""
+    its loop. Returns the path's launches (all of them, and K3's at the
+    camera's and at the objects' shape), and the pipeline."""
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
-    params = dataclasses.replace(params, **ACCEL)
-    frames, masks = object_scene(scene, params, n_frames, rng)
+    n_frames = len(frames)
+    params = dataclasses.replace(params, volume_dtype=volume_dtype, **ACCEL)
     pipe = EMFusionPipeline(params, mask_provider(masks))
+    name = key.replace("_", " ")
     if (pipe.object_lm, pipe.escale, pipe.motion_model, pipe.sampler) != (
             "batched", 2, "constvel", "capture"):
-        raise RuntimeError("accel path: the configuration did not resolve")
+        raise RuntimeError(f"{name}: the configuration did not resolve")
     e2e, launches, by_shape, peak, lm_iters, per_frame = run_frames(
         torch, pipe, frames)
     ate = camera_ate(pipe, n_frames)
@@ -1194,15 +1235,16 @@ def accel_path(torch, params, scene, n_frames, rng, report):
     k3_obj = [f["by_shape"].get(("capture", obj_shape), 0) for f in per_frame]
     lms = [f["batched_lm"] for f in per_frame if f["batched_lm"]]
     if len(lms) != n_frames - 1:
-        raise RuntimeError(f"accel path: the batched object LM ran in "
+        raise RuntimeError(f"{name}: the batched object LM ran in "
                            f"{len(lms)} of {n_frames - 1} frames")
     reads = [lm["host_reads"] / lm["loop_iterations"] for lm in lms]
     cam_it = float(np.mean([it[0] for it in lm_iters]))
     obj_it = [n for it in lm_iters for n in it[1:]]
     loop_it = [lm["loop_iterations"] for lm in lms]
     lm_counts = lm_summary(per_frame)
-    report["accel_path"] = dict(
+    report[key] = dict(
         frames=n_frames, config=ACCEL, mask_frames=sorted(masks),
+        volume_dtype=str(pipe.vol_dtype),
         e2e_ms_per_frame=float(np.mean(e2e[1:])), e2e_ms_frame0=e2e[0],
         e2e_ms=e2e, phase_ms_per_call=phases,
         phase_calls=dict(pipe.timer.counts), max_memory_allocated=peak,
@@ -1217,37 +1259,39 @@ def accel_path(torch, params, scene, n_frames, rng, report):
         host_reads_per_batched_iteration_max=float(max(reads)),
         lm_iterations=lm_iters, lm=lm_counts,
         live_objects=pipe.active_object_ids, recovery=rec)
-    print(f"accel path: {n_frames} frames {params.width}x{params.height} "
-          f"into {params.globalVolumeDims[0]}^3 with "
+    print(f"{name}: {n_frames} frames {params.width}x{params.height} "
+          f"into {params.globalVolumeDims[0]}^3 ({pipe.vol_dtype}) with "
           f"{len(MOVERS)} moving objects under {ACCEL}, e2e "
           f"{np.mean(e2e[1:]):.3f} ms/frame (frames 1..), frame 0 "
           f"{e2e[0]:.3f} ms", flush=True)
-    print("accel path phase ms per call: " + ", ".join(
+    print(f"{name} phase ms per call: " + ", ".join(
         f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
-    print("accel path launches per frame: " + ", ".join(
+    print(f"{name} launches per frame: " + ", ".join(
         f"{k} {v / n_frames:.2f}" for k, v in launches.items())
         + f"; K3 at the object shape {list(obj_shape)} per frame: max "
         f"{max(k3_obj)}, total {sum(k3_obj)}", flush=True)
-    print(f"accel path LM iterations per call: camera {cam_it:.1f}, "
+    print(f"{name} LM iterations per call: camera {cam_it:.1f}, "
           f"batched loop {np.mean(loop_it):.1f} (per object "
           f"{np.mean(obj_it):.1f}, {lms[-1]['points']} points a slot); "
           f"device reads per batched iteration mean {np.mean(reads):.3f}, "
           f"max {max(reads):.3f}", flush=True)
-    print_lm_summary("accel path", lm_counts)
-    print(f"accel path: peak memory {peak / 2**30:.3f} GiB; live objects "
+    print_lm_summary(name, lm_counts)
+    print(f"{name}: peak memory {peak / 2**30:.3f} GiB; live objects "
           f"{pipe.active_object_ids}; camera ATE rmse "
           f"{ate['rmse'] * 1e3:.3f} mm; x-motion recovery " + ", ".join(
               f"object {oid} {r['recovery']:.3f}"
               for oid, r in rec.items()), flush=True)
-    check_objects("accel path", pipe, launches, obj_launches, rec, ate)
+    check_objects(name, pipe, launches, obj_launches, rec, ate)
     if max(k3_obj) > 2:
-        raise RuntimeError(f"accel path: K3 launched {max(k3_obj)} times "
+        raise RuntimeError(f"{name}: K3 launched {max(k3_obj)} times "
                            "at the object shape in a frame (at most 2)")
     if max(reads) > 2:
-        raise RuntimeError(f"accel path: the batched LM read the device "
+        raise RuntimeError(f"{name}: the batched LM read the device "
                            f"{max(reads)} times an iteration (at most 2)")
-    return dict(camera=report["accel_path"]["k3_camera_shape_launches"],
-                objects=obj_launches["capture"]), pipe
+    bg_launches = {k: by_shape.get((k, bg_shape), 0) for k in launches}
+    return dict(camera=report[key]["k3_camera_shape_launches"],
+                objects=obj_launches["capture"], all=launches,
+                background=bg_launches), pipe
 
 
 def accel_kernel_phases(torch, pipe, depth_raw):
@@ -1272,6 +1316,72 @@ def accel_kernel_phases(torch, pipe, depth_raw):
             pipe.voxel),
         "capture_objects_accel": hold_capture_batched(torch, tsdfs, wts, pts,
                                                       rel_o, vs)}
+
+
+def bf16_kernel_phases(torch, pipe, depth_raw):
+    """The bf16 forms against their plain versions on the bf16
+    accelerator path's final state: K1 over the frame's fusion table (the
+    bf16 background and every visible float32 slot, one launch), K2 over
+    the E-step's table (the bf16 background and every live slot), K3 over
+    the camera's stride-3 points at the constant-velocity start (a bf16
+    cache) and K4 on the bf16 background at the camera. Returns the
+    rows."""
+    from emfusion_tpu_torch.geometry.se3 import pose_inverse, reorthonormalize
+
+    p, s = pipe.params, pipe.state
+    if s.bg_tsdf.dtype != torch.bfloat16:
+        raise RuntimeError("bf16 holds: the background is not bf16")
+    depth, points = pipe.preprocess(depth_raw)
+    live = [int(j) for j in np.nonzero(pipe._h_active)[0]]
+    k = pipe.stride
+    rel = reorthonormalize(pose_inverse(s.bg_pose) @ s.cam_pose
+                           @ pipe.motion_delta())
+    cam = pose_inverse(s.bg_pose) @ s.cam_pose
+    return {
+        "fusion_bf16": hold_fusion(torch, pipe.fusion_items(), depth,
+                                   pipe.intr),
+        "sample_bf16": hold_sample(torch,
+                                   pipe.estep_items(points, live)[0]),
+        "capture_camera_bf16": hold_capture(
+            torch, (s.bg_tsdf, s.bg_weights),
+            points[:, ::k, ::k].reshape(3, -1), rel[:3, :3], rel[:3, 3],
+            pipe.voxel),
+        "raycast_bf16": hold_raycast(
+            torch, s.bg_tsdf, s.bg_weights, cam[:3, :3], cam[:3, 3],
+            pipe.intr, pipe.voxel, pipe.trunc, pipe.H, pipe.W,
+            p.raycast_max_steps)}
+
+
+def compare_accel(report):
+    """Step 8b beside step 8: e2e, peak memory, ATE, recovery, launches a
+    frame and the LMs' counts of the float32 and the bf16 run."""
+    a, b = report["accel_path"], report["accel_path_bf16"]
+    n = a["frames"]
+    lines = [
+        ("e2e ms a frame (frames 1..)", a["e2e_ms_per_frame"],
+         b["e2e_ms_per_frame"]),
+        ("peak memory GiB", a["max_memory_allocated"] / 2 ** 30,
+         b["max_memory_allocated"] / 2 ** 30),
+        ("camera ATE mm", a["ate"]["rmse"] * 1e3, b["ate"]["rmse"] * 1e3),
+        ("camera LM iterations a call", a["camera_lm_iterations_mean"],
+         b["camera_lm_iterations_mean"]),
+        ("batched LM passes a frame", a["batched_lm_loop_iterations_mean"],
+         b["batched_lm_loop_iterations_mean"])]
+    for who in ("camera", "objects"):
+        for what in ("recaptures_total", "dropped_points_total"):
+            lines.append((f"{who} {what}", a["lm"][who][what],
+                          b["lm"][who][what]))
+    for line in lines:
+        print(f"accel path float32 / bf16: {line[0]} {line[1]:.4f} / "
+              f"{line[2]:.4f}", flush=True)
+    print("accel path float32 / bf16: recovery " + "; ".join(
+        f"{r['recovery']:.4f} / {q['recovery']:.4f}" for r, q in zip(
+            a["recovery"].values(), b["recovery"].values()))
+        + "; launches a frame " + ", ".join(
+            f"{k} {a['launches'][k] / n:.3f} / {b['launches'][k] / n:.3f}"
+            for k in a["launches"]), flush=True)
+    report["accel_float32_vs_bf16"] = {line[0]: [line[1], line[2]]
+                                       for line in lines}
 
 
 def accel_pool_phase(torch, pipe, depth_raw):
@@ -1364,7 +1474,7 @@ def scene_distance(scene, pts, objects):
     return d
 
 
-def cli_path(torch, params, scene, rng, report, config):
+def cli_path(torch, params, scene, rng, report, config, then=None):
     """Step 9, the CLI path: a TUM-format sequence of the object path's
     scene through ``apps.run_emfusion.main`` on the card, frames 0-19
     with a checkpoint, then ``--resume`` for frames 20-39 (a checkpoint
@@ -1373,8 +1483,9 @@ def cli_path(torch, params, scene, rng, report, config):
     checkpoint save timed. Fails on a camera ATE of 1 cm or more, a lost
     object, an x-motion recovery outside 0.35-2.0, a missing export
     directory, an empty mesh, or a background mesh whose median distance
-    to the scene's surfaces is half a voxel or more. Returns the launches
-    of both runs."""
+    to the scene's surfaces is half a voxel or more. ``then(pipe, seq,
+    masks)``, if given, runs on the final state before the files go.
+    Returns the launches of both runs and what ``then`` returned."""
     import shutil
 
     from emfusion_tpu_torch import kernels
@@ -1514,6 +1625,7 @@ def cli_path(torch, params, scene, rng, report, config):
               f"distance to the scene {med * 1e3:.3f} mm; object meshes "
               f"{obj_verts} vertices; write_results (with volumes) "
               f"{results_s:.3f} s", flush=True)
+        after = then(pipe, seq, os.path.join(seq, "masks")) if then else None
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check_launches("cli path", launches, PATH_KERNELS)
@@ -1533,20 +1645,222 @@ def cli_path(torch, params, scene, rng, report, config):
     if not med < 0.5 * params.globalVoxelSize:
         raise RuntimeError(f"cli path: the background mesh lies {med} m "
                            "(median) from the scene")
-    return launches
+    return launches, after
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(port, path, timeout=300):
+    """(status, content type, body) of a GET on the loopback viewer."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, None, b""
+
+
+def stream_parts(port, n, publish):
+    """``n`` parts of ``/stream``, publishing a new frame after each part
+    but the last; each part's bytes."""
+    import urllib.request
+    parts = []
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stream",
+                                timeout=120) as r:
+        for i in range(n):
+            head = [r.readline() for _ in range(4)]
+            if head[0] != b"--emf\r\n":
+                raise RuntimeError(f"viewer: /stream part {i}: {head}")
+            parts.append(r.read(int(head[2].split(b":")[1])))
+            r.readline()
+            if i < n - 1:
+                publish()
+    return parts
+
+
+def lit(img) -> float:
+    return float((np.asarray(img).max(-1) > 0).mean())
+
+
+def viewer_step(torch, pipe, seq, masks_dir, config, report):
+    """Step 9b: ``apps.run_emfusion --serve --turntable`` over 4 frames of
+    the CLI sequence (a thread polls ``/status`` while it runs), then
+    ``LiveViewer`` over ``pipe`` (the CLI path's final state): every
+    endpoint, two ``/stream`` parts, 12 turntable views and
+    ``encode_jpeg`` timed, and K4 held at an orbit pose. Fails if an
+    endpoint does not answer as it should, an image is unlit, or the
+    CLI's viewer never answered. Returns the ``raycast_orbit`` row and
+    the step's K4 launches."""
+    import threading
+
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch.apps import run_emfusion
+    from emfusion_tpu_torch.geometry.se3 import pose_inverse
+    from emfusion_tpu_torch.io.codecs import decode_png, encode_jpeg
+    from emfusion_tpu_torch.viz import (
+        orbit_pose, render_orbit_view, render_turntable,
+    )
+    from emfusion_tpu_torch.viz_server import LiveViewer
+
+    out = dict()
+    # the CLI with the live viewer and the turntable
+    port, polled, stop = free_port(), [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                st, _, body = http_get(port, "/status", timeout=5)
+                if st == 200:
+                    polled.append(json.loads(body)["frame"])
+            except OSError:          # not up yet, or closed at the end
+                pass
+            stop.wait(0.2)
+
+    tt_out = os.path.join(os.path.dirname(seq), "out_viewer")
+    poller = threading.Thread(target=poll)
+    poller.start()
+    try:
+        _, cli_s = run_cli(run_emfusion, [
+            "-t", seq, "-m", masks_dir, "-c", config, "-e", tt_out,
+            "--frames", "4", "--serve", str(port), "--turntable", "3"])
+    finally:
+        stop.set()
+        poller.join()
+    views = [decode_png(open(os.path.join(tt_out, "turntable",
+                                          f"view{i:03d}.png"), "rb").read())
+             for i in range(3)]
+    out.update(cli_serve_turntable_s=cli_s, cli_status_frames_seen=polled,
+               cli_turntable_lit=[lit(v) for v in views])
+    if not polled:
+        raise RuntimeError("viewer: the CLI's live viewer never answered")
+    # a view from behind the scene sees mostly back faces, which K4 culls
+    if max(out["cli_turntable_lit"]) < 0.05:
+        raise RuntimeError(f"viewer: the CLI turntable views are unlit "
+                           f"{out['cli_turntable_lit']}")
+
+    # LiveViewer over the CLI path's final state
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    front = np.pi                    # the side the scene was seen from
+    viewer = LiveViewer(pipe, port=0)
+    times = {}
+    try:
+        frame = render_orbit_view(pipe, front)
+        viewer.publish(frame)
+        for path, want in (("/", "text/html"), ("/frame.png", "image/png"),
+                           (f"/view.png?yaw={front}&pitch=-0.25&dist=0.9",
+                            "image/png"), ("/scene", "text/html"),
+                           ("/mesh.bin", "application/octet-stream"),
+                           ("/mesh.ply", "application/octet-stream"),
+                           ("/status", "application/json")):
+            t0 = time.perf_counter()
+            st, ctype, body = http_get(viewer.port, path)
+            times[path.split("?")[0]] = time.perf_counter() - t0
+            if st != 200 or ctype != want:
+                raise RuntimeError(f"viewer: GET {path} -> {st} {ctype}")
+            if path == "/frame.png":
+                img = decode_png(body)
+                out["frame_png_lit"] = lit(img)
+                if not np.array_equal(img, frame) or lit(img) < 0.05:
+                    raise RuntimeError(
+                        f"viewer: /frame.png is not the published frame, "
+                        f"or unlit ({out['frame_png_lit']})")
+            elif path.startswith("/view.png"):
+                out["view_png_lit"] = lit(decode_png(body))
+                if out["view_png_lit"] < 0.05:
+                    raise RuntimeError("viewer: /view.png is unlit")
+            elif path == "/mesh.bin":
+                nm, off, sizes = struct_unpack(body)
+                out["mesh_bin"] = dict(meshes=nm, bytes=len(body),
+                                       vertices=sizes)
+                if nm != 1 + len(pipe.active_object_ids) or off != len(body):
+                    raise RuntimeError(f"viewer: /mesh.bin holds {nm} "
+                                       "meshes or does not parse")
+            elif path == "/mesh.ply" and not body.startswith(b"ply"):
+                raise RuntimeError("viewer: /mesh.ply is no PLY")
+            elif path == "/status":
+                out["status"] = json.loads(body)
+        t0 = time.perf_counter()
+        parts = stream_parts(viewer.port, 2, viewer.publish)
+        times["/stream (2 parts)"] = time.perf_counter() - t0
+        if any(p[:2] != b"\xff\xd8" or p[-2:] != b"\xff\xd9"
+               for p in parts):
+            raise RuntimeError("viewer: /stream parts are no JPEG")
+        st, _, _ = http_get(viewer.port, "/nope")
+        if st != 404:
+            raise RuntimeError(f"viewer: GET /nope -> {st}, not 404")
+    finally:
+        viewer.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tt = render_turntable(pipe, TURNTABLE_VIEWS)
+    torch.cuda.synchronize()
+    view_ms = 1e3 * (time.perf_counter() - t0) / TURNTABLE_VIEWS
+    launches = dict(kernels.launches)
+    out.update(endpoint_s=times, turntable_ms_per_view=view_ms,
+               turntable_lit=[lit(v) for v in tt], launches=launches)
+    if max(out["turntable_lit"]) < 0.05:
+        raise RuntimeError(f"viewer: the turntable views are unlit "
+                           f"{out['turntable_lit']}")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        encode_jpeg(tt[0], 85)
+    out["encode_jpeg_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    # K4 from the orbit camera, outside the volume
+    s = pipe.state
+    rel = pose_inverse(s.bg_pose) @ torch.from_numpy(orbit_pose(pipe,
+                                                                front))
+    row = hold_raycast(torch, s.bg_tsdf, s.bg_weights, rel[:3, :3],
+                       rel[:3, 3], pipe.intr, pipe.voxel, pipe.trunc, pipe.H,
+                       pipe.W, pipe.params.raycast_max_steps)
+    out["raycast_orbit_hits"] = row["hits"]
+    report["viewer"] = out
+    print(f"viewer: CLI --serve --turntable 3 over 4 frames {cli_s:.3f} s, "
+          f"/status answered at frames {sorted(set(polled))}; endpoints "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f"; {TURNTABLE_VIEWS} turntable views {view_ms:.3f} ms a view "
+          f"(lit {min(out['turntable_lit']):.3f}-"
+          f"{max(out['turntable_lit']):.3f}); encode_jpeg 640x480 "
+          f"{out['encode_jpeg_ms']:.3f} ms; launches {launches}",
+          flush=True)
+    return row, launches["raycast"]
+
+
+def struct_unpack(body):
+    """(meshes, bytes parsed, vertices per mesh) of a ``/mesh.bin``."""
+    import struct
+    nm = struct.unpack_from("<I", body, 0)[0]
+    off, sizes = 4, []
+    for _ in range(nm):
+        nv, nt = struct.unpack_from("<II", body, off)
+        tris = np.frombuffer(body, "<u4", nt * 3, off + 8 + nv * 24)
+        if nt and tris.max() >= nv:
+            raise RuntimeError("viewer: /mesh.bin indexes a missing vertex")
+        sizes.append(nv)
+        off += 8 + nv * 24 + nt * 12
+    return nm, off, sizes
 
 
 def profile_frames(torch, pipe, frames, report, key):
     """torch.profiler over ``frames`` continuing ``pipe``'s run: the
     device's busy share of the wall time, and the device ops that took
     most of it (into ``report[key]``; the full table goes to
-    ``chiprun_out/<key>_ops.txt``)."""
+    ``chiprun_out/<key>_ops.txt``). Only the device's activity is traced:
+    the host's hundreds of thousands of op events a frame cost minutes to
+    gather and say nothing about the device."""
     from torch.profiler import ProfilerActivity, profile
 
     n = len(frames)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for depth in frames:
             pipe.process_frame(None, depth)
@@ -1567,14 +1881,16 @@ def profile_frames(torch, pipe, frames, report, key):
     ops = sum(e.count for e in work) / n
     top = sorted(((dev_ms(e), e.key, e.count / n) for e in work),
                  reverse=True)[:6]
+    prof_s = time.perf_counter() - t_prof
     report[key] = dict(frames=n, wall_ms_per_frame=wall_ms,
                        device_busy_ms_per_frame=busy,
                        device_busy_share=busy / wall_ms,
-                       device_ops_per_frame=ops, top_device_ops=top)
+                       device_ops_per_frame=ops, top_device_ops=top,
+                       profile_s=prof_s)
     print(f"{key}: {n} frames, wall {wall_ms:.3f} ms/frame (the profiler "
           f"slows the host), device busy {busy:.3f} ms/frame "
           f"({100 * busy / wall_ms:.1f}%) in {ops:.0f} kernels and copies "
-          f"per frame", flush=True)
+          f"per frame; the profile took {prof_s:.1f} s", flush=True)
     for ms, op, calls in top:
         print(f"  {ms:8.3f} ms/frame {calls:7.1f} calls/frame  {op[:70]}",
               flush=True)
@@ -1735,22 +2051,28 @@ def main() -> int:
 
     obj_launches, pipe = object_path(torch, params, scene, OBJ_FRAMES, rng,
                                      report)
+    lap("object_path (frames)")
     more = [sensor_depth(scene.render(gt_pose(i), movers_at(i))[0], rng)
             for i in range(OBJ_FRAMES, OBJ_FRAMES + PROFILE_FRAMES + 1)]
     obj_rows = object_kernel_phases(torch, pipe, more[0])
+    lap("object_path (holds)")
     profile_frames(torch, pipe, more[1:], report, "object_profile")
+    lap("object_path (profile)")
     obj_rows.update(pool_kernel_phases(torch, pipe, more[0]))
     del pipe
     torch.cuda.empty_cache()
     for name, r in obj_rows.items():
         print_row(name, r)
     rows.update(obj_rows)
-    lap("object_path")
+    lap("object_path (pool holds)")
 
-    acc_launches, pipe = accel_path(torch, params, scene, ACCEL_FRAMES, rng,
-                                    report)
+    acc_params = dataclasses.replace(params, **ACCEL)
+    acc_frames, acc_masks = object_scene(scene, acc_params, ACCEL_FRAMES,
+                                         rng)
     more = [sensor_depth(scene.render(gt_pose(i), movers_at(i))[0], rng)
             for i in range(ACCEL_FRAMES, ACCEL_FRAMES + PROFILE_FRAMES + 1)]
+    acc_launches, pipe = accel_path(torch, params, acc_frames, acc_masks,
+                                    report)
     acc_rows = accel_kernel_phases(torch, pipe, more[0])
     profile_frames(torch, pipe, more[1:], report, "accel_profile")
     acc_rows["capture_pool_accel"] = accel_pool_phase(torch, pipe, more[0])
@@ -1760,9 +2082,31 @@ def main() -> int:
         print_row(name, r)
     rows.update(acc_rows)
     lap("accel_path")
-    cli_launches = cli_path(torch, params, scene, rng, report, os.path.join(
-        HERE, "configs", "default.cfg"))
-    lap("cli_path")
+
+    # step 8b: the same frames and masks with bf16 background volumes
+    bf_launches, pipe = accel_path(torch, params, acc_frames, acc_masks,
+                                   report, key="accel_path_bf16",
+                                   volume_dtype="bfloat16")
+    compare_accel(report)
+    bf_rows = bf16_kernel_phases(torch, pipe, more[0])
+    del pipe
+    torch.cuda.empty_cache()
+    for name, r in bf_rows.items():
+        print_row(name, r)
+    rows.update(bf_rows)
+    lap("accel_path_bf16")
+
+    config = os.path.join(HERE, "configs", "default.cfg")
+
+    def viewers(pipe, seq, masks_dir):
+        lap("cli_path")
+        return viewer_step(torch, pipe, seq, masks_dir, config, report)
+
+    cli_launches, (orbit_row, orbit_launches) = cli_path(
+        torch, params, scene, rng, report, config, then=viewers)
+    print_row("raycast_orbit", orbit_row)
+    rows["raycast_orbit"] = orbit_row
+    lap("viewer")
     small_reference(torch, np.random.default_rng(args.seed), report)
     lap("small_reference")
 
@@ -1777,11 +2121,17 @@ def main() -> int:
                         capture_object=acc_launches["objects"],
                         capture_camera_accel=acc_launches["camera"],
                         capture_objects_accel=acc_launches["objects"],
-                        capture_pool_accel=acc_launches["objects"])
+                        capture_pool_accel=acc_launches["objects"],
+                        fusion_bf16=bf_launches["all"]["fusion"],
+                        sample_bf16=bf_launches["all"]["sample"],
+                        capture_camera_bf16=bf_launches["camera"],
+                        raycast_bf16=bf_launches["background"]["raycast"],
+                        raycast_orbit=orbit_launches)
     report["cli_path_launches"] = cli_launches
     table = []
     for name, src, replaces, kernel in (KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS
-                                        + ACCEL_ROWS):
+                                        + ACCEL_ROWS + BF16_ROWS
+                                        + VIEW_ROWS):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": src,

@@ -16,12 +16,16 @@ The flags of ``emfusion_tpu/apps/run_emfusion.py`` (the reference app's,
   --background     headless (no GUI display; always the case here)
   --show-slam      reserved (3D visualization not implemented)
   --frames, --frame-meshes, --checkpoint, --checkpoint-every, --resume
+  --serve PORT     live HTTP viewer (``viz_server.LiveViewer``) on PORT
+                   (0, the default: none), at --serve-host (loopback);
+                   each frame's rendering is published to it
+  --turntable N    after the run, N orbit views of the final model as
+                   turntable/view%03d.png under --exportdir
 
 with ``--device`` (``cuda``, the default, or ``cpu``) for the JAX
 package's ``--platform``, and ``--profile DIR`` writing a
-``torch.profiler`` trace. ``--serve`` and ``--turntable`` need the viewers,
-which are not ported yet (ROADMAP queue 1): asking for them exits with
-status 2. Without a card, ``--device cuda`` raises.
+``torch.profiler`` trace. Without a card, ``--device cuda`` raises.
+Without ``--serve`` no frame renders for the viewer.
 
 The frame size comes from the data; where it differs from the config's,
 the intrinsics are scaled with it (``config.fit_frame_size``) before a
@@ -39,10 +43,6 @@ import statistics
 import sys
 import time
 
-VIEWERS_TODO = ("needs the live viewer and the turntable renderer "
-                "(viz.py, viz_server.py), which the port does not have yet "
-                "(ROADMAP queue 1 item 5, the viewers)")
-
 
 def build_parser():
     ap = argparse.ArgumentParser("emfusion-tpu-torch")
@@ -58,17 +58,17 @@ def build_parser():
                     help="run headless (no display)")
     ap.add_argument("--show-slam", action="store_true")
     ap.add_argument("--turntable", type=int, default=0, metavar="N",
-                    help="render N orbit views after the run (not ported "
-                         "yet: exits with status 2)")
+                    help="render N orbit views of the final model into "
+                         "EXPORTDIR/turntable/")
     ap.add_argument("--frame-meshes", type=int, default=0, metavar="N",
                     help="export per-frame meshes every N frames "
                          "(frame_meshes/ tree)")
     ap.add_argument("--frames", type=int, default=None,
                     help="process at most N frames")
     ap.add_argument("--serve", type=int, default=0, metavar="PORT",
-                    help="live HTTP viewer (not ported yet: exits with "
-                         "status 2)")
-    ap.add_argument("--serve-host", default="127.0.0.1")
+                    help="live HTTP viewer on this port (0: none)")
+    ap.add_argument("--serve-host", default="127.0.0.1",
+                    help="viewer address (default loopback only)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="compute device (default cuda; raises without "
                          "a card)")
@@ -87,10 +87,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.tumdir and not args.dir_:
         print("error: need --tumdir or --dir", file=sys.stderr)
-        return 2
-    if args.serve or args.turntable:
-        flag = "--serve" if args.serve else "--turntable"
-        print(f"error: {flag} {VIEWERS_TODO}", file=sys.stderr)
         return 2
 
     from emfusion_tpu_torch.checkpoint import (
@@ -139,6 +135,13 @@ def main(argv=None):
         skip_until = pipe.frame
         print(f"resumed from {args.checkpoint} at frame {skip_until}")
 
+    viewer = None
+    if args.serve:
+        from emfusion_tpu_torch.viz_server import LiveViewer
+        viewer = LiveViewer(pipe, port=args.serve, host=args.serve_host)
+        print(f"live viewer: http://{args.serve_host}:{viewer.port}/",
+              flush=True)
+
     prof = None
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -161,6 +164,8 @@ def main(argv=None):
         if nxt is not None:
             pipe.prefetch_depth(nxt.depth)
         frame_times.append(time.time() - t_f)
+        if viewer is not None:
+            viewer.publish()
         if args.exportdir:
             pipe.outputs["renderings"][n] = pipe.render()
             if args.frame_meshes and pipe.frame % args.frame_meshes == 0:
@@ -193,6 +198,8 @@ def main(argv=None):
             do_frame(pending, None)
     finally:
         reader.close()
+        if viewer is not None:
+            viewer.close()
         if prof is not None:
             prof.__exit__(None, None, None)
             os.makedirs(args.profile, exist_ok=True)
@@ -213,6 +220,12 @@ def main(argv=None):
     if args.exportdir:
         write_results(pipe, args.exportdir,
                       export_volumes=args.export_volume)
+        if args.turntable > 0:
+            from emfusion_tpu_torch.viz import render_turntable, save_frames
+            tt_dir = os.path.join(args.exportdir, "turntable")
+            os.makedirs(tt_dir, exist_ok=True)
+            save_frames(render_turntable(pipe, n_views=args.turntable),
+                        os.path.join(tt_dir, "view%03d.png"))
         print(f"results written to {args.exportdir}")
     return 0
 

@@ -16,6 +16,11 @@ written from ``ops.fusion.compute_gradients`` (what the JAX package keeps
 there: its object fusion stores ``compute_gradients`` of the fused
 volume, ``pipeline.py:779-782``, and its checkpoint loader recomputes the
 background's), and ignored on load.
+
+Checkpoints hold float32 whatever the background's storage dtype (bf16
+has no portable ``.npz`` dtype, ``checkpoint.py:28-34`` of the JAX
+package), and a load casts back to the pipeline's ``vol_dtype``: bf16
+values survive the round trip bit for bit, in either package.
 """
 
 from __future__ import annotations
@@ -36,14 +41,15 @@ _OBJ = ("tsdf", "weights", "fg_counts", "pose", "voxel_size", "truncdist",
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def state_arrays(pipe) -> dict:
     """The pipeline state as the JAX checkpoint's flat dict of arrays."""
     s, o = pipe.state, pipe.state.objs
     out = {name: _np(getattr(s, name)) for name in _BG}
-    out["bg_grads"] = _np(compute_gradients(s.bg_tsdf))
+    out["bg_grads"] = _np(compute_gradients(s.bg_tsdf.float()))
     for name in _OBJ:
         out[f"objs.{name}"] = _np(getattr(o, name))
     out["objs.grads"] = np.stack([_np(compute_gradients(t))
@@ -112,7 +118,7 @@ def load_checkpoint(pipe, path: str) -> None:
     state = state_from_numpy(
         dict({k: arrays[k] for k in _BG},
              objs={k: arrays[f"objs.{k}"] for k in _OBJ}),
-        device=pipe.device)
+        device=pipe.device, vol_dtype=pipe.vol_dtype)
     objects = {}
     for oid, m in meta["objects"].items():
         objects[int(oid)] = ObjectMeta(

@@ -147,8 +147,9 @@ class Params:
     # Quantization: tsdf values are trunc-normalized in [-1, 1], so bf16
     # costs <= 2^-9 relative (~0.2 mm at the default 10 cm trunc dist);
     # weights lose sub-ULP increments near the 64 cap (slightly
-    # recency-weighted averaging). "auto" = bfloat16 on TPU, float32
-    # elsewhere; gated by tests/test_accuracy_gate.py.
+    # recency-weighted averaging). The JAX package's "auto" is bfloat16
+    # on a TPU; the port's is float32 on every device, and "bfloat16" is
+    # honoured when asked for (resolve_params).
     volume_dtype: str = "auto"
     # Background free-space carving distance (meters): free-space depth
     # evidence with sdf >= this integrates into the BACKGROUND at full
@@ -390,8 +391,14 @@ def resolve_params(params: Params, sampler: Optional[str] = None) -> Resolved:
     261-264, 387-411``); the knobs of its accelerator configuration are
     honoured when asked for explicitly.
 
-    * ``volume_dtype``: ``auto``/``float32`` -> float32. ``bfloat16``
-      volumes are not ported yet and raise ``NotImplementedError``.
+    * ``volume_dtype``: ``auto``/``float32`` -> float32, the exact path;
+      ``bfloat16``, the JAX package's accelerator storage, is honoured
+      when asked for: the background's tsdf and weights are stored in
+      bf16 (objects, counts and association images stay float32), every
+      kernel and plain version loads them as float32, computes in
+      float32 and rounds once, to nearest even, where it stores (the
+      JAX pipeline's jitted arithmetic on the CPU). Any other dtype
+      raises ``NotImplementedError``.
     * ``tracking_stride``: 0 -> 1 (every pixel); any positive stride is
       honoured.
     * ``estep_scale``: 0 -> 1; a scale ``s`` > 1 computes the association
@@ -425,10 +432,10 @@ def resolve_params(params: Params, sampler: Optional[str] = None) -> Resolved:
     vd = params.volume_dtype
     if vd == "auto":
         vd = "float32"
-    if vd != "float32":
+    if vd not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"volume_dtype={vd!r}: only float32 volumes are ported "
-            "(ROADMAP queue 1)")
+            f"volume_dtype={vd!r}: the port stores volumes in float32 or "
+            "bfloat16")
     mm = "static" if params.motion_model == "auto" else params.motion_model
     if mm not in ("static", "constvel"):
         raise ValueError(f"motion_model={mm!r}: 'auto', 'static' or "

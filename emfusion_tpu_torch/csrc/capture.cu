@@ -14,6 +14,11 @@
 // JAX package's lane-window take over the stacked pool) is the same
 // function per slot: each slot is an item of the launch's work table.
 //
+// A bf16 item (the background under Params.volume_dtype="bfloat16") reads
+// bf16 volumes and writes its cache in bf16, the voxels' own bits, as the
+// JAX package keeps a bf16 volume's LM cache (tracking.py:157-165); a
+// float32 item is float32 throughout. That halves a bf16 cache's bytes.
+//
 // Bound on the card: bytes. At 640x480, stride 1, the cache it writes is
 // 307,200 x 2 x 216 x 4 B = 531 MB, ~0.16 ms at 3.35 TB/s; the voxel
 // reads mostly hit L2, since neighbouring points share voxels. The cache
@@ -34,12 +39,13 @@
 
 // One volume of the launch. Mirrored by kernels.CaptureArgs.
 struct EmfCaptureItem {
-  const float* tsdf;  // (Z, Y, X)
-  const float* wts;   // (Z, Y, X)
+  const void* tsdf;   // (Z, Y, X), float or emf_bf16
+  const void* wts;    // (Z, Y, X), the same type
   const float* pts;   // (3, n) camera points
-  float* cache;       // (2, 6, 6, 6, n)
+  void* cache;        // (2, 6, 6, 6, n), the volumes' type
   int* anchor;        // (3, n)
   int n, Z, Y, X;
+  int bf16;           // 1: volumes and cache are bf16
   EmfPose P;          // camera -> volume
   float vs;
 };
@@ -49,6 +55,23 @@ struct EmfCaptureTable {
   int block_end[EMF_MAX_ITEMS];  // cumulative block counts
   EmfCaptureItem items[EMF_MAX_ITEMS];
 };
+
+// One window row: six x reads of tsdf and weights, copied to the cache as
+// they are stored (float or bf16 bits).
+template <typename T>
+__device__ __forceinline__ void emf_capture_row(const T* __restrict__ tsdf,
+                                                const T* __restrict__ wts,
+                                                T* __restrict__ out,
+                                                size_t rowbase, int ax, int X,
+                                                int N) {
+  const size_t ch = (size_t)EMF_WIN * EMF_WIN * EMF_WIN * N;
+#pragma unroll
+  for (int dx = 0; dx < EMF_WIN; ++dx) {
+    const size_t idx = rowbase + emf_clampi(ax + dx, 0, X - 1);
+    out[(size_t)dx * N] = __ldg(tsdf + idx);
+    out[ch + (size_t)dx * N] = __ldg(wts + idx);
+  }
+}
 
 __global__ void __launch_bounds__(EMF_CAPTURE_BLOCK)
     emf_capture_kernel(const __grid_constant__ EmfCaptureTable T) {
@@ -81,14 +104,16 @@ __global__ void __launch_bounds__(EMF_CAPTURE_BLOCK)
   const int zc = emf_clampi(az + dz, 0, Z - 1);
   const int yc = emf_clampi(ay + dy, 0, Y - 1);
   const size_t rowbase = ((size_t)zc * Y + yc) * X;
-  const size_t ch = (size_t)EMF_WIN * EMF_WIN * EMF_WIN * N;
-  float* out = it.cache + (size_t)row * EMF_WIN * N + i;
-#pragma unroll
-  for (int dx = 0; dx < EMF_WIN; ++dx) {
-    const size_t idx = rowbase + emf_clampi(ax + dx, 0, X - 1);
-    out[(size_t)dx * N] = __ldg(it.tsdf + idx);
-    out[ch + (size_t)dx * N] = __ldg(it.wts + idx);
-  }
+  const size_t off = (size_t)row * EMF_WIN * N + i;
+  if (it.bf16)
+    emf_capture_row(static_cast<const emf_bf16*>(it.tsdf),
+                    static_cast<const emf_bf16*>(it.wts),
+                    static_cast<emf_bf16*>(it.cache) + off, rowbase, ax, X,
+                    N);
+  else
+    emf_capture_row(static_cast<const float*>(it.tsdf),
+                    static_cast<const float*>(it.wts),
+                    static_cast<float*>(it.cache) + off, rowbase, ax, X, N);
 }
 
 extern "C" int emf_max_items() { return EMF_MAX_ITEMS; }

@@ -9,13 +9,38 @@
 // then y, then z. The
 // kernels are built with --fmad=false, so each product and sum rounds as
 // it does in the plain version and the results agree bit for bit.
+//
+// Volumes are float32 or bf16 (the background under
+// Params.volume_dtype="bfloat16"). A bf16 voxel is kept as its raw 16 bits
+// (emf_bf16) and loaded as the float32 with those bits on top, which is
+// exact; arithmetic stays float32, and a kernel that stores a volume rounds
+// once, to nearest even (emf_round), as the plain versions' float32 ->
+// bf16 copy does.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+typedef unsigned short emf_bf16;  // the bits of a bfloat16
+
+__device__ __forceinline__ float emf_ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float emf_ld(const emf_bf16* p) {
+  return __uint_as_float((unsigned)__ldg(p) << 16);
+}
+
+// x rounded to nearest even into T's precision, as a float32.
+template <typename T>
+__device__ __forceinline__ float emf_round(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float emf_round<emf_bf16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Items of one launch of the kernels that take a work table (K1 in
-// fusion.cu, K2 in sample.cu, K3 in capture.cu): 17 items of ~120 bytes
-// and their block offsets fit the 4 KB parameter bank. The host reads it through each of
+// fusion.cu, K2 in sample.cu, K3 in capture.cu): 17 items of at most 128
+// bytes and their block offsets fit the 4 KB parameter bank. The host reads it through each of
 // those libraries' emf_max_items().
 #define EMF_MAX_ITEMS 17
 
@@ -72,13 +97,13 @@ __device__ __forceinline__ float emf_lerp8(const EmfCell& c, float c000,
   return c0 * (1.0f - c.fz) + c1 * c.fz;
 }
 
-__device__ __forceinline__ float emf_trilerp(const float* __restrict__ vol,
-                                             int Z, int Y, int X, float vx,
-                                             float vy, float vz) {
-  EmfCell c = emf_cell(Z, Y, X, vx, vy, vz);
-  const size_t sy = (size_t)X, sz = (size_t)Y * X;
-  const float* p = vol + c.base;
-  return emf_lerp8(c, __ldg(p), __ldg(p + 1), __ldg(p + sy),
-                   __ldg(p + sy + 1), __ldg(p + sz), __ldg(p + sz + 1),
-                   __ldg(p + sz + sy), __ldg(p + sz + sy + 1));
+// The trilinear blend of the cell at p = vol + c.base, rows sy and sz
+// elements apart; T is float or emf_bf16.
+template <typename T>
+__device__ __forceinline__ float emf_lerp_at(const EmfCell& c,
+                                             const T* __restrict__ p,
+                                             size_t sy, size_t sz) {
+  return emf_lerp8(c, emf_ld(p), emf_ld(p + 1), emf_ld(p + sy),
+                   emf_ld(p + sy + 1), emf_ld(p + sz), emf_ld(p + sz + 1),
+                   emf_ld(p + sz + sy), emf_ld(p + sz + sy + 1));
 }

@@ -33,6 +33,13 @@
 // passing over a piece whose two ends lie beyond the same image edge
 // (exact by convexity, with a pixel of margin).
 //
+// Storage: each item is float32 or bf16 (the background under
+// Params.volume_dtype="bfloat16", beside float32 object slots in the same
+// launch). A bf16 voxel is loaded as float32, fused in float32 and rounded
+// once to nearest even (emf_round); "changed" compares the rounded bits
+// with the stored ones, so a voxel whose bf16 value does not move is not
+// written. A bf16 lane moves its 4 voxels as 8 bytes.
+//
 // Layout: a 1-D grid; each item's blocks are contiguous and a block finds
 // its item among the <= EMF_MAX_ITEMS block offsets of the table, which
 // is passed by value (__grid_constant__, read from the parameter bank).
@@ -51,11 +58,12 @@
 
 // One volume of the launch. Mirrored by kernels.FuseArgs.
 struct EmfFuseItem {
-  float* tsdf;
-  float* wts;
+  void* tsdf;          // (Z, Y, X) float or emf_bf16
+  void* wts;
   const float* assoc;  // (H, W) association weights of this volume
   int Z, Y, X;
-  int vec;             // 1: 4 voxels a lane, 16-byte accesses
+  int vec;             // 1: 4 voxels a lane, 16-byte (bf16: 8-byte) accesses
+  int bf16;            // 1: tsdf and wts are bf16
   EmfPose P;           // volume -> camera
   float vs, trunc, max_w, carve_dist;
   int has_cap, has_margin;
@@ -87,6 +95,19 @@ __device__ __forceinline__ void emf_load(const float* p, float* o) {
 }
 
 template <int V>
+__device__ __forceinline__ void emf_load(const emf_bf16* p, float* o) {
+  if (V == 4) {
+    uint2 q = __ldcs(reinterpret_cast<const uint2*>(p));
+    o[0] = __uint_as_float(q.x << 16);
+    o[1] = __uint_as_float(q.x & 0xffff0000u);
+    o[2] = __uint_as_float(q.y << 16);
+    o[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else {
+    o[0] = __uint_as_float((unsigned)__ldcs(p) << 16);
+  }
+}
+
+template <int V>
 __device__ __forceinline__ void emf_store(float* p, const float* o) {
   if (V == 4) {
     __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
@@ -95,15 +116,31 @@ __device__ __forceinline__ void emf_store(float* p, const float* o) {
   }
 }
 
+// o holds values already rounded to bf16 (emf_round): their top 16 bits.
+template <int V>
+__device__ __forceinline__ void emf_store(emf_bf16* p, const float* o) {
+  if (V == 4) {
+    uint2 q;
+    q.x = (__float_as_uint(o[0]) >> 16) | (__float_as_uint(o[1]) & 0xffff0000u);
+    q.y = (__float_as_uint(o[2]) >> 16) | (__float_as_uint(o[3]) & 0xffff0000u);
+    __stcs(reinterpret_cast<uint2*>(p), q);
+  } else {
+    __stcs(p, (unsigned short)(__float_as_uint(o[0]) >> 16));
+  }
+}
+
 __device__ __forceinline__ bool emf_same(float a, float b) {
   return __float_as_uint(a) == __float_as_uint(b);
 }
 
-// V voxels x0 .. x0+V-1 of row (y, z) of item `it`, flat index v0.
-template <int V>
+// V voxels x0 .. x0+V-1 of row (y, z) of item `it`, flat index v0; S the
+// storage type (float or emf_bf16).
+template <int V, typename S>
 __device__ __forceinline__ void emf_fuse(const EmfFuseTable& T,
                                          const EmfFuseItem& it, size_t v0,
                                          int x0, int y, int z) {
+  S* const tsdf = static_cast<S*>(it.tsdf);
+  S* const wts = static_cast<S*>(it.wts);
   const float py = ((float)y - 0.5f * (float)(it.Y - 1)) * it.vs;
   const float pz = ((float)z - 0.5f * (float)(it.Z - 1)) * it.vs;
   int cls[V];
@@ -151,14 +188,14 @@ __device__ __forceinline__ void emf_fuse(const EmfFuseTable& T,
   if (!any) return;
 
   float w_old[V], t_old[V];
-  emf_load<V>(it.wts + v0, w_old);
+  emf_load<V>(wts + v0, w_old);
   bool need_t = false;
 #pragma unroll
   for (int j = 0; j < V; ++j)
     need_t |= cls[j] == CLS_BAND ||
               (cls[j] != CLS_SKIP && w_old[j] == 0.0f);
   if (!need_t) return;
-  emf_load<V>(it.tsdf + v0, t_old);
+  emf_load<V>(tsdf + v0, t_old);
 
   float t_out[V], w_out[V];
   bool t_changed = false, w_changed = false;
@@ -184,11 +221,13 @@ __device__ __forceinline__ void emf_fuse(const EmfFuseTable& T,
     } else if (cls[j] != CLS_SKIP && w_old[j] == 0.0f) {
       t_out[j] = cls[j] == CLS_NEG ? -1.0f : 0.0f;
     }
+    t_out[j] = emf_round<S>(t_out[j]);
+    w_out[j] = emf_round<S>(w_out[j]);
     t_changed |= !emf_same(t_out[j], t_old[j]);
     w_changed |= !emf_same(w_out[j], w_old[j]);
   }
-  if (t_changed) emf_store<V>(it.tsdf + v0, t_out);
-  if (w_changed) emf_store<V>(it.wts + v0, w_out);
+  if (t_changed) emf_store<V>(tsdf + v0, t_out);
+  if (w_changed) emf_store<V>(wts + v0, w_out);
 }
 
 // Which image edges voxel (x, y, z) of `it` projects more than one pixel
@@ -221,7 +260,7 @@ __device__ __forceinline__ int emf_edges(const EmfFuseTable& T,
 // (emf_edges) cannot change and is passed over without the per-voxel
 // projection. Index arithmetic is 32-bit: a 64-bit division costs more
 // than a voxel's projection.
-template <int V>
+template <int V, typename S>
 __device__ __forceinline__ void emf_fuse_row(const EmfFuseTable& T,
                                              const EmfFuseItem& it,
                                              unsigned row) {
@@ -236,7 +275,7 @@ __device__ __forceinline__ void emf_fuse_row(const EmfFuseTable& T,
         (emf_edges(T, it, c, y, z) & emf_edges(T, it, last, y, z)))
       continue;
     const unsigned x0 = c + V * lane;
-    if (x0 < X) emf_fuse<V>(T, it, (size_t)row * X + x0, x0, y, z);
+    if (x0 < X) emf_fuse<V, S>(T, it, (size_t)row * X + x0, x0, y, z);
   }
 }
 
@@ -250,10 +289,17 @@ __global__ void __launch_bounds__(EMF_FUSE_BLOCK, 16)
   const unsigned row =
       ((unsigned)(b - first) * EMF_FUSE_BLOCK + threadIdx.x) / 32;
   if (row >= (unsigned)(it.Z * it.Y)) return;
-  if (it.vec)
-    emf_fuse_row<4>(T, it, row);
-  else
-    emf_fuse_row<1>(T, it, row);
+  if (it.bf16) {
+    if (it.vec)
+      emf_fuse_row<4, emf_bf16>(T, it, row);
+    else
+      emf_fuse_row<1, emf_bf16>(T, it, row);
+  } else {
+    if (it.vec)
+      emf_fuse_row<4, float>(T, it, row);
+    else
+      emf_fuse_row<1, float>(T, it, row);
+  }
 }
 
 extern "C" int emf_max_items() { return EMF_MAX_ITEMS; }

@@ -22,6 +22,10 @@
 // volume, which therefore is never built. The JAX pipeline samples the
 // pool's slots with jax.vmap; here they are items of one launch.
 //
+// A volume is float32 or bf16 (each item its own: the bf16 background
+// beside float32 object slots); a bf16 corner is loaded as float32, so the
+// blend is the plain version's float32 arithmetic. Counts stay float32.
+//
 // Bound on the card: launches and latency. The background's 307,200
 // points move ~5 MB (a few µs at 3.35 TB/s) and an object's culled 8,192
 // points far less, so one launch per E-step instead of one per volume is
@@ -38,12 +42,13 @@
 
 // One volume of the launch. Mirrored by kernels.SampleArgs.
 struct EmfSampleItem {
-  const float* vol;     // (Z, Y, X) TSDF
+  const void* vol;      // (Z, Y, X) TSDF, float or emf_bf16
   const float* counts;  // (2, Z, Y, X) fg/bg counts, or null
   const float* pts;     // (3, n) camera points, rows `stride` floats apart
   float* out;           // (n) ψ
   float* out_fg;        // (n) fg probability, where counts
   int stride, n, Z, Y, X;
+  int bf16;             // 1: vol is bf16
   EmfPose P;            // camera -> volume
   float vs, margin;
 };
@@ -85,10 +90,11 @@ __global__ void __launch_bounds__(EMF_SAMPLE_BLOCK)
   if (valid) {
     const EmfCell c = emf_cell(it.Z, it.Y, it.X, vx, vy, vz);
     const size_t sy = (size_t)it.X, sz = (size_t)it.Y * it.X;
-    const float* p = it.vol + c.base;
-    psi = emf_lerp8(c, __ldg(p), __ldg(p + 1), __ldg(p + sy),
-                    __ldg(p + sy + 1), __ldg(p + sz), __ldg(p + sz + 1),
-                    __ldg(p + sz + sy), __ldg(p + sz + sy + 1));
+    psi = it.bf16
+              ? emf_lerp_at(c, static_cast<const emf_bf16*>(it.vol) + c.base,
+                            sy, sz)
+              : emf_lerp_at(c, static_cast<const float*>(it.vol) + c.base,
+                            sy, sz);
     if (it.counts) {
       const float* q = it.counts + c.base;
       const size_t bg = sz * it.Z;

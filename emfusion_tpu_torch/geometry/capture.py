@@ -20,6 +20,11 @@ anchors ``(S, 3, M)``), and the cache samplers below take such leading
 slot dimensions too: points ``(..., 3, N)``, rotations ``(..., 3, 3)``,
 translations ``(..., 3)`` and voxel sizes ``(...)`` or a scalar.
 
+A cache is stored in its volumes' dtype when that is bf16 (the JAX
+package's ``tracking.py:157-165, 529-530``: the values are the bf16
+voxels, so nothing is lost), float32 otherwise; the samplers read it as
+float32.
+
 On a CUDA tensor the capture launches K3, one launch for the camera or
 for all slots of a batch (a work table, :func:`kernels.launch_table`); on
 a CPU tensor it takes :func:`capture_neighborhoods_plain`.
@@ -36,12 +41,18 @@ WIN = 6          # cached window size per axis
 _ANCHOR_OFF = 2  # anchor = floor(v) - _ANCHOR_OFF -> v_local in [2, 3)
 
 
+def cache_dtype(vol: torch.Tensor) -> torch.dtype:
+    """The dtype of a capture cache of ``vol``: bf16 for a bf16 volume,
+    else float32."""
+    return torch.bfloat16 if vol.dtype == torch.bfloat16 else torch.float32
+
+
 def capture_neighborhoods_plain(vols, points_cam: torch.Tensor, rel_rot,
                                 rel_trans, voxel_size):
     """Plain PyTorch version of K3. ``vols``: the (Z, Y, X) volumes to
     capture, as a sequence or a channel-first stack; ``points_cam`` (3, N).
-    Returns ``(cache (C, 6, 6, 6, N) f32, anchor (3, N) int32)``; window
-    reads are clipped to the volume."""
+    Returns ``(cache (C, 6, 6, 6, N), anchor (3, N) int32)``, the cache
+    in :func:`cache_dtype`; window reads are clipped to the volume."""
     Z, Y, X = vols[0].shape
     dev = vols[0].device
     vx, vy, vz, _ = transform_to_grid(points_cam, rel_rot, rel_trans,
@@ -56,7 +67,7 @@ def capture_neighborhoods_plain(vols, points_cam: torch.Tensor, rel_rot,
     xc = torch.clamp(ax[None] + d, 0, X - 1).long()
     flat = ((zc[:, None, None] * Y + yc[None, :, None]) * X
             + xc[None, None])                               # (W, W, W, N)
-    cache = torch.stack([v.reshape(-1)[flat].to(torch.float32)
+    cache = torch.stack([v.reshape(-1)[flat].to(cache_dtype(vols[0]))
                          for v in vols])
     return cache, anchor
 
@@ -76,25 +87,29 @@ def capture_neighborhoods_batched_plain(tsdfs, weights, points_cam,
 def _launch_capture(jobs) -> None:
     """K3 over ``jobs``: (tsdf, weights, points (3, N), rot, trans,
     voxel size, cache out (2, 6, 6, 6, N), anchor out (3, N)) each, in
-    one launch (a work table); jobs without points are not sent. Float32
-    (Z, Y, X) volumes and (3, N) points, contiguous, on one CUDA device;
-    anything else raises."""
+    one launch (a work table); jobs without points are not sent. Two
+    (Z, Y, X) volumes of float32 or bf16 with a cache of
+    :func:`cache_dtype`, float32 (3, N) points, contiguous, on one CUDA
+    device; anything else raises."""
     table = []
     for tsdf, wts, pts, rot, trans, vs, cache, anchor in jobs:
-        if tsdf.dim() != 3 or wts.shape != tsdf.shape or any(
-                v.dtype != torch.float32 for v in (tsdf, wts, pts)):
+        dt = kernels.volume_dtype_code("capture_neighborhoods", tsdf, wts)
+        if tsdf.dim() != 3 or wts.shape != tsdf.shape or \
+                pts.dtype != torch.float32 or \
+                cache.dtype != cache_dtype(tsdf):
             raise ValueError("capture_neighborhoods: the CUDA kernel takes "
-                             "two float32 (Z, Y, X) volumes (tsdf, "
-                             "weights) and float32 (3, N) points")
+                             "two (Z, Y, X) volumes (tsdf, weights) of one "
+                             "dtype, a cache of that dtype and float32 "
+                             "(3, N) points")
         kernels.check_cuda("capture_neighborhoods", tsdf, wts, pts, cache,
-                           anchor)
+                           anchor, allow_bf16=True)
         N = pts.shape[1]
         if N == 0:
             continue
         Z, Y, X = tsdf.shape
         table.append(kernels.CaptureArgs(
             tsdf.data_ptr(), wts.data_ptr(), pts.data_ptr(),
-            cache.data_ptr(), anchor.data_ptr(), N, Z, Y, X,
+            cache.data_ptr(), anchor.data_ptr(), N, Z, Y, X, dt,
             kernels.pose_array(rot, trans), float(vs)))
     kernels.launch_table("capture", table)
 
@@ -114,7 +129,7 @@ def capture_neighborhoods(vols, points_cam: torch.Tensor, rel_rot,
     pts = points_cam.contiguous()
     N = pts.shape[1]
     dev = vols[0].device
-    cache = torch.empty((2, WIN, WIN, WIN, N), dtype=torch.float32,
+    cache = torch.empty((2, WIN, WIN, WIN, N), dtype=cache_dtype(vols[0]),
                         device=dev)
     anchor = torch.empty((3, N), dtype=torch.int32, device=dev)
     _launch_capture([(vols[0], vols[1], pts, rel_rot, rel_trans,
@@ -129,16 +144,17 @@ def capture_neighborhoods_batched(tsdfs, weights, points_cam: torch.Tensor,
     stacked (S, Z, Y, X) tensor; shapes may differ between slots),
     ``points_cam`` (S, 3, M), ``rel_rot`` (S, 3, 3), ``rel_trans`` (S, 3)
     and ``voxel_sizes`` (S,) on the host. Returns ``(cache (S, 2, 6, 6,
-    6, M) f32, anchor (S, 3, M) int32)``, each slot's the clipped voxel
-    reads of :func:`capture_neighborhoods_plain`. On the card, one K3
-    launch for every slot."""
+    6, M), anchor (S, 3, M) int32)``, each slot's the clipped voxel
+    reads of :func:`capture_neighborhoods_plain`, the cache in the
+    :func:`cache_dtype` of the first slot's volume (all slots share one
+    dtype). On the card, one K3 launch for every slot."""
     if not points_cam.is_cuda:
         return capture_neighborhoods_batched_plain(
             tsdfs, weights, points_cam, rel_rot, rel_trans, voxel_sizes)
     S, _, M = points_cam.shape
     pts = points_cam.contiguous()
-    cache = torch.empty((S, 2, WIN, WIN, WIN, M), dtype=torch.float32,
-                        device=pts.device)
+    cache = torch.empty((S, 2, WIN, WIN, WIN, M),
+                        dtype=cache_dtype(tsdfs[0]), device=pts.device)
     anchor = torch.empty((S, 3, M), dtype=torch.int32, device=pts.device)
     _launch_capture([(tsdfs[s], weights[s], pts[s], rel_rot[s],
                       rel_trans[s], voxel_sizes[s], cache[s], anchor[s])

@@ -15,6 +15,11 @@ one-item form. :func:`sample_system_at_points` is the exact (gather) LM's
 sampler: plain PyTorch on every device, as in the JAX package, where it
 is XLA code outside any Pallas kernel.
 
+A TSDF volume may be float32 or bf16 (the background under
+``Params.volume_dtype="bfloat16"``): every sampler converts the gathered
+corners to float32 before any arithmetic, exactly, as the JAX package's
+gathers of a bf16 volume do (``sampling.py:220-227``).
+
 The plain versions divide by tensors on the volume's device rather than
 by Python floats: PyTorch turns a division by a Python scalar on the GPU
 into a product with its reciprocal, which would round differently from
@@ -91,7 +96,7 @@ def trilinear_sample(vol: torch.Tensor, vx, vy, vz,
     flat = vol.reshape(-1)
 
     def corner(dz, dy, dx):
-        return flat[base + ((dz * Y + dy) * X + dx)]
+        return flat[base + ((dz * Y + dy) * X + dx)].to(torch.float32)
 
     out = lerp8(corner, fx, fy, fz)
     if valid is not None:
@@ -197,26 +202,27 @@ def sample_items_plain(items: Sequence[SampleItem]) -> Samples:
 def sample_items(items: Sequence[SampleItem]) -> Samples:
     """Kernel K2 wrapper (see :func:`sample_items_plain`): one launch
     (:func:`kernels.launch_table`) for the items with points, writing
-    one packed buffer. The
-    kernel takes contiguous float32 volumes and counts, and points whose
+    one packed buffer. The kernel takes contiguous float32 or bf16
+    volumes (each item its own), float32 counts, and float32 points whose
     rows are contiguous, on one CUDA device; anything else raises."""
     if not any(it.vol.is_cuda or it.points.is_cuda for it in items):
         return sample_items_plain(items)
     dev = items[0].vol.device
-    flat, sizes = [], []
+    flat, sizes, codes = [], [], []
     for it in items:
-        if it.vol.dim() != 3 or it.vol.dtype != torch.float32 or (
+        if it.vol.dim() != 3 or (
                 it.counts is not None
                 and (it.counts.dtype != torch.float32
                      or it.counts.shape != (2,) + tuple(it.vol.shape))):
-            raise ValueError("sample_items: the CUDA kernel takes a float32 "
-                             "(Z, Y, X) volume and (2, Z, Y, X) counts")
+            raise ValueError("sample_items: the CUDA kernel takes a (Z, Y, "
+                             "X) volume and float32 (2, Z, Y, X) counts")
+        codes.append(kernels.volume_dtype_code("sample_items", it.vol))
         pts = it.points.reshape(3, -1)
         if pts.dtype != torch.float32 or pts.stride(1) != 1:
             raise ValueError("sample_items: float32 (3, N) points with "
                              "contiguous rows")
         kernels.check_cuda("sample_items", it.vol, *(
-            [] if it.counts is None else [it.counts]))
+            [] if it.counts is None else [it.counts]), allow_bf16=True)
         if pts.device != dev or it.vol.device != dev:
             raise ValueError("sample_items: all tensors must be on one "
                              "CUDA device")
@@ -224,7 +230,7 @@ def sample_items(items: Sequence[SampleItem]) -> Samples:
         sizes.append(pts.shape[1] * (1 if it.counts is None else 2))
     out = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     results, table, off = [], [], 0
-    for it, pts, size in zip(items, flat, sizes):
+    for it, pts, size, code in zip(items, flat, sizes, codes):
         n = pts.shape[1]
         lead = it.points.shape[1:]
         psi = out[off:off + n]
@@ -240,7 +246,7 @@ def sample_items(items: Sequence[SampleItem]) -> Samples:
             0 if it.counts is None else it.counts.data_ptr(),
             pts.data_ptr(), psi.data_ptr(),
             0 if fg is None else fg.data_ptr(), pts.stride(0), n, Z, Y, X,
-            kernels.pose_array(it.rot, it.trans), float(it.voxel_size),
+            code, kernels.pose_array(it.rot, it.trans), float(it.voxel_size),
             float(it.margin)))
     kernels.launch_table("sample", table)
     return results
@@ -276,7 +282,7 @@ def sample_system_at_points(vol: torch.Tensor, points_cam: torch.Tensor,
     zi = torch.clamp(z0.long() + d, 0, Z - 1)
     idx = (zi[:, None, None] * Y + yi[None, :, None]) * X \
         + xi[None, None, :]
-    c = torch.take(vol, idx)                     # c[dz][dy][dx]
+    c = torch.take(vol, idx).to(torch.float32)   # c[dz][dy][dx]
 
     def trilerp(oz, oy, ox):
         def lx(dy, dz):
@@ -313,7 +319,8 @@ def sample_volume_at_points(vol: torch.Tensor, points_cam: torch.Tensor,
                             rel_rot, rel_trans, voxel_size,
                             margin: int = 1) -> torch.Tensor:
     """:func:`sample_volume_at_points_plain` of one volume; on the card
-    (one float32 (Z, Y, X) volume) a one-item :func:`sample_items`."""
+    (one float32 or bf16 (Z, Y, X) volume) a one-item
+    :func:`sample_items`."""
     if not vol.is_cuda:
         return sample_volume_at_points_plain(vol, points_cam, rel_rot,
                                              rel_trans, voxel_size, margin)

@@ -18,6 +18,11 @@ its own codecs, on ``zlib`` and numpy:
   * OpenEXR decode (the Co-Fusion depth, ``native/src/exr.cc``): single-
     part scanline files, NONE, ZIPS and ZIP compression, HALF, FLOAT and
     UINT channels, increasing line order.
+  * JPEG encode (the live viewer's MJPEG stream, which the JAX viewer
+    encodes with PIL at quality 85): baseline, 8-bit gray or YCbCr 4:4:4,
+    the IJG quality scaling of the Annex K tables, one 8x8 DCT matrix
+    product for all blocks, and the Huffman bits of every block packed in
+    a few vector operations.
 
 :func:`read_png` and :func:`read_exr` always take this module's decoders,
 on every machine; ``tests/test_torch_io.py`` holds the PNG decoder to
@@ -178,6 +183,183 @@ def write_png(path: str, img: np.ndarray) -> None:
     """Write (H, W) uint8 / uint16 or (H, W, 3|4) uint8 RGB(A) as PNG."""
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+# ------------------------------------------------------------------ JPEG
+# Annex K.1 quantisation tables, raster order
+_Q_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_Q_CHROMA = np.full(64, 99)
+_Q_CHROMA[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
+    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+# Annex K.3 / K.5 luminance Huffman tables (code counts by length 1-16,
+# then the symbols by code): the AC symbols after the first 37 are the
+# remaining ones in increasing order. Every component uses them.
+_DC_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)
+_DC_VALS = tuple(range(12))
+_AC_BITS = (0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125)
+_AC_HEAD = (0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31,
+            0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32,
+            0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1, 0x15, 0x52,
+            0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82)
+_AC_VALS = _AC_HEAD + tuple(sorted(
+    ({0x00, 0xF0} | {(r << 4) | z for r in range(16) for z in range(1, 11)})
+    - set(_AC_HEAD)))
+_EOB, _ZRL = 0x00, 0xF0
+
+
+def _zigzag() -> np.ndarray:
+    """The raster index (row * 8 + column) of each zigzag position."""
+    cells = sorted(((r, c) for r in range(8) for c in range(8)),
+                   key=lambda rc: (rc[0] + rc[1],
+                                   rc[0] if (rc[0] + rc[1]) % 2 else -rc[0]))
+    return np.array([r * 8 + c for r, c in cells])
+
+
+def _dct_matrix() -> np.ndarray:
+    """The orthonormal 8-point DCT-II ``D``: ``D @ block @ D.T`` is the
+    JPEG forward DCT of an 8x8 block."""
+    k = np.arange(8)
+    d = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16)
+    d *= np.where(k == 0, np.sqrt(1 / 8), np.sqrt(2 / 8))[:, None]
+    return d
+
+
+def _huffman(bits, vals):
+    """Canonical codes and lengths of a table, indexed by symbol."""
+    codes = np.zeros(256, np.int64)
+    lens = np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            codes[vals[k]], lens[vals[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes, lens
+
+
+_ZZ = _zigzag()
+_DCT2 = np.ascontiguousarray(np.kron(_dct_matrix(), _dct_matrix()).T)
+_DC_CODES = _huffman(_DC_BITS, _DC_VALS)
+_AC_CODES = _huffman(_AC_BITS, _AC_VALS)
+
+
+def _quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """IJG scaling of a base table to ``quality`` (1-100)."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _magnitude(v: np.ndarray):
+    """(size category, value bits) of JPEG coefficients: the bit length
+    of |v|, and v, or v + 2^size - 1 where it is negative."""
+    size = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+    return size, np.where(v < 0, v + (1 << size) - 1, v)
+
+
+def _pack_bits(codes: np.ndarray, lens: np.ndarray) -> bytes:
+    """Concatenate the codes (most significant bit first), pad the last
+    byte with 1 bits and stuff a 0 after every 0xFF byte."""
+    total = int(lens.sum())
+    item = np.repeat(np.arange(len(lens)), lens)
+    pos = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+    bits = (codes[item] >> (lens[item] - 1 - pos)) & 1
+    bits = np.concatenate([bits, np.ones((-total) % 8, np.int64)])
+    data = np.packbits(bits.astype(np.uint8))
+    return np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 85) -> bytes:
+    """(H, W) gray or (H, W, 3) RGB uint8 -> baseline JPEG bytes (JFIF;
+    YCbCr without chroma subsampling)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"encode_jpeg: {img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    x = img.astype(np.float64)
+    if img.ndim == 2:
+        planes = x[None]
+    else:
+        r, g, b = x[..., 0], x[..., 1], x[..., 2]
+        planes = np.stack([
+            0.299 * r + 0.587 * g + 0.114 * b,
+            -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+            0.5 * r - 0.418688 * g - 0.081312 * b + 128.0])
+    C = planes.shape[0]
+    Hp, Wp = -(-H // 8) * 8, -(-W // 8) * 8
+    planes = np.pad(planes, ((0, 0), (0, Hp - H), (0, Wp - W)), mode="edge")
+    # (blocks in raster order, component, 64): the MCUs of a 4:4:4 scan;
+    # the DCT of a row-major flattened block is one product with
+    # kron(D, D)^T
+    blocks = (planes - 128.0).reshape(C, Hp // 8, 8, Wp // 8, 8) \
+        .transpose(1, 3, 0, 2, 4).reshape(-1, 64)
+    coef = (blocks @ _DCT2).reshape(-1, C, 64)
+    tables = [_quant_table(_Q_LUMA, quality),
+              _quant_table(_Q_CHROMA, quality)]
+    qt = np.stack([tables[min(c, 1)] for c in range(C)])       # (C, 64)
+    zz = np.rint(coef / qt[None]).astype(np.int64)
+    zz = zz[..., _ZZ]                          # (blocks, C, 64) zigzag
+    dc = zz[..., 0]
+    diff = (dc - np.concatenate([np.zeros((1, C), np.int64), dc[:-1]]))
+    zz = zz.reshape(-1, 64)                    # blocks in scan order
+    B = zz.shape[0]
+    # DC items
+    size, vbits = _magnitude(diff.reshape(-1))
+    dc_code = (_DC_CODES[0][size] << size) | vbits
+    dc_len = _DC_CODES[1][size] + size
+    dc_key = np.arange(B) * 1024
+    # AC items: each nonzero coefficient after its run of zeros (a ZRL
+    # item per 16 zeros), then EOB where the block ends in zeros
+    blk, k = np.nonzero(zz[:, 1:])
+    pos = k + 1
+    first = np.concatenate([[True], blk[1:] != blk[:-1]])
+    prev = np.where(first, 0, np.concatenate([[0], pos[:-1]]))
+    run = pos - prev - 1
+    nzrl = run >> 4
+    size, vbits = _magnitude(zz[blk, pos])
+    sym = ((run & 15) << 4) | size
+    ac_code = (_AC_CODES[0][sym] << size) | vbits
+    ac_len = _AC_CODES[1][sym] + size
+    ac_key = blk * 1024 + pos * 4 + nzrl
+    zrl_of = np.repeat(np.arange(len(pos)), nzrl)
+    zrl_j = np.arange(len(zrl_of)) - np.repeat(np.cumsum(nzrl) - nzrl, nzrl)
+    zrl_key = blk[zrl_of] * 1024 + pos[zrl_of] * 4 + zrl_j
+    eob_blk = np.nonzero(zz[:, 63] == 0)[0]
+    eob_key = eob_blk * 1024 + 256
+    n_zrl, n_eob = len(zrl_key), len(eob_key)
+    keys = np.concatenate([dc_key, ac_key, zrl_key, eob_key])
+    codes = np.concatenate([dc_code, ac_code,
+                            np.full(n_zrl, _AC_CODES[0][_ZRL]),
+                            np.full(n_eob, _AC_CODES[0][_EOB])])
+    lens = np.concatenate([dc_len, ac_len,
+                           np.full(n_zrl, _AC_CODES[1][_ZRL]),
+                           np.full(n_eob, _AC_CODES[1][_EOB])])
+    order = np.argsort(keys, kind="stable")
+    scan = _pack_bits(codes[order], lens[order])
+
+    dqt = b"".join(bytes([i]) + tables[i][_ZZ].astype(np.uint8).tobytes()
+                   for i in range(min(C, 2)))
+    sof = struct.pack(">BHHB", 8, H, W, C) + b"".join(
+        bytes([c + 1, 0x11, min(c, 1)]) for c in range(C))
+    dht = (bytes([0x00]) + bytes(_DC_BITS) + bytes(_DC_VALS)
+           + bytes([0x10]) + bytes(_AC_BITS) + bytes(_AC_VALS))
+    sos = bytes([C]) + b"".join(bytes([c + 1, 0x00]) for c in range(C)) \
+        + bytes([0, 63, 0])
+    return (b"\xff\xd8"
+            + _segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+                       b"\x00\x00")
+            + _segment(0xFFDB, dqt) + _segment(0xFFC0, sof)
+            + _segment(0xFFC4, dht) + _segment(0xFFDA, sos)
+            + scan + b"\xff\xd9")
 
 
 # ------------------------------------------------------------------ EXR

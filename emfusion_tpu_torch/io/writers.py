@@ -17,6 +17,7 @@ byte those of the JAX writers for the same arrays:
 
 from __future__ import annotations
 
+import io
 import os
 import struct as _struct
 from typing import Dict, Optional
@@ -99,22 +100,34 @@ def _rows(f, fmt: str, arr: np.ndarray) -> None:
         f.write((fmt * len(block)) % tuple(block.ravel().tolist()))
 
 
-def write_ply(filename: str, vertices: np.ndarray, normals: np.ndarray,
-              triangles: np.ndarray) -> None:
-    """ASCII PLY with normals; triangles as (T, 3) int vertex indices."""
+def _write_ply(f, vertices, normals, triangles) -> None:
     vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
     normals = np.asarray(normals, np.float32).reshape(-1, 3)
     triangles = np.asarray(triangles).reshape(-1, 3)
+    f.write("ply\nformat ascii 1.0\n")
+    f.write(f"element vertex {len(vertices)}\n")
+    f.write("property float x\nproperty float y\nproperty float z\n")
+    f.write("property float nx\nproperty float ny\nproperty float nz\n")
+    f.write(f"element face {len(triangles)}\n")
+    f.write("property list uchar int vertex_index\nend_header\n")
+    _rows(f, "%f %f %f %f %f %f\n",
+          np.concatenate([vertices, normals], axis=1))
+    _rows(f, "3 %d %d %d\n", triangles.astype(np.int64))
+
+
+def write_ply(filename: str, vertices: np.ndarray, normals: np.ndarray,
+              triangles: np.ndarray) -> None:
+    """ASCII PLY with normals; triangles as (T, 3) int vertex indices."""
     with open(filename, "w") as f:
-        f.write("ply\nformat ascii 1.0\n")
-        f.write(f"element vertex {len(vertices)}\n")
-        f.write("property float x\nproperty float y\nproperty float z\n")
-        f.write("property float nx\nproperty float ny\nproperty float nz\n")
-        f.write(f"element face {len(triangles)}\n")
-        f.write("property list uchar int vertex_index\nend_header\n")
-        _rows(f, "%f %f %f %f %f %f\n",
-              np.concatenate([vertices, normals], axis=1))
-        _rows(f, "3 %d %d %d\n", triangles.astype(np.int64))
+        _write_ply(f, vertices, normals, triangles)
+
+
+def ply_bytes(vertices: np.ndarray, normals: np.ndarray,
+              triangles: np.ndarray) -> bytes:
+    """:func:`write_ply`'s file, in memory."""
+    f = io.StringIO()
+    _write_ply(f, vertices, normals, triangles)
+    return f.getvalue().encode()
 
 
 def write_volume_bin(filename: str, vol: np.ndarray, res_xyz, voxel_size,
@@ -239,7 +252,7 @@ def write_results(pipe, path: str, export_volumes: bool = False) -> None:
     if export_volumes:
         tdir = os.path.join(path, "tsdfs")
         os.makedirs(tdir, exist_ok=True)
-        bg = pipe.state.bg_tsdf.cpu().numpy()
+        bg = pipe.state.bg_tsdf.float().cpu().numpy()   # bf16 -> float32
         Z, Y, X = bg.shape
         write_volume_bin(os.path.join(tdir, "bg_tsdf.bin"), bg, (X, Y, Z),
                          pipe.params.globalVoxelSize)

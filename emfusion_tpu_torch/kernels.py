@@ -7,6 +7,13 @@ process, all started together, into a shared library under ``build/``
 and flags, so an edit rebuilds. The libraries are loaded with ``ctypes``.
 No PyTorch header is compiled, which keeps a cold build to seconds.
 
+Volumes are float32 or bf16: K1-K3 take each work-table item's element
+type in its ``bf16`` field, and K4 a ``bf16`` argument, so one K1 or K2
+launch may mix the bf16 background with float32 object slots. A kernel
+loads bf16 as float32, computes in float32 and rounds once, to nearest
+even, where it stores a volume (K1) or copies the values as they are
+(K3's cache); :func:`volume_dtype_code` checks the tensors' dtype.
+
 The kernels are built with ``--fmad=false``: each product and sum rounds
 on its own, as in the plain PyTorch versions beside the wrappers, so a
 kernel and its plain version agree bit for bit on the same inputs (pixel
@@ -57,7 +64,7 @@ KERNELS = {
     "sample": ("sample.cu", "emf_sample", [_P, _I]),
     "capture": ("capture.cu", "emf_capture", [_P, _I]),
     "raycast": ("raycast.cu", "emf_raycast",
-                [_P] * 6 + [_I] * 5 + _POSE + [_F] * 6 + [_I]),
+                [_P] * 6 + [_I] * 5 + _POSE + [_F] * 6 + [_I] * 2),
     "bilateral": ("bilateral.cu", "emf_bilateral",
                   [_P, _P, _P, _I, _I, _I, _F]),
     "warp": ("warp.cu", "emf_warp", [_P, _P] + [_I] * 4 + [_F] * 13
@@ -67,7 +74,8 @@ KERNELS = {
 class FuseArgs(ctypes.Structure):
     """One volume of a K1 launch (``EmfFuseItem`` in ``csrc/fusion.cu``)."""
     _fields_ = [("tsdf", _P), ("wts", _P), ("assoc", _P), ("Z", _I),
-                ("Y", _I), ("X", _I), ("vec", _I), ("pose", _F * 12),
+                ("Y", _I), ("X", _I), ("vec", _I), ("bf16", _I),
+                ("pose", _F * 12),
                 ("vs", _F), ("trunc", _F), ("max_w", _F),
                 ("carve_dist", _F), ("has_cap", _I), ("has_margin", _I),
                 ("cap", _F), ("margin", _F)]
@@ -78,8 +86,8 @@ class SampleArgs(ctypes.Structure):
     """
     _fields_ = [("vol", _P), ("counts", _P), ("pts", _P), ("out", _P),
                 ("out_fg", _P), ("stride", _I), ("n", _I), ("Z", _I),
-                ("Y", _I), ("X", _I), ("pose", _F * 12), ("vs", _F),
-                ("margin", _F)]
+                ("Y", _I), ("X", _I), ("bf16", _I), ("pose", _F * 12),
+                ("vs", _F), ("margin", _F)]
 
 
 class CaptureArgs(ctypes.Structure):
@@ -87,7 +95,7 @@ class CaptureArgs(ctypes.Structure):
     ``csrc/capture.cu``)."""
     _fields_ = [("tsdf", _P), ("wts", _P), ("pts", _P), ("cache", _P),
                 ("anchor", _P), ("n", _I), ("Z", _I), ("Y", _I), ("X", _I),
-                ("pose", _F * 12), ("vs", _F)]
+                ("bf16", _I), ("pose", _F * 12), ("vs", _F)]
 
 
 launches = {name: 0 for name in KERNELS}
@@ -203,9 +211,11 @@ def launch_table(name: str, table, *args) -> None:
                shapes=[(p.Z, p.Y, p.X) for p in part])
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def check_cuda(name: str, *tensors: torch.Tensor,
+               allow_bf16: bool = False) -> None:
     """A kernel takes contiguous float32 (or int32/bool outputs) tensors
-    on one CUDA device; anything else raises."""
+    on one CUDA device, and bf16 ones where ``allow_bf16`` (volumes whose
+    dtype :func:`volume_dtype_code` checked); anything else raises."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or not t.is_cuda:
@@ -213,8 +223,22 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-        if t.dtype not in (torch.float32, torch.int32, torch.bool):
+        if t.dtype not in (torch.float32, torch.int32, torch.bool) and not (
+                allow_bf16 and t.dtype == torch.bfloat16):
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
+
+
+def volume_dtype_code(name: str, *vols: torch.Tensor) -> int:
+    """The ``bf16`` field of a kernel's volume item: 0 for float32
+    volumes, 1 for bf16; the volumes must share one of the two dtypes,
+    else this raises."""
+    dt = vols[0].dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(
+            v.dtype != dt for v in vols):
+        raise ValueError(f"{name}: the kernel takes float32 or bf16 "
+                         f"volumes of one dtype, got "
+                         f"{[v.dtype for v in vols]}")
+    return int(dt == torch.bfloat16)
 
 
 def pose_args(rot, trans) -> list:

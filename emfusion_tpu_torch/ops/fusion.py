@@ -11,6 +11,15 @@ tensors take :func:`integrate_tsdf_plain` per item.
 Unlike the JAX version, both update ``tsdf`` and ``weights`` IN PLACE and
 return them: a 512^3 float32 volume is 537 MB, and a second copy of each
 would double the fusion's memory and traffic.
+
+A volume pair is float32 or bf16 (the background under
+``Params.volume_dtype="bfloat16"``; one launch may mix both). A bf16 pair
+is loaded as float32, fused in float32 and rounded once, to nearest even,
+where it is stored: what the JAX pipeline's jitted fusion computes on the
+CPU before it casts the result back (``pipeline.py:755-757``). The carve
+and reset rules read the stored values, and the carve weight cap is
+rounded to the storage dtype, as JAX's ``minimum`` of a bf16 volume and a
+Python float rounds it.
 """
 
 from __future__ import annotations
@@ -50,12 +59,16 @@ class FusionItem:
     carve_margin: Optional[float] = None
 
 
-def _carve_flags(truncdist, carve_dist, carve_weight_cap, carve_margin):
+def _carve_flags(truncdist, carve_dist, carve_weight_cap, carve_margin,
+                 dtype=torch.float32):
+    """(carve_dist, has_cap, cap, has_margin, margin), the cap rounded to
+    the volume's storage ``dtype``."""
     carve = truncdist if carve_dist is None else carve_dist
     has_cap = carve_weight_cap is not None
     has_margin = has_cap and carve_margin is not None
-    return (float(carve), has_cap,
-            float(carve_weight_cap) if has_cap else 0.0,
+    cap = (float(torch.tensor(float(carve_weight_cap)).to(dtype))
+           if has_cap else 0.0)
+    return (float(carve), has_cap, cap,
             has_margin, float(carve_margin) if has_margin else 0.0)
 
 
@@ -158,17 +171,19 @@ def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
     * ``carve_weight_cap``: on carve votes the stored weight entering the
       average is clamped to it, only where ``tsdf_meas - tsdf`` exceeds
       ``carve_margin`` when that is given (see the JAX docstring).
+
+    A bf16 pair is read as float32 and rounded once at the store.
     """
     td = scalar(truncdist, tsdf)
     carve, has_cap, cap, has_margin, margin = _carve_flags(
-        truncdist, carve_dist, carve_weight_cap, carve_margin)
+        truncdist, carve_dist, carve_weight_cap, carve_margin, tsdf.dtype)
     aflat = assoc_weights.reshape(-1)
     for z0, z1, c in _chunks(tsdf.shape, depth, rel_rot_oc, rel_trans_oc,
                              intr, voxel_size, tsdf):
         valid, sdf = c["valid"], c["sdf"]
         assoc_val = aflat[c["pix"]]
-        t_old = tsdf[z0:z1]
-        w_old = weights[z0:z1]
+        t_old = tsdf[z0:z1].to(torch.float32)
+        w_old = weights[z0:z1].to(torch.float32)
         in_band = valid & (sdf >= -td)
         tsdf_meas = torch.sign(sdf) * torch.clamp(torch.abs(sdf) / td,
                                                   max=1.0)
@@ -192,7 +207,7 @@ def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
         reset = unseen & ((c["in_frame"] & c["in_front"]
                            & (c["depth_val"] <= 0.0)) | ~c["in_front"])
         t_out = torch.where(reset, 0.0, t_out)
-        tsdf[z0:z1] = t_out
+        tsdf[z0:z1] = t_out        # rounds to nearest even into bf16
         weights[z0:z1] = w_out
     return tsdf, weights
 
@@ -202,8 +217,9 @@ def integrate_tsdf_batched(items: Sequence[FusionItem],
     """Kernel K1 wrapper: fuse ``depth`` into every item's volumes in
     place (see :func:`integrate_tsdf_plain`), in one launch
     (:func:`kernels.launch_table`). CPU tensors take the plain version per
-    item; CUDA tensors the kernel, which takes contiguous float32
-    volumes and images on one device, or raises."""
+    item; CUDA tensors the kernel, which takes contiguous float32 images
+    and volume pairs of float32 or bf16 (each item its own) on one
+    device, or raises."""
     if not items:
         return
     if not (depth.is_cuda or any(it.tsdf.is_cuda for it in items)):
@@ -218,27 +234,27 @@ def integrate_tsdf_batched(items: Sequence[FusionItem],
     fx, fy, cx, cy = intrinsics(intr)
     table = []
     for it in items:
+        dt = kernels.volume_dtype_code("integrate_tsdf", it.tsdf,
+                                       it.weights)
         kernels.check_cuda("integrate_tsdf", depth, it.tsdf, it.weights,
-                           it.assoc)
-        if it.tsdf.dtype != torch.float32 or \
-                it.weights.dtype != torch.float32 or \
-                it.assoc.dtype != torch.float32 or \
-                depth.dtype != torch.float32:
+                           it.assoc, allow_bf16=True)
+        if it.assoc.dtype != torch.float32 or depth.dtype != torch.float32:
             raise ValueError("integrate_tsdf: the CUDA kernel takes float32 "
-                             "volumes and images")
+                             "images")
         if it.weights.shape != it.tsdf.shape or it.tsdf.dim() != 3 or \
                 tuple(it.assoc.shape) != (H, W):
             raise ValueError("integrate_tsdf: (Z, Y, X) volumes of one "
                              "shape and an (H, W) association image")
         Z, Y, X = it.tsdf.shape
-        vec = X % 4 == 0 and it.tsdf.data_ptr() % 16 == 0 \
-            and it.weights.data_ptr() % 16 == 0
+        align = 4 * it.tsdf.element_size()     # 4 voxels a lane
+        vec = X % 4 == 0 and it.tsdf.data_ptr() % align == 0 \
+            and it.weights.data_ptr() % align == 0
         carve, has_cap, cap, has_margin, margin = _carve_flags(
             it.truncdist, it.carve_dist, it.carve_weight_cap,
-            it.carve_margin)
+            it.carve_margin, it.tsdf.dtype)
         table.append(kernels.FuseArgs(
             it.tsdf.data_ptr(), it.weights.data_ptr(), it.assoc.data_ptr(),
-            Z, Y, X, int(vec), kernels.pose_array(it.rot, it.trans),
+            Z, Y, X, int(vec), dt, kernels.pose_array(it.rot, it.trans),
             float(it.voxel_size),
             float(it.truncdist), float(it.max_weight), carve, int(has_cap),
             int(has_margin), cap, margin))

@@ -3,8 +3,9 @@
 Port of ``emfusion_tpu/ops/raycast.py`` (reference ``kernel_raycastTSDF``,
 ``TSDF.cu:466-601``). :func:`raycast_volume` wraps kernel K4
 (``csrc/raycast.cu``): a CUDA tensor launches the kernel (one thread per
-ray), a CPU tensor takes :func:`raycast_volume_plain`, which marches all
-rays in lock-step with per-ray masks as the JAX version does.
+ray), a CPU tensor takes :func:`raycast_volume_plain`, which marches the
+rays in lock-step as the JAX version does, each step over the rays that
+are still marching.
 
 Both keep the reference's adaptive steps (truncdist -> voxel -> half a
 voxel near the surface), the t* interpolation of the zero crossing with
@@ -13,6 +14,11 @@ per-phase ``max_steps`` budgets. Normals are the trilinear sample at t* of
 the forward-difference gradient of ``ops.fusion.compute_gradients``; both
 versions compute it at the 8 corners from the TSDF, so no gradient volume
 is needed (the JAX function takes one as ``grads_vol``).
+
+The volumes may be bf16 (the background under
+``Params.volume_dtype="bfloat16"``): both versions convert every voxel
+they read to float32 first, the differences of the normals too, as the
+JAX pipeline's ``compute_gradients(bg_tsdf.astype(float32))`` does.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ def _gradient_sample(tsdf: torch.Tensor, vx, vy, vz, valid):
             idx = base + ((dz * Y + dy) * X + dx)
             inner = (zc + dz < Z - 1) & (yc + dy < Y - 1) & (xc + dx < X - 1)
             nxt = torch.clamp(idx + axis_stride, max=flat.numel() - 1)
-            return torch.where(inner, flat[nxt] - flat[idx], 0.0)
+            return torch.where(inner, flat[nxt].to(torch.float32)
+                               - flat[idx].to(torch.float32), 0.0)
         return lerp8(corner, fx, fy, fz)
 
     g = torch.stack([grad(1), grad(X), grad(X * Y)])
@@ -153,48 +160,61 @@ def raycast_volume_plain(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
     raystep = torch.where(torch.abs(cur) < 1.0, vs, raystep)
     raystep = torch.where(torch.abs(cur) < 0.8, 0.5 * vs, raystep)
 
-    # phase 2: adaptive march
-    active = alive
+    # phase 2: adaptive march, over the rays still marching only: each
+    # ray's arithmetic is elementwise, so this equals the lock-step march
+    # of every ray under its mask, step for step and bit for bit
     hit = torch.zeros_like(alive)
     t_star = torch.zeros_like(raylength)
+    rl_f, rs_f = raylength.reshape(-1), raystep.reshape(-1)
+    cur_f, mrl_f = cur.reshape(-1), max_raylength.reshape(-1)
+    hit_f, ts_f = hit.reshape(-1), t_star.reshape(-1)
+    d_f = dirs.reshape(3, -1)
+    if count:
+        steps2_f = steps2.reshape(-1)
+    idx = torch.nonzero(alive.reshape(-1)).squeeze(1)
     steps = 0
+
+    def grid_sub(t, dd):
+        return [(campos[i] + dd[i] * t) / vs + (res[i] - 1.0) / 2.0
+                for i in range(3)]
+
     for _ in range(max_steps):
-        n_active = int(active.sum())
-        if n_active == 0:
+        if idx.numel() == 0:
             break
-        steps += n_active
-        t_new = torch.where(active, raylength + raystep, raylength)
-        in_budget = t_new <= max_raylength
-        v = grid_at(t_new)
-        do_sample = active & in_budget & inside(v, 2.0)
+        steps += idx.numel()
+        rs, c, dd = rs_f[idx], cur_f[idx], d_f[:, idx]
+        t_new = rl_f[idx] + rs
+        in_budget = t_new <= mrl_f[idx]
+        v = grid_sub(t_new, dd)
+        do_sample = in_budget & inside(v, 2.0)
         nxt = trilinear_sample(tsdf_vol, *v, do_sample)
         w = trilinear_sample(weights_vol, *v, do_sample)
         if count:
-            steps2 += active
+            steps2_f[idx] += 1
             n_samples = n_samples + do_sample.sum()
             n_zero = n_zero + (do_sample & _zero_corners(tsdf_vol, *v)).sum()
-            n_weight = n_weight + (do_sample & (cur < 0) & (nxt > 0)).sum()
-        backface = do_sample & (cur < 0) & (nxt > 0) & (w > 0)
-        step_new = torch.where(do_sample & (torch.abs(nxt) < 1.0), vs,
-                               raystep)
+            n_weight = n_weight + (do_sample & (c < 0) & (nxt > 0)).sum()
+        backface = do_sample & (c < 0) & (nxt > 0) & (w > 0)
+        step_new = torch.where(do_sample & (torch.abs(nxt) < 1.0), vs, rs)
         step_new = torch.where(do_sample & (torch.abs(nxt) < 0.8),
                                0.5 * vs, step_new)
-        step_new = torch.where(backface, raystep, step_new)
-        crossing = do_sample & ~backface & (cur > 0) & (nxt < 0)
-        denom = nxt - cur
+        step_new = torch.where(backface, rs, step_new)
+        crossing = do_sample & ~backface & (c > 0) & (nxt < 0)
+        denom = nxt - c
         denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
-        ts = t_new - step_new * cur / denom
-        vstar = grid_at(ts)
+        ts = t_new - step_new * c / denom
+        vstar = grid_sub(ts, dd)
         vstar_inb = inside(vstar, 2.0)
         wstar = trilinear_sample(weights_vol, *vstar, crossing & vstar_inb)
         hit_now = crossing & vstar_inb & (wstar > 0)
         skip_update = crossing & ~vstar_inb
-        cur = torch.where(do_sample & ~backface & ~skip_update, nxt, cur)
-        active = active & in_budget & ~backface & ~hit_now
-        hit = hit | hit_now
-        t_star = torch.where(hit_now, ts, t_star)
-        raylength = t_new
-        raystep = step_new
+        cur_f[idx] = torch.where(do_sample & ~backface & ~skip_update, nxt,
+                                 c)
+        rl_f[idx] = t_new
+        rs_f[idx] = step_new
+        hit_f[idx] = hit_now
+        ts_f[idx] = torch.where(hit_now, ts, ts_f[idx])
+        idx = idx[in_budget & ~backface & ~hit_now]
     if count:
         stats.update(steps=steps, steps_phase1=steps1, steps_phase2=steps2,
                      samples=int(n_samples), zero_samples=int(n_zero),
@@ -230,7 +250,8 @@ def raycast_object(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
 def raycast_volume(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
                    rel_rot_co, rel_trans_co, intr, voxel_size, truncdist,
                    height: int, width: int, max_steps: int = 2048):
-    """Kernel K4 wrapper (see :func:`raycast_volume_plain`)."""
+    """Kernel K4 wrapper (see :func:`raycast_volume_plain`). The kernel
+    takes a tsdf and weights of one dtype, float32 or bf16."""
     if not tsdf_vol.is_cuda:
         return raycast_volume_plain(tsdf_vol, weights_vol, rel_rot_co,
                                     rel_trans_co, intr, voxel_size,
@@ -244,14 +265,16 @@ def raycast_volume(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
     mask = torch.empty((height, width), dtype=torch.bool, device=dev)
     tsdf_vol = tsdf_vol.contiguous()
     weights_vol = weights_vol.contiguous()
+    bf16 = kernels.volume_dtype_code("raycast_volume", tsdf_vol,
+                                     weights_vol)
     kernels.check_cuda("raycast_volume", tsdf_vol, weights_vol, rl, verts,
-                       norms, mask)
+                       norms, mask, allow_bf16=True)
     fx, fy, cx, cy = intrinsics(intr)
     kernels.launch("raycast", tsdf_vol.data_ptr(), weights_vol.data_ptr(),
                    rl.data_ptr(), verts.data_ptr(), norms.data_ptr(),
                    mask.data_ptr(), Z, Y, X, height, width,
                    *kernels.pose_args(rel_rot_co, rel_trans_co),
                    fx, fy, cx, cy, float(voxel_size), float(truncdist),
-                   int(max_steps), shapes=[(Z, Y, X)])
+                   int(max_steps), bf16, shapes=[(Z, Y, X)])
     return {"raylengths": rl, "vertices": verts, "normals": norms,
             "mask": mask}

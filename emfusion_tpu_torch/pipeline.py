@@ -45,7 +45,10 @@ depth ahead, and :meth:`EMFusionPipeline.lm_counts` reports the last
 frame's LM iterations, re-captures and dropped points.
 
 The volumes and images live on the compute device and the kernels update
-the volumes in place; the 4x4 poses, voxel sizes and slot flags live on
+the volumes in place, so :meth:`EMFusionPipeline.process_frame` holds the
+pipeline's :attr:`~EMFusionPipeline.lock` for the whole frame: a reader on
+another thread (the live viewer) takes it too, and so sees one whole
+frame's state, never a half-fused volume; the 4x4 poses, voxel sizes and slot flags live on
 the host as float32 / bool tensors, so no step waits for the device to
 report a pose. The device is read once per frame for the raycast's
 visibility and association counts (:func:`frame_summary`), and on mask
@@ -56,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -84,7 +88,7 @@ from emfusion_tpu_torch.tracking import (
     TrackConfig, track_volume, track_volumes_batched,
 )
 from emfusion_tpu_torch.viz import visualize_detections
-from emfusion_tpu_torch.volume import fg_probs, make_volume
+from emfusion_tpu_torch.volume import VOLUME_DTYPES, fg_probs, make_volume
 
 logger = logging.getLogger("emfusion_tpu_torch")
 
@@ -110,7 +114,8 @@ class ObjectPool:
 @dataclasses.dataclass
 class PipelineState:
     """Volumes and association images on the device, poses on the host
-    (float32)."""
+    (float32). The background pair is in the resolved ``volume_dtype``
+    (float32 or bf16), everything else float32."""
     bg_tsdf: torch.Tensor      # (Z, Y, X)
     bg_weights: torch.Tensor   # (Z, Y, X)
     bg_pose: torch.Tensor      # (4, 4) volume-to-world, constant
@@ -163,7 +168,9 @@ _HOST_OBJ_KEYS = {"pose": torch.float32, "voxel_size": torch.float32,
                   "visible": torch.bool, "object_id": torch.int32}
 
 
-def state_from_numpy(arrays: Dict, device=None) -> PipelineState:
+def state_from_numpy(arrays: Dict, device=None,
+                     vol_dtype: torch.dtype = torch.float32
+                     ) -> PipelineState:
     """Build the port's state from the JAX ``PipelineState`` as numpy:
     ``bg_tsdf``, ``bg_weights``, ``bg_pose``, ``bg_assoc``, ``cam_pose``
     and, optionally, ``objs``: a dict of the JAX ``ObjectPool``'s arrays
@@ -171,11 +178,13 @@ def state_from_numpy(arrays: Dict, device=None) -> PipelineState:
     ``truncdist``, ``active``, ``visible``, ``object_id``, ``assoc``; its
     ``grads`` are not needed). Without ``objs`` the pipeline that loads
     the state gives it an empty pool. The arrays are copied: the kernels
-    update the port's volumes in place."""
+    update the port's volumes in place. The background pair is stored in
+    ``vol_dtype``: a JAX bf16 state (or its float32 checkpoint) carries
+    across exactly, since bf16 -> float32 -> bf16 is lossless."""
     dev = resolve_device(device)
 
-    def dev_t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    def dev_t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dtype)
 
     def host_t(a, dtype=torch.float32):
         return torch.as_tensor(np.array(a)).to(dtype)
@@ -186,8 +195,8 @@ def state_from_numpy(arrays: Dict, device=None) -> PipelineState:
         objs = ObjectPool(
             **{k: dev_t(o[k]).contiguous() for k in _DEVICE_OBJ_KEYS},
             **{k: host_t(o[k], dt) for k, dt in _HOST_OBJ_KEYS.items()})
-    return PipelineState(bg_tsdf=dev_t(arrays["bg_tsdf"]).contiguous(),
-                         bg_weights=dev_t(arrays["bg_weights"]).contiguous(),
+    return PipelineState(bg_tsdf=dev_t(arrays["bg_tsdf"], vol_dtype),
+                         bg_weights=dev_t(arrays["bg_weights"], vol_dtype),
                          bg_pose=host_t(arrays["bg_pose"]),
                          bg_assoc=dev_t(arrays["bg_assoc"]),
                          cam_pose=host_t(arrays["cam_pose"]), objs=objs)
@@ -425,6 +434,7 @@ class EMFusionPipeline:
         self.mask_provider = mask_provider
         self.save_output = save_output
         resolved = resolve_params(params, sampler)
+        self.vol_dtype = VOLUME_DTYPES[resolved.volume_dtype]
         self.stride = resolved.tracking_stride
         self.escale = resolved.estep_scale
         self.motion_model = resolved.motion_model
@@ -477,10 +487,14 @@ class EMFusionPipeline:
         }
         # the next frame's raw depth, uploaded ahead (prefetch_depth)
         self._prefetched = None
+        # held by process_frame for the whole frame, and by every reader
+        # on another thread (viz_server) for its render or extraction
+        self.lock = threading.RLock()
 
     def _init_state(self) -> PipelineState:
         p = self.params
-        tsdf, weights = make_volume(p.globalVolumeDims, self.device)
+        tsdf, weights = make_volume(p.globalVolumeDims, self.device,
+                                    self.vol_dtype)
         return PipelineState(
             bg_tsdf=tsdf, bg_weights=weights,
             bg_pose=torch.as_tensor(p.volume_pose_matrix()),
@@ -499,7 +513,10 @@ class EMFusionPipeline:
         ``meta``, the next object id ``next_id`` (default: one past the
         largest id in the pool) and the camera poses recorded so far,
         ``poses`` (frame -> 4x4; the constant-velocity model reads the
-        last two). A state without objects gets an empty pool."""
+        last two). A state without objects gets an empty pool, and a
+        background pair of another dtype is stored in the pipeline's."""
+        state.bg_tsdf = state.bg_tsdf.to(self.vol_dtype).contiguous()
+        state.bg_weights = state.bg_weights.to(self.vol_dtype).contiguous()
         if state.objs is None:
             state.objs = empty_pool(self.K, self.obj_res, self.H, self.W,
                                     self.device)
@@ -557,13 +574,16 @@ class EMFusionPipeline:
                                  p.bilateral_sigma_spatial)
         return depth, backproject_depth(depth, self.intr)
 
-    def _rel_bg(self) -> torch.Tensor:
-        """Camera-to-volume transform."""
-        return pose_inverse(self.state.bg_pose) @ self.state.cam_pose
+    def _rel_bg(self, cam_pose=None) -> torch.Tensor:
+        """Camera-to-volume transform (of the state's camera, or of the
+        camera-to-world ``cam_pose``)."""
+        cam = self.state.cam_pose if cam_pose is None else cam_pose
+        return pose_inverse(self.state.bg_pose) @ cam
 
-    def _rel_obj(self, k: int) -> torch.Tensor:
+    def _rel_obj(self, k: int, cam_pose=None) -> torch.Tensor:
         """Camera-to-object transform of slot ``k``."""
-        return pose_inverse(self.state.objs.pose[k]) @ self.state.cam_pose
+        cam = self.state.cam_pose if cam_pose is None else cam_pose
+        return pose_inverse(self.state.objs.pose[k]) @ cam
 
     def estep(self, points: torch.Tensor, slots: List[int],
               fg_out: bool = False) -> Optional[Dict[int, torch.Tensor]]:
@@ -805,20 +825,22 @@ class EMFusionPipeline:
                 o.voxel_size[slots], pts, torch.gather(asc_all, 1, idx),
                 rel_init, idx, asc_all)
 
-    def raycast(self, slots: List[int]) -> dict:
+    def raycast(self, slots: List[int], cam_pose=None) -> dict:
         """``EMFusion::raycast`` (``EMFusion.cpp:726-795``): the background
         and each slot of ``slots`` (its weights masked to its foreground),
-        composited (:func:`composite_raycasts`)."""
+        composited (:func:`composite_raycasts`), from the state's camera
+        or from the camera-to-world ``cam_pose`` (a host (4, 4) float32
+        tensor: the viewers' virtual cameras)."""
         p = self.params
         s, o = self.state, self.state.objs
-        rel = self._rel_bg()
+        rel = self._rel_bg(cam_pose)
         bg_rc = raycast_volume(s.bg_tsdf, s.bg_weights, rel[:3, :3],
                                rel[:3, 3], self.intr, self.voxel, self.trunc,
                                self.H, self.W,
                                max_steps=p.raycast_max_steps)
         obj_rcs = []
         for k in slots:
-            rk = self._rel_obj(k)
+            rk = self._rel_obj(k, cam_pose)
             obj_rcs.append(raycast_object(
                 o.tsdf[k], o.weights[k], o.fg_counts[k], rk[:3, :3],
                 rk[:3, 3], self.intr, float(o.voxel_size[k]),
@@ -892,7 +914,12 @@ class EMFusionPipeline:
     def process_frame(self, rgb: Optional[np.ndarray], depth_raw,
                       timestamp: Optional[float] = None) -> None:
         """One frame of ``EMFusion::processFrame`` (``pipeline.py:
-        1061-1199``). ``rgb`` is only read by the mask provider."""
+        1061-1199``), under :attr:`lock`. ``rgb`` is only read by the mask
+        provider."""
+        with self.lock:
+            self._process_frame(rgb, depth_raw, timestamp)
+
+    def _process_frame(self, rgb, depth_raw, timestamp) -> None:
         p = self.params
         if timestamp is not None:
             self.timestamps[self.frame] = float(timestamp)

@@ -1,9 +1,11 @@
 """TSDF volume state.
 
 Port of ``emfusion_tpu/volume.py``. A volume is a pair of dense (Z, Y, X)
-float32 tensors (tsdf in units of the truncation distance, and
-integration weights) that the fusion kernel updates in place; its pose
-and voxel size live with the pipeline. Object volumes add a channel-first
+tensors (tsdf in units of the truncation distance, and integration
+weights) that the fusion kernel updates in place; its pose and voxel
+size live with the pipeline. Object volumes are float32; the background
+pair is float32 or, under ``Params.volume_dtype="bfloat16"``, bf16
+(:data:`VOLUME_DTYPES`). Object volumes add a channel-first
 (2, Z, Y, X) pair of foreground / background evidence counts.
 """
 
@@ -12,6 +14,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+# Params.volume_dtype, resolved, -> the background pair's storage dtype
+VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def make_volume(res_xyz: Tuple[int, int, int], device,

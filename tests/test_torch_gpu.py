@@ -3,8 +3,11 @@ card, at small ragged shapes (sizes that are not multiples of the
 kernels' block sizes), on a scene fused by the plain versions; K1-K4 also
 at object shapes (64^3 and 37x41x53 volumes at two object voxel sizes),
 the pipeline's fusion over a pool with an invisible slot, K1, K2 and K3
-over work tables of 1 to 18 volumes of mixed shapes, and the batched
-object LM on the card against the same call on the CPU.
+over work tables of 1 to 18 volumes of mixed shapes, the batched
+object LM on the card against the same call on the CPU, and the bf16
+forms: K1 and K2 over a bf16 volume beside float32 ones in one table,
+K3's bf16 cache, K4 on a bf16 pair at the camera and from an orbit
+camera outside the volume, and the wrappers refusing other dtypes.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -14,6 +17,8 @@ test skips. On a machine with a card::
 (``--noconftest``: the repository's conftest imports JAX, which the port
 does not need and a GPU machine may not have.)
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -673,3 +678,113 @@ def test_batched_lm_card_matches_cpu(cuda):
         assert torch.allclose(ks[key].cpu(), qs[key], rtol=0, atol=1e-5), key
     assert (qs["huber_weights"][:2] != 0).sum(dim=1).min() > 100
     assert ks["host_reads"] <= 2 * ks["loop_iterations"]
+
+
+# ---------------------------------------------------------------------
+# bf16 volumes (Params.volume_dtype="bfloat16"): the background pair in
+# bf16 beside float32 object slots in one K1 / K2 table, the bf16 capture
+# cache, the bf16 raycast, and K4 from an orbit camera outside the volume
+def bf16(v):
+    return v.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("vec", [False, True])
+def test_bf16_fusion_kernel(cuda, scene, vec):
+    """K1 over a bf16 volume (37x45x51: one voxel a lane; or the 64^3
+    object volume as bf16: four voxels, 8 bytes, a lane) and two float32
+    object volumes in one launch, against the plain version per volume,
+    bit for bit: float32 arithmetic, one round to nearest even at the
+    store."""
+    depth, models = fusion_models(cuda, scene, 3)
+    if vec:
+        models[0] = models[1][:4] + models[0][4:]
+    kept, ref = [], []
+    for i, (t, w, assoc, R, tr, vs, td, kw, _) in enumerate(models):
+        if i == 0:
+            t, w = bf16(t), bf16(w)
+        kept.append(FusionItem(t.clone(), w.clone(), assoc, R, tr, vs, td,
+                               64.0, **kw))
+        qt, qw = t.clone(), w.clone()
+        fusion.integrate_tsdf_plain(qt, qw, depth, assoc, R.to(cuda),
+                                    tr.to(cuda), scene["intr"], vs, td, 64.0,
+                                    **kw)
+        ref.append((qt, qw))
+    launched("fusion", lambda: fusion.integrate_tsdf_batched(
+        kept, depth, scene["intr"]))
+    assert kept[0].tsdf.dtype == torch.bfloat16
+    for it, (qt, qw) in zip(kept, ref):
+        assert torch.equal(it.tsdf, qt) and torch.equal(it.weights, qw)
+    assert not torch.equal(kept[0].weights, bf16(models[0][1]))
+
+
+def test_bf16_sample_and_capture_kernels(cuda, scene):
+    """K2 over the bf16 background and float32 object items in one table,
+    and K3 of the bf16 pair (a bf16 cache), against the plain versions,
+    bit for bit."""
+    items = sample_models(cuda, scene, 4)
+    items[0] = dataclasses.replace(items[0], vol=bf16(items[0].vol))
+    k = launched("sample", lambda: sampling.sample_items(items))
+    q = sampling.sample_items_plain(
+        [dataclasses.replace(it, rot=it.rot.to(cuda),
+                             trans=it.trans.to(cuda)) for it in items])
+    for (kp, kf), (qp, qf) in zip(k, q):
+        assert torch.equal(kp, qp)
+        assert (kf is None) == (qf is None) and (kf is None or
+                                                 torch.equal(kf, qf))
+    assert (k[0][0] != 0).any()
+    T = torch.tensor(cam_to_vol(2))
+    vols = (bf16(scene["tsdf"].to(cuda)), bf16(scene["wts"].to(cuda)))
+    pts = scene["pts"].reshape(3, -1).to(cuda)
+    kc, ka = launched("capture", lambda: capture.capture_neighborhoods(
+        vols, pts, T[:3, :3], T[:3, 3], VOXEL))
+    qc, qa = capture.capture_neighborhoods_plain(
+        vols, pts, T[:3, :3].to(cuda), T[:3, 3].to(cuda), VOXEL)
+    assert kc.dtype == torch.bfloat16
+    assert torch.equal(ka, qa) and torch.equal(kc, qc)
+
+
+@pytest.mark.parametrize("pose", ["camera", "orbit"])
+def test_bf16_raycast_kernel(cuda, scene, pose):
+    """K4 on the bf16 pair at the camera, and at an orbit pose 1.1 x the
+    volume's extent from its centre (outside the box: rays enter through
+    the slab test or miss it): bit for bit against the plain version."""
+    if pose == "camera":
+        T = torch.tensor(cam_to_vol(2))
+    else:
+        from emfusion_tpu_torch.viz import _look_at
+        ext = max(SHAPE) * VOXEL
+        eye = np.array([0.4, -0.3, -1.1], np.float32) * ext
+        T = torch.tensor(_look_at(eye, np.zeros(3, np.float32)))
+    tsdf, wts = bf16(scene["tsdf"].to(cuda)), bf16(scene["wts"].to(cuda))
+    k = launched("raycast", lambda: raycast.raycast_volume(
+        tsdf, wts, T[:3, :3], T[:3, 3], scene["intr"], VOXEL, TRUNC, H, W,
+        256))
+    q = raycast.raycast_volume_plain(tsdf, wts, T[:3, :3].to(cuda),
+                                     T[:3, 3].to(cuda), scene["intr"],
+                                     VOXEL, TRUNC, H, W, 256)
+    assert q["mask"].any() and not q["mask"].all()
+    for key in k:
+        assert torch.equal(k[key], q[key]), key
+
+
+def test_kernels_refuse_other_dtypes(cuda, scene):
+    """A CUDA volume that is neither float32 nor bf16, or a pair of mixed
+    dtypes, raises in the wrapper: no launch, no fallback."""
+    T = torch.tensor(cam_to_vol(2))
+    t, w = scene["tsdf"].to(cuda), scene["wts"].to(cuda)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        fusion.integrate_tsdf(t.half(), w.half(), scene["depth"].to(cuda),
+                              torch.ones(H, W, device=cuda), T[:3, :3],
+                              T[:3, 3], scene["intr"], VOXEL, TRUNC, 64.0)
+    with pytest.raises(ValueError):
+        raycast.raycast_volume(bf16(t), w, T[:3, :3], T[:3, 3],
+                               scene["intr"], VOXEL, TRUNC, H, W, 16)
+    with pytest.raises(ValueError):
+        capture.capture_neighborhoods((bf16(t), w),
+                                      scene["pts"].reshape(3, -1).to(cuda),
+                                      T[:3, :3], T[:3, 3], VOXEL)
+    with pytest.raises(ValueError):
+        sampling.sample_volume_at_points(t.double(), scene["pts"].to(cuda),
+                                         T[:3, :3], T[:3, 3], VOXEL)
+    assert kernels.launches == before

@@ -125,12 +125,12 @@ def test_default_config_parses_as_in_jax():
 
 
 @pytest.mark.parametrize("knob, value, error", [
-    ("volume_dtype", "bfloat16", NotImplementedError),
+    ("volume_dtype", "float64", NotImplementedError),
     ("volume_dtype", "float16", NotImplementedError),
     ("motion_model", "accelerated", ValueError)])
 def test_unported_knobs_raise(knob, value, error):
-    """bf16 volume storage (and any other than float32) is not ported; a
-    motion model the JAX package does not have is refused."""
+    """Volume storage other than float32 or bf16 is not ported; a motion
+    model the JAX package does not have is refused."""
     with pytest.raises(error):
         resolve_params(Params(**{knob: value}))
 
@@ -152,6 +152,21 @@ def test_accelerator_knobs_resolve(over, want):
     r = resolve_params(Params(**over))
     assert {k: getattr(r, k) for k in want} == want
     assert r.volume_dtype == "float32"
+
+
+def test_bf16_volumes_resolve():
+    """``volume_dtype="bfloat16"``, the JAX package's accelerator storage,
+    resolves, and the pipeline stores only the background pair in bf16:
+    objects, counts and association images stay float32."""
+    params = Params(volume_dtype="bfloat16", globalVolumeDims=(16, 16, 16),
+                    objVolumeDims=(8, 8, 8), max_objects=2,
+                    frameSize=(32, 24))
+    assert resolve_params(params).volume_dtype == "bfloat16"
+    s = EMFusionPipeline(params, device="cpu").state
+    assert s.bg_tsdf.dtype == s.bg_weights.dtype == torch.bfloat16
+    o = s.objs
+    assert {t.dtype for t in (o.tsdf, o.weights, o.fg_counts, o.assoc,
+                              s.bg_assoc)} == {torch.float32}
 
 
 def test_auto_knobs_resolve_to_the_exact_path():
