@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``emfusion_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only distributed]
 
 1. Builds the port's CUDA kernels from ``emfusion_tpu_torch/csrc``.
 2. Fuses an analytic scene, with depth noise drawn from ``--seed``
@@ -96,13 +96,40 @@
 10. Runs a small scene through the pipeline on the card and on the CPU
    (plain versions) and compares the camera poses; then a small object
    scene, comparing the live objects and the camera and object poses.
+11. The distributed path (``emfusion_tpu_torch.distributed``). First
+   (in step 6) K1's slab form, ``fusion_slab``: the object path's
+   background cut into its two z-slabs, each fused alone, held at max
+   abs error 0 against the plain slab and against the same planes of one
+   whole-volume launch, its bound counted from the slab's voxel
+   classes. Then ``distributed.mesh.launch`` starts 4 ranks as a (2, 2)
+   (obj, z) mesh: with one card they share it under gloo, every
+   collective staged through host memory (printed as the transport);
+   with 4 or more cards, NCCL, a rank a card. They run (a) the stress
+   scene: step 7's 16-slot pool, sharded, over 4 frames that render the
+   pool's spheres, each followed by the z-sharded background mesh and
+   the object meshes written, while rank 0 runs the one-card pipeline on
+   the same frames and compares the E-step images, composite, poses,
+   volumes and host mirrors bit for bit (object poses to 1e-4) and the
+   sharded mesh against ``extract_mesh`` of its read copy (vertex set
+   and triangle count); (b) the read copy's refresh alone, timed; (c)
+   the pixel-sharded ``track_volume`` on a frame's 307,200 points
+   against the one-rank LM (1e-4; whether within 1e-5 is printed beside
+   the one-rank LM's own spread over reordered sums); (d) the object
+   path's frames 0-31 (spawn, match) against step 5's poses (camera
+   1e-5, objects 1e-4), failing as the object path does. Prints the
+   frames' ms beside the one-card pipeline's, the collectives a frame
+   per kind (calls, MB, ms), the refresh's GB/s, the all-reduces an LM
+   iteration and each rank's peak memory. ``--only distributed`` runs
+   this step alone, after a one-card run of the object path's first 32
+   frames as its reference.
 
 Kernel K6 (the projective warp) is not on either path: the port's
 fusion kernel makes its nearest-pixel pick per voxel. Step 2 holds it
 against its plain version at the main path's image and grid sizes.
 
 Prints the card's name and power limit, one JSON line with the numbers
-of every kernel (K6 with 0 launches; the ``*_object`` rows are the
+of every kernel (K6 with 0 launches; ``fusion_slab`` with rank 0's
+slab launches in step 11's stress scene; the ``*_object`` rows are the
 object-path holds of step 6 and the ``*_pool`` rows those of step 7,
 both with the object path's launches that touched an object volume; the
 ``capture_*_accel`` rows are step 8's, with the accelerator path's K3
@@ -125,6 +152,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -202,6 +230,16 @@ SMALL_OBJECTS = dict(globalVolumeDims=(128, 128, 128), globalVoxelSize=0.02,
                      maskRCNNFrames=3, visibilityThresh=60,
                      mask_min_pixels=60, boundary=5)
 STEP_EDGES = [0] + [2 ** i for i in range(13)]   # march-step histogram
+# step 11: K1's slab form held at the background's two z-slabs, and the
+# distributed path: DIST_RANKS ranks as a (2, 2) mesh, the stress scene's
+# frames, and the object path's first LIFE_FRAMES frames (spawn, match)
+SLAB_ROWS = [("fusion_slab",) + KERNEL_ROWS[0][1:]]
+DIST_RANKS = 4
+DIST_FRAMES = 4
+LIFE_FRAMES = 32
+DIST_TIMEOUT_S = 420.0
+LM_POSE_TOL = 1e-4            # the pixel-sharded LM against one rank
+DIST_WORK = os.path.join(HERE, "chip_smoke_dist")
 
 
 # ---------------------------------------------------------------------
@@ -610,7 +648,7 @@ def fusion_traffic(torch, items, after, depth, intr):
              tsdf_changed=0, weights_changed=0, any_changed=0)
     for it, (qt, qw) in zip(items, after):
         cls = voxel_classes(it.tsdf.shape, depth, it.rot, it.trans, intr,
-                            it.voxel_size, it.truncdist)
+                            it.voxel_size, it.truncdist, it.z0, it.Z)
         n = {name: int((cls == code).sum()) for name, code in (
             ("skip", SKIP), ("behind", BEHIND), ("hole", HOLE),
             ("neg", NEG), ("band", BAND))}
@@ -824,12 +862,18 @@ def fill_pool(torch, pipe):
     ``max_objects`` slots live and visible, each a copy of one of the
     pool's live object volumes (in turn), its centre moved to a point of
     a grid spread across the image at the object's depth, its orientation
-    kept."""
+    kept. Returns each copy's sphere (centre, radius) in the world: its
+    source's mover (the nearest at the pipeline's last frame), moved with
+    the copy."""
     from emfusion_tpu_torch.geometry.se3 import pose_inverse
     from emfusion_tpu_torch.pipeline import empty_pool
 
     src = pipe.state.objs
     live = [int(k) for k in np.nonzero(pipe._h_active)[0]]
+    movers = movers_at(pipe.frame - 1)
+    near = {k: min(movers, key=lambda m: np.linalg.norm(
+        m[0] - src.pose[k, :3, 3].numpy())) for k in live}
+    spheres = []
     K, cam = pipe.K, pipe.state.cam_pose
     pool = empty_pool(K, pipe.obj_res, pipe.H, pipe.W, pipe.device)
     side = int(np.ceil(np.sqrt(K)))
@@ -845,23 +889,27 @@ def fill_pool(torch, pipe):
         rel[0, 3] = 1.1 * gx * z * pipe.W / (2 * pipe.params.fx)
         rel[1, 3] = 1.1 * gy * z * pipe.H / (2 * pipe.params.fy)
         pool.pose[j] = cam @ rel
+        c, r = near[k]
+        spheres.append((pool.pose[j, :3, 3].numpy()
+                        + (c - src.pose[k, :3, 3].numpy()), r))
     pool.active[:] = True
     pool.visible[:] = True
     pool.object_id[:] = torch.arange(1, K + 1, dtype=torch.int32)
     pipe.state.objs = pool
+    return spheres
 
 
 def pool_kernel_phases(torch, pipe, depth_raw):
     """K1 and K2 at a full pool (:func:`fill_pool`, which replaces
     ``pipe``'s pool); the tables are the pipeline's own (``fusion_items``,
-    ``estep_items``). Returns the rows."""
+    ``estep_items``). Returns the rows and the pool's spheres."""
     K = pipe.K
-    fill_pool(torch, pipe)
+    spheres = fill_pool(torch, pipe)
     depth, points = pipe.preprocess(depth_raw)
     return {"sample_pool": hold_sample(
                 torch, pipe.estep_items(points, list(range(K)))[0]),
             "fusion_pool": hold_fusion(torch, pipe.fusion_items(), depth,
-                                       pipe.intr)}
+                                       pipe.intr)}, spheres
 
 
 def raycast_ops(st, n_rays, n_hits):
@@ -1179,7 +1227,7 @@ def object_path(torch, params, scene, n_frames, rng, report):
               f"{r['dx_true'] * 1e3:.2f} mm = {r['recovery']:.3f}"
               for oid, r in rec.items()), flush=True)
     check_objects("object path", pipe, launches, obj_launches, rec, ate)
-    return obj_launches, pipe
+    return obj_launches, pipe, frames, masks
 
 
 def check_objects(name, pipe, launches, obj_launches, rec, ate):
@@ -1969,10 +2017,536 @@ def small_reference(torch, rng, report):
         raise RuntimeError("card and CPU object pipelines disagree")
 
 
+# ---------------------------------------------------------------------
+# step 11: the distributed path
+def hold_fusion_slab(torch, pipe, depth_raw):
+    """K1's slab form: the background of ``pipe``'s fusion table cut into
+    its two z-slabs (what the two ``z`` ranks of a mesh fuse), each slab
+    one launch on a copy, held against the plain version of the slab and
+    against the same planes of one whole-volume K1 launch (exact: a
+    slab's voxel centres are formed from the global plane). Timed as the
+    other rows (the slab's launch; the whole volume's beside it), its
+    bound counted from the slab's voxel classes."""
+    from emfusion_tpu_torch.ops import fusion
+
+    depth, _ = pipe.preprocess(depth_raw)
+    intr = pipe.intr
+    bg = pipe.fusion_items()[0]
+    Z = bg.tsdf.shape[0]
+    h = Z // 2
+    slabs = [dataclasses.replace(bg, tsdf=bg.tsdf[z0:z0 + h],
+                                 weights=bg.weights[z0:z0 + h], z0=z0, Z=Z)
+             for z0 in (0, h)]
+    kit = copy_items(slabs, lambda v: v.clone())
+    for it in kit:
+        fusion.integrate_tsdf_batched([it], depth, intr)
+    qit = copy_items(slabs, lambda v: v.clone())
+
+    def plain(items):
+        for it in items:
+            fusion.integrate_tsdf_plain(
+                it.tsdf, it.weights, depth, it.assoc, it.rot, it.trans,
+                intr, it.voxel_size, it.truncdist, it.max_weight,
+                it.carve_dist, it.carve_weight_cap, it.carve_margin,
+                it.z0, it.Z)
+
+    plain(qit)
+    whole = copy_items([bg], lambda v: v.clone())[0]
+    fusion.integrate_tsdf_batched([whole], depth, intr)
+    err_plain = max(max(max_err(k.tsdf, q.tsdf), max_err(k.weights,
+                                                          q.weights))
+                    for k, q in zip(kit, qit))
+    err_whole = max(max(max_err(k.tsdf, whole.tsdf[k.z0:k.z0 + h]),
+                        max_err(k.weights, whole.weights[k.z0:k.z0 + h]))
+                    for k in kit)
+    b, b_all, counts, shares = fusion_traffic(
+        torch, [slabs[0]], [(qit[0].tsdf, qit[0].weights)], depth, intr)
+    wb = fusion_traffic(torch, [bg], [(whole.tsdf, whole.weights)], depth,
+                        intr)[0]
+    row = dict(
+        max_abs_err=max(err_plain, err_whole), tol=0.0,
+        err_vs_plain=err_plain, err_vs_whole=err_whole, items=1,
+        shapes=[list(kit[0].tsdf.shape)], voxels=counts, shares=shares,
+        bound_all=b_all,
+        ms=graph_ms(torch, lambda: fusion.integrate_tsdf_batched(
+            [kit[0]], depth, intr), 10),
+        whole_ms=graph_ms(torch, lambda: fusion.integrate_tsdf_batched(
+            [whole], depth, intr), 10),
+        whole_bound=wb,
+        plain_ms=time_ms(torch, lambda: plain(qit[:1]), 2, warmup=1),
+        bound=b, library_ms=None)
+    print(f"fusion_slab: slab of planes 0..{h - 1} of {Z}: "
+          f"{row['ms']:.4f} ms against the whole volume's "
+          f"{row['whole_ms']:.4f} ms (bounds {b[0]:.5f} / {wb[0]:.5f} ms); "
+          f"max abs err against the plain slab {err_plain:.1e}, against "
+          f"the whole-volume launch's planes {err_whole:.1e}", flush=True)
+    del kit, qit, whole
+    torch.cuda.empty_cache()
+    return row
+
+
+def save_stress_state(torch, pipe, path):
+    """``pipe``'s state (a filled pool, :func:`fill_pool`) as tensors for
+    the ranks of step 11: the one-card ``PipelineState`` they shard."""
+    from emfusion_tpu_torch.pipeline import ObjectPool
+
+    s, o = pipe.state, pipe.state.objs
+    torch.save(dict(
+        bg={k: getattr(s, k).cpu() for k in (
+            "bg_tsdf", "bg_weights", "bg_pose", "bg_assoc", "cam_pose")},
+        objs={f.name: getattr(o, f.name).cpu()
+              for f in dataclasses.fields(ObjectPool)},
+        frame=pipe.frame, next_id=int(o.object_id.max()) + 1), path)
+
+
+def load_stress_state(torch, path, device):
+    from emfusion_tpu_torch.pipeline import ObjectMeta, state_from_numpy
+
+    st = torch.load(path, weights_only=True)
+    arrays = {k: v.numpy() for k, v in st["bg"].items()}
+    arrays["objs"] = {k: v.numpy() for k, v in st["objs"].items()}
+    ids = [int(i) for i in st["objs"]["object_id"][st["objs"]["active"]]]
+    return (state_from_numpy(arrays, device), st["frame"],
+            {i: ObjectMeta() for i in ids}, st["next_id"])
+
+
+def bits_differ(torch, a, b):
+    """Elements of ``a`` and ``b`` whose bits differ (NaN-safe)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b).to(a.device)
+    if a.shape != b.shape:
+        return -1
+    if a.dtype == torch.bool:
+        return int((a != b).sum())
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return int((a.contiguous().view(bits) != b.contiguous().view(bits)).sum())
+
+
+def frame_diffs(torch, pipe, pool, ref):
+    """Per part of the frame, the elements whose bits differ between the
+    sharded rank 0 (``pool``: its gathered pool) and the one-card
+    ``ref``, and the largest object-pose difference."""
+    s, r = pipe.state, ref.state
+    rc, rr = pipe.last_raycast, ref.last_raycast
+    act = r.objs.active.numpy()
+    out = {"estep_bg": bits_differ(torch, s.bg_assoc, r.bg_assoc),
+           "estep_obj": bits_differ(torch, s.objs.assoc, r.objs.assoc),
+           "camera_pose": bits_differ(torch, s.cam_pose, r.cam_pose),
+           "bg_tsdf": bits_differ(torch, s.bg_tsdf, r.bg_tsdf),
+           "bg_weights": bits_differ(torch, s.bg_weights, r.bg_weights),
+           "obj_volumes": sum(bits_differ(torch, getattr(pool, k),
+                                          getattr(r.objs, k))
+                              for k in ("tsdf", "weights", "fg_counts")),
+           "host_mirrors": sum(bits_differ(torch, getattr(s.objs, k),
+                                           getattr(r.objs, k))
+                               for k in ("active", "visible", "object_id",
+                                         "voxel_size"))}
+    out["composite"] = sum(bits_differ(torch, rc[k], rr[k]) for k in (
+        "seg", "vertices", "normals", "mask", "obj_masks", "vis_counts"))
+    d = (s.objs.pose - r.objs.pose)[torch.from_numpy(act)].abs()
+    out["obj_pose_max_abs"] = float(d.max()) if d.numel() else 0.0
+    out["obj_pose_bits"] = bits_differ(torch, s.objs.pose, r.objs.pose)
+    return out
+
+
+def dist_stress(torch, mesh, spec):
+    """Step 11's stress scene on one rank: the 16-slot state sharded over
+    the mesh, ``spec["stress_frames"]`` frames, each followed by the
+    frame's meshes (the z-sharded background mesh and the objects'),
+    exported by rank 0. Rank 0 also runs the one-card pipeline from the
+    same state on the same frames, interleaved, and compares each frame
+    (:func:`frame_diffs`, and the sharded mesh against ``extract_mesh``
+    of its read copy). Per frame: its ms (rank 0, synchronised) and the
+    one-card pipeline's, the collectives of the frame, the kernel
+    launches."""
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch.distributed.comm import all_gather_into
+    from emfusion_tpu_torch.distributed.mesh import gather_pool
+    from emfusion_tpu_torch.io.writers import write_frame_meshes
+    from emfusion_tpu_torch.ops.marching_cubes import extract_mesh_sparse
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    params, dev = spec["params"], mesh.device
+    state, frame, meta, next_id = load_stress_state(torch, spec["state"],
+                                                    dev)
+    pipe = EMFusionPipeline(params, mesh=mesh)
+    pipe.load_state(state, frame, meta=meta, next_id=next_id)
+    del state
+    ref = None
+    if mesh.rank == 0:
+        state, frame, meta, next_id = load_stress_state(
+            torch, spec["state"], dev)
+        ref = EMFusionPipeline(params, device=dev)
+        ref.load_state(state, frame, meta=meta, next_id=next_id)
+        del state
+    slab_shape = (pipe._z1 - pipe._z0,) + tuple(pipe.state.bg_tsdf.shape[1:])
+    frames_out = []
+    for depth in spec["stress_frames"]:
+        live = len(pipe.active_object_ids)
+        kernels.reset_launches()
+        mesh.stats.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process_frame(None, depth)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        comm_f = mesh.stats.summary()
+        launches = dict(kernels.launches)
+        slab_launches = kernels.launches_by_shape.get(("fusion",
+                                                       slab_shape), 0)
+        t0 = time.perf_counter()
+        meshes = write_frame_meshes(pipe, spec["mesh_dir"], pipe.frame)
+        export_ms = 1e3 * (time.perf_counter() - t0)
+        pool = gather_pool(pipe)
+        rec = dict(ms=ms, live=live, comm=comm_f, launches=launches,
+                   slab_launches=slab_launches, export_ms=export_ms)
+        if ref is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref.process_frame(None, depth)
+            torch.cuda.synchronize()
+            rec["one_card_ms"] = 1e3 * (time.perf_counter() - t0)
+            rec["diffs"] = frame_diffs(torch, pipe, pool, ref)
+            bg_mesh = meshes[0]
+            full = extract_mesh_sparse(pipe.state.bg_tsdf,
+                                       pipe.state.bg_weights > 0,
+                                       pipe.voxel)
+            rec["mesh"] = dict(
+                verts=len(bg_mesh[0]), tris=len(bg_mesh[2]),
+                verts_whole=len(full[0]), tris_whole=len(full[2]),
+                same_vertex_set=bool(np.array_equal(
+                    vertex_set(bg_mesh[0]), vertex_set(full[0]))),
+                valid_indices=bool(len(bg_mesh[2]) == 0 or int(
+                    bg_mesh[2].max()) < len(bg_mesh[0])),
+                objects=len(meshes[1]))
+            print(f"  stress frame {pipe.frame - 1}: {ms:.1f} ms, {live} "
+                  f"live slots, export {export_ms:.0f} ms, diffs "
+                  f"{rec['diffs']}, mesh {rec['mesh']}", flush=True)
+        del pool
+        frames_out.append(rec)
+    out = dict(frames=frames_out, ids=pipe.active_object_ids,
+               cam=pipe.cam_pose.copy())
+    del ref
+    # the read copy's refresh alone: the z all-gather of the pair
+    s, (z0, z1) = pipe.state, (pipe._z0, pipe._z1)
+    for rep in range(3):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for vol in (s.bg_tsdf, s.bg_weights):
+            all_gather_into(mesh.z, vol, vol[z0:z1])
+        b.record()
+        torch.cuda.synchronize()
+        recv = sum(v.numel() * v.element_size() for v in (
+            s.bg_tsdf, s.bg_weights)) * (mesh.shape[1] - 1) // mesh.shape[1]
+        out.setdefault("refresh_ms", []).append(a.elapsed_time(b))
+    out["refresh_bytes"] = recv
+    return out, pipe
+
+
+def vertex_set(v):
+    """A mesh's vertices rounded to 1e-5 m, sorted: its vertex set."""
+    r = np.ascontiguousarray(np.round(np.asarray(v, np.float32), 5))
+    return np.sort(r.view([("x", "f4"), ("y", "f4"), ("z", "f4")]), axis=0)
+
+
+def dist_lm(torch, mesh, pipe, depth_raw):
+    """The pixel-sharded ``track_volume`` on every rank: the camera's
+    stride-1 points of a frame cut into contiguous blocks, one a rank, the
+    LM's (A, b, err), weight maximum and trial errors all-reduced over
+    the ranks, started from the camera pose moved by a small twist; rank
+    0 also runs the one-rank LM on all points, and again on the points in
+    reverse order and in two seeded shuffles: the same data summed in
+    other orders, whose poses differ from the first by the float32 LM's
+    own reproducibility (near
+    its minimum the objective's changes fall below the rounding of a sum
+    of 307,200 terms, so where it stops depends on the order of the sum;
+    the ranks' partial sums are another order). Returns the pose, the
+    iterations and the all-reduces (calls, bytes, ms) of the call, and on
+    rank 0 the largest pose differences to the one-rank LM and between
+    the one-rank LMs (its spread)."""
+    from emfusion_tpu_torch.geometry.se3 import (
+        pose_inverse, reorthonormalize, se3_exp,
+    )
+    from emfusion_tpu_torch.tracking import track_volume
+
+    s = pipe.state
+    _, points = pipe.preprocess(depth_raw)
+    pts = points.reshape(3, -1)
+    n, g = pts.shape[1], mesh.world
+    lo, hi = g.rank * n // g.size, (g.rank + 1) * n // g.size
+    asc = torch.ones(n, dtype=torch.float32, device=pts.device)
+    start = reorthonormalize(pose_inverse(s.bg_pose) @ s.cam_pose @ se3_exp(
+        torch.tensor([0.004, -0.003, 0.002, 0.003, -0.002, 0.004])))
+    mesh.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose, st = track_volume(s.bg_tsdf, s.bg_weights, pipe.voxel,
+                            pts[:, lo:hi].contiguous(), asc[lo:hi], start,
+                            pipe.track_cfg, group=g)
+    torch.cuda.synchronize()
+    out = dict(ms=1e3 * (time.perf_counter() - t0),
+               iterations=st["iterations"], pose=pose.numpy(),
+               comm=mesh.stats.summary(), points=n)
+    if mesh.rank == 0:
+        one, st1 = track_volume(s.bg_tsdf, s.bg_weights, pipe.voxel, pts,
+                                asc, start, pipe.track_cfg)
+        gen = torch.Generator().manual_seed(0)
+        orders = [torch.arange(n - 1, -1, -1)] + [
+            torch.randperm(n, generator=gen) for _ in range(2)]
+        spread, iters = 0.0, []
+        for order in orders:
+            other, st2 = track_volume(
+                s.bg_tsdf, s.bg_weights, pipe.voxel,
+                pts[:, order.to(pts.device)].contiguous(), asc, start,
+                pipe.track_cfg)
+            spread = max(spread, float((one - other).abs().max()))
+            iters.append(st2["iterations"])
+        out.update(one_rank_iterations=st1["iterations"],
+                   reordered_iterations=iters,
+                   max_abs_diff=float((one - pose).abs().max()),
+                   one_rank_spread=spread)
+    return out
+
+
+def dist_lifecycle(torch, mesh, spec):
+    """The object path's first frames and masks (spawn, then match) on
+    the mesh, from an empty state: every rank's camera and object poses
+    and live ids per frame, and on rank 0 the object path's checks
+    (recovery, ATE) and the largest pose differences to the one-card
+    run's (``spec["ref"]``)."""
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    frames, masks = spec["life_frames"], spec["life_masks"]
+    pipe = EMFusionPipeline(spec["params"], mask_provider(masks), mesh=mesh)
+    ids, ms = [], []
+    for i, depth in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process_frame(None, depth, timestamp=float(i))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        ids.append(pipe.active_object_ids)
+    ref_cam, ref_obj = spec["ref"]
+    cam = max(float(np.abs(pipe.poses[f] - ref_cam[f]).max())
+              for f in ref_cam)
+    obj = float("inf")              # another set of objects than one card's
+    if sorted(pipe.obj_poses) == sorted(ref_obj):
+        obj = max([float(np.abs(t[f] - ref_obj[oid][f]).max())
+                   for oid, t in pipe.obj_poses.items() for f in t] + [0.0])
+    out = dict(ids=ids, ms=ms, cam_max_abs=cam, obj_max_abs=obj,
+               poses=dict(pipe.poses),
+               obj_poses={o: dict(t) for o, t in pipe.obj_poses.items()},
+               slots={o: pipe._slot_of(o) for o in pipe.active_object_ids})
+    if mesh.rank == 0:
+        out.update(recovery=motion_recovery(pipe),
+                   ate=camera_ate(pipe, len(frames)))
+    return out
+
+
+def dist_rank(mesh, spec):
+    """One rank of step 11: the stress scene, the read copy's refresh,
+    the pixel-sharded LM and the lifecycle run, and the rank's peak
+    device memory."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    stress, pipe = dist_stress(torch, mesh, spec)
+    lm = dist_lm(torch, mesh, pipe, spec["stress_frames"][-1])
+    del pipe
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    life = dist_lifecycle(torch, mesh, spec)
+    return dict(rank=mesh.rank, coords=mesh.coords, stress=stress, lm=lm,
+                life=life, peak=torch.cuda.max_memory_allocated(mesh.device),
+                stress_s=t1 - t0, life_s=time.perf_counter() - t1)
+
+
+def dist_transport(torch):
+    """(backend, printed line): NCCL, a rank a card, when the machine has
+    at least ``DIST_RANKS`` cards; with one card, gloo by name, the ranks
+    sharing it, every collective staged through host memory."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        if n < DIST_RANKS:
+            raise RuntimeError(f"{n} cards: the distributed step takes "
+                               f"{DIST_RANKS} (NCCL) or 1 (gloo)")
+        return "nccl", (f"transport: nccl, {DIST_RANKS} ranks on "
+                        f"{DIST_RANKS} cards")
+    return "gloo", (f"transport: gloo staged through host, {DIST_RANKS} "
+                    "ranks on 1 card")
+
+
+def distributed_step(torch, params, stress, life, report):
+    """Step 11: the port's distributed path. ``stress``: (the file
+    :func:`save_stress_state` wrote from a pipeline whose pool
+    :func:`fill_pool` filled, that pipeline's frame, the pool's spheres:
+    the stress frames render them, still, so that the slots track real
+    surfaces); ``life``:
+    (frames, masks, camera poses, object poses) of the object path's
+    first ``LIFE_FRAMES`` frames on one card. Runs :func:`dist_rank` on
+    ``DIST_RANKS`` ranks (:func:`dist_transport`), prints the frames'
+    ms, collectives and checks, and fails if a rank fails, a part of a
+    stress frame differs from the one-card run (bits; object poses 1e-4),
+    a sharded mesh differs from the whole volume's, the pixel-sharded LM
+    is more than 1e-4 from the one-rank LM or the ranks disagree, or the
+    lifecycle run loses an object, recovers outside 0.35-2.0, reaches 1
+    voxel of ATE or is off the one-card poses (camera 1e-5, objects
+    1e-4). Returns the ``fusion_slab`` row's launches (rank 0's slab
+    launches over the stress frames)."""
+    from emfusion_tpu_torch.distributed.mesh import launch, mesh_shape
+
+    path, f0, spheres = stress
+    rng = np.random.default_rng(f0)
+    scene = make_scene(params.height, params.width, params.fx)
+    stress_frames = [sensor_depth(scene.render(gt_pose(f0 + i), spheres)[0],
+                                  rng) for i in range(DIST_FRAMES)]
+    backend, line = dist_transport(torch)
+    print(line, flush=True)
+    frames, masks, ref_cam, ref_obj = life
+    spec = dict(params=params, state=path, stress_frames=stress_frames,
+                mesh_dir=os.path.join(DIST_WORK, "frame_meshes"),
+                life_frames=frames, life_masks=masks,
+                ref=(ref_cam, ref_obj))
+    res = launch("chip_smoke:dist_rank", DIST_RANKS, args=(spec,),
+                 device="cuda", backend=backend, timeout_s=DIST_TIMEOUT_S,
+                 rank0_output=True)
+    r0 = res[0]
+    st = r0["stress"]
+    per_frame = [f["ms"] for f in st["frames"]]
+    kinds = sorted({k for f in st["frames"] for k in f["comm"]})
+    comm_pf = {k: dict(
+        calls=float(np.mean([f["comm"].get(k, {}).get("calls", 0)
+                             for f in st["frames"]])),
+        mb=float(np.mean([f["comm"].get(k, {}).get("bytes", 0)
+                          for f in st["frames"]])) / 2**20,
+        ms=float(np.mean([f["comm"].get(k, {}).get("ms", 0.0)
+                          for f in st["frames"]]))) for k in kinds}
+    refresh = float(np.median(st["refresh_ms"]))
+    gbps = st["refresh_bytes"] / refresh / 1e6
+    lm = r0["lm"]
+    ar = lm["comm"].get("all_reduce", dict(calls=0, bytes=0, ms=0.0))
+    life_r = r0["life"]
+    report["distributed"] = dict(
+        backend=backend, ranks=DIST_RANKS, mesh=list(mesh_shape(DIST_RANKS)),
+        stress_frame_ms=per_frame,
+        stress_one_card_ms=[f["one_card_ms"] for f in st["frames"]],
+        stress_live_slots=[f["live"] for f in st["frames"]],
+        stress_export_ms=[f["export_ms"] for f in st["frames"]],
+        stress_diffs=[f["diffs"] for f in st["frames"]],
+        stress_meshes=[f["mesh"] for f in st["frames"]],
+        stress_launches=[f["launches"] for f in st["frames"]],
+        comm_per_frame=comm_pf, refresh_ms=st["refresh_ms"],
+        refresh_bytes=st["refresh_bytes"], refresh_gb_per_s=gbps,
+        lm=dict(iterations=lm["iterations"], ms=lm["ms"], points=lm["points"],
+                one_rank_iterations=lm["one_rank_iterations"],
+                reordered_iterations=lm["reordered_iterations"],
+                max_abs_diff=lm["max_abs_diff"],
+                one_rank_spread=lm["one_rank_spread"], all_reduce=ar),
+        peak_bytes=[r["peak"] for r in res],
+        life=dict(frames=len(frames), ms=life_r["ms"],
+                  ids=life_r["ids"][-1], slots=life_r["slots"],
+                  recovery=life_r["recovery"], ate=life_r["ate"],
+                  cam_max_abs=[r["life"]["cam_max_abs"] for r in res],
+                  obj_max_abs=[r["life"]["obj_max_abs"] for r in res]),
+        stress_s=r0["stress_s"], life_s=r0["life_s"])
+    print(f"distributed stress scene: {DIST_FRAMES} frames "
+          f"{params.width}x{params.height} into "
+          f"{params.globalVolumeDims[0]}^3, {params.max_objects} slots of "
+          f"{params.objVolumeDims[0]}^3 (live {report['distributed']['stress_live_slots']}) "
+          f"over a {mesh_shape(DIST_RANKS)} mesh: ms a frame (rank 0) "
+          + ", ".join(f"{m:.1f}" for m in per_frame)
+          + "; the one-card pipeline on rank 0's card " + ", ".join(
+              f"{f['one_card_ms']:.1f}" for f in st["frames"])
+          + "; mesh export ms " + ", ".join(
+              f"{f['export_ms']:.0f}" for f in st["frames"]), flush=True)
+    print("distributed collectives a frame (rank 0): " + "; ".join(
+        f"{k} {v['calls']:.1f} calls, {v['mb']:.2f} MB, {v['ms']:.2f} ms"
+        for k, v in comm_pf.items()), flush=True)
+    print(f"distributed read-copy refresh (z all-gather of the pair): "
+          f"{refresh:.3f} ms, {st['refresh_bytes'] / 2**20:.0f} MiB "
+          f"received a rank, {gbps:.2f} GB/s", flush=True)
+    print(f"distributed pixel-sharded LM over {lm['points']} points: "
+          f"{lm['iterations']} iterations (one rank: "
+          f"{lm['one_rank_iterations']}), {lm['ms']:.1f} ms, "
+          f"{ar['calls']} all-reduces "
+          f"({ar['calls'] / max(lm['iterations'], 1):.2f} an iteration, "
+          f"{1e3 * ar['ms'] / max(ar['calls'], 1):.1f} us each), pose max "
+          f"abs diff to the one-rank LM {lm['max_abs_diff']:.2e}; the "
+          f"one-rank LM on the points reordered (reversed, two shuffles): "
+          f"{lm['reordered_iterations']} iterations, up to "
+          f"{lm['one_rank_spread']:.2e} from the first; within 1e-5 of the "
+          f"one-rank LM: {lm['max_abs_diff'] <= 1e-5}", flush=True)
+    print("distributed peak memory per rank GiB: " + ", ".join(
+        f"{r['peak'] / 2**30:.3f}" for r in res), flush=True)
+    print(f"distributed lifecycle: {len(frames)} frames, live objects "
+          f"{life_r['ids'][-1]} in slots {life_r['slots']}, ms a frame "
+          f"{np.mean(life_r['ms'][1:]):.1f}, camera ATE "
+          f"{life_r['ate']['rmse'] * 1e3:.3f} mm, recovery " + ", ".join(
+              f"{o} {r['recovery']:.3f}"
+              for o, r in life_r["recovery"].items())
+          + f"; pose max abs diff to one card: camera "
+          f"{max(report['distributed']['life']['cam_max_abs']):.2e}, "
+          f"objects {max(report['distributed']['life']['obj_max_abs']):.2e}",
+          flush=True)
+    bad = [(i, k, v) for i, f in enumerate(st["frames"])
+           for k, v in f["diffs"].items()
+           if (v > 1e-4 if k == "obj_pose_max_abs"
+               else k != "obj_pose_bits" and v != 0)]
+    if bad:
+        raise RuntimeError(f"distributed stress scene differs from one "
+                           f"card: {bad}")
+    for i, f in enumerate(st["frames"]):
+        m = f["mesh"]
+        if not (m["same_vertex_set"] and m["tris"] == m["tris_whole"]
+                and m["valid_indices"] and m["verts"] > 0):
+            raise RuntimeError(f"distributed mesh of frame {i}: {m}")
+    if any(not np.array_equal(r["lm"]["pose"], lm["pose"]) for r in res):
+        raise RuntimeError("pixel-sharded LM: the ranks' poses differ")
+    # the ranks' partial sums are another order of the one-rank sum: the
+    # pose is held to 1e-4 (a wrong reduction moves it by the start's
+    # twist, ~4e-3); whether it is also within 1e-5 is reported beside
+    # the one-rank LM's own spread under reordered sums
+    if not lm["max_abs_diff"] <= LM_POSE_TOL:
+        raise RuntimeError(f"pixel-sharded LM: {lm['max_abs_diff']} from "
+                           f"the one-rank LM (limit {LM_POSE_TOL})")
+    for r in res[1:]:
+        if r["life"]["ids"] != life_r["ids"] or any(
+                not np.array_equal(r["life"]["poses"][f],
+                                   life_r["poses"][f])
+                for f in life_r["poses"]):
+            raise RuntimeError(f"rank {r['rank']}'s lifecycle differs from "
+                               "rank 0's")
+    rec = life_r["recovery"]
+    if len(rec) != len(MOVERS) or sorted(
+            r["mover"] for r in rec.values()) != list(range(len(MOVERS))):
+        raise RuntimeError(f"distributed lifecycle: object lost: {rec}")
+    if any(not 0.35 < r["recovery"] < 2.0 for r in rec.values()):
+        raise RuntimeError(f"distributed lifecycle: motion not recovered "
+                           f"{rec}")
+    if not life_r["ate"]["rmse"] < VOXEL_CUT:
+        raise RuntimeError(f"distributed lifecycle: ATE "
+                           f"{life_r['ate']['rmse']}")
+    if max(report["distributed"]["life"]["cam_max_abs"]) > 1e-5 or max(
+            report["distributed"]["life"]["obj_max_abs"]) > 1e-4:
+        raise RuntimeError("distributed lifecycle: poses off the one-card "
+                           "run's")
+    if not all(f["slab_launches"] >= 1 for f in st["frames"]):
+        raise RuntimeError("distributed stress scene: K1 never ran on a "
+                           "slab in a frame")
+    return sum(f["slab_launches"] for f in st["frames"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the depth noise")
+    ap.add_argument("--only", choices=["distributed"],
+                    help="run step 11 alone (with the object path's first "
+                         f"{LIFE_FRAMES} frames on one card as its "
+                         "reference)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2008,6 +2582,100 @@ def main() -> int:
     scene = make_scene(params.height, params.width, params.fx)
     rng = np.random.default_rng(args.seed)
     report["seed"] = args.seed
+    shutil.rmtree(DIST_WORK, ignore_errors=True)
+    os.makedirs(DIST_WORK)
+    stress_path = os.path.join(DIST_WORK, "stress_state.pt")
+    try:
+        if args.only == "distributed":
+            return only_distributed(torch, args, params, scene, rng, report,
+                                    stress_path, lap, card)
+        return whole_run(torch, args, params, scene, rng, report,
+                         stress_path, lap, card)
+    finally:
+        shutil.rmtree(DIST_WORK, ignore_errors=True)
+
+
+def life_reference(pipe, frames, masks):
+    """Step 11's lifecycle reference from a one-card object path run:
+    its first ``LIFE_FRAMES`` frames, their masks, camera poses and
+    object poses."""
+    n = LIFE_FRAMES
+    return (frames[:n], {f: m for f, m in masks.items() if f < n},
+            {f: q for f, q in pipe.poses.items() if f < n},
+            {o: {f: q for f, q in t.items() if f < n}
+             for o, t in pipe.obj_poses.items()})
+
+
+def table_row(name, src, replaces, r, launches):
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+           "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+           "library_ms": r["library_ms"]}
+    if "bound_all" in r:
+        row["bound_all_ms"] = r["bound_all"][0]
+    return row
+
+
+def finish(torch, report, rows, table, card, t0):
+    """Writes the report; fails if a kernel disagrees with its plain
+    version; prints the card, the kernels line and the last line."""
+    bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]]
+    report["kernel_rows"] = rows
+    report["kernels"] = table
+    report["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions: "
+                           f"{bad}")
+    print(card, flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def only_distributed(torch, args, params, scene, rng, report, stress_path,
+                     lap, card):
+    """``--only distributed``: the object path's first ``LIFE_FRAMES``
+    frames on one card (the lifecycle's reference), K1's slab form held
+    on that state, its pool filled (the stress state), then step 11."""
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    t0 = time.perf_counter()
+    frames, masks = object_scene(scene, params, LIFE_FRAMES, rng)
+    pipe = EMFusionPipeline(params, mask_provider(masks))
+    for i, depth in enumerate(frames):
+        pipe.process_frame(None, depth, timestamp=float(i))
+    life = life_reference(pipe, frames, masks)
+    f0 = pipe.frame
+    depth = sensor_depth(scene.render(gt_pose(f0), movers_at(f0))[0], rng)
+    rows = {"fusion_slab": hold_fusion_slab(torch, pipe, depth)}
+    print_row("fusion_slab", rows["fusion_slab"])
+    spheres = fill_pool(torch, pipe)
+    save_stress_state(torch, pipe, stress_path)
+    del pipe
+    torch.cuda.empty_cache()
+    lap("reference (one card)")
+    slab_launches = distributed_step(torch, params,
+                                     (stress_path, f0, spheres), life,
+                                     report)
+    lap("distributed")
+    table = [table_row(*SLAB_ROWS[0][:3], rows["fusion_slab"],
+                       slab_launches)]
+    return finish(torch, report, rows, table, card, t0)
+
+
+def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
+              card):
+    """Steps 1-11."""
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    t0 = time.perf_counter()
 
     # a fused volume for the kernel phases: three frames of the scene
     warm = EMFusionPipeline(params)
@@ -2049,16 +2717,22 @@ def main() -> int:
           flush=True)
     lap("main_path")
 
-    obj_launches, pipe = object_path(torch, params, scene, OBJ_FRAMES, rng,
-                                     report)
+    obj_launches, pipe, obj_frames, obj_masks = object_path(
+        torch, params, scene, OBJ_FRAMES, rng, report)
+    life = life_reference(pipe, obj_frames, obj_masks)
+    del obj_frames
     lap("object_path (frames)")
     more = [sensor_depth(scene.render(gt_pose(i), movers_at(i))[0], rng)
             for i in range(OBJ_FRAMES, OBJ_FRAMES + PROFILE_FRAMES + 1)]
     obj_rows = object_kernel_phases(torch, pipe, more[0])
+    obj_rows["fusion_slab"] = hold_fusion_slab(torch, pipe, more[0])
     lap("object_path (holds)")
     profile_frames(torch, pipe, more[1:], report, "object_profile")
     lap("object_path (profile)")
-    obj_rows.update(pool_kernel_phases(torch, pipe, more[0]))
+    pool_rows, spheres = pool_kernel_phases(torch, pipe, more[0])
+    obj_rows.update(pool_rows)
+    save_stress_state(torch, pipe, stress_path)
+    stress = (stress_path, pipe.frame, spheres)
     del pipe
     torch.cuda.empty_cache()
     for name, r in obj_rows.items():
@@ -2109,8 +2783,9 @@ def main() -> int:
     lap("viewer")
     small_reference(torch, np.random.default_rng(args.seed), report)
     lap("small_reference")
+    slab_launches = distributed_step(torch, params, stress, life, report)
+    lap("distributed")
 
-    bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]]
     row_launches = {name: (obj_launches if name in obj_rows
                            else launches)[kernel]
                     for name, _, _, kernel in (KERNEL_ROWS + OBJECT_ROWS
@@ -2126,37 +2801,14 @@ def main() -> int:
                         sample_bf16=bf_launches["all"]["sample"],
                         capture_camera_bf16=bf_launches["camera"],
                         raycast_bf16=bf_launches["background"]["raycast"],
-                        raycast_orbit=orbit_launches)
+                        raycast_orbit=orbit_launches,
+                        fusion_slab=slab_launches)
     report["cli_path_launches"] = cli_launches
-    table = []
-    for name, src, replaces, kernel in (KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS
-                                        + ACCEL_ROWS + BF16_ROWS
-                                        + VIEW_ROWS):
-        r = rows[name]
-        table.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": row_launches[name],
-            "max_abs_err": r["max_abs_err"], "tol": r["tol"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
-        if "bound_all" in r:
-            table[-1]["bound_all_ms"] = r["bound_all"][0]
-    report["kernel_rows"] = rows
-    report["kernels"] = table
-    report["seconds"] = time.perf_counter() - t0
-    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
-              "w") as f:
-        json.dump(report, f, indent=1, default=str)
-    if bad:
-        raise RuntimeError(f"kernels disagree with their plain versions: "
-                           f"{bad}")
-    print(card, flush=True)
-    print(json.dumps({"kernels": table}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    table = [table_row(name, src, replaces, rows[name], row_launches[name])
+             for name, src, replaces, kernel in (
+                 KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS + ACCEL_ROWS
+                 + BF16_ROWS + VIEW_ROWS + SLAB_ROWS)]
+    return finish(torch, report, rows, table, card, t0)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,16 @@ package's ``--platform``, and ``--profile DIR`` writing a
 ``torch.profiler`` trace. Without a card, ``--device cuda`` raises.
 Without ``--serve`` no frame renders for the viewer.
 
+``--nprocs N`` (default 1) runs the (obj, z) sharded pipeline
+(``distributed/``) on N ranks of this host: one card each under NCCL
+(cards 0..N-1), or N processes under gloo with ``--device cpu``. Under
+``torchrun`` (its ``WORLD_SIZE``/``RANK``/``MASTER_*`` variables) each
+process joins that group instead. Every rank reads the same sequence;
+rank 0 prints, writes the export tree and the checkpoints, and the tree
+is the one-card run's. (The JAX app builds its mesh whenever more than
+one device is visible; the port asks for the number of ranks.)
+``--serve`` and ``--turntable`` run on one rank only.
+
 The frame size comes from the data; where it differs from the config's,
 the intrinsics are scaled with it (``config.fit_frame_size``) before a
 ``calibration.txt`` beside the data overrides them. The per-phase report
@@ -78,6 +88,9 @@ def build_parser():
                     help="write --checkpoint every N frames")
     ap.add_argument("--resume", action="store_true",
                     help="resume from --checkpoint if it exists")
+    ap.add_argument("--nprocs", type=int, default=1,
+                    help="ranks of the sharded pipeline (NCCL, a card "
+                         "each; gloo with --device cpu)")
     return ap
 
 
@@ -88,6 +101,40 @@ def main(argv=None):
     if not args.tumdir and not args.dir_:
         print("error: need --tumdir or --dir", file=sys.stderr)
         return 2
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if (args.nprocs > 1 or world > 1) and (args.serve or args.turntable):
+        print("error: --serve and --turntable run on one rank",
+              file=sys.stderr)
+        return 2
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if world > 1:                     # under torchrun: join its group
+        from emfusion_tpu_torch.distributed.mesh import (
+            initialize_multihost, make_mesh,
+        )
+        initialize_multihost(backend=backend)
+        return _run(args, make_mesh(device=args.device, backend=backend))
+    if args.nprocs > 1:
+        from emfusion_tpu_torch.distributed.mesh import launch
+        launch("emfusion_tpu_torch.apps.run_emfusion:_rank_main", args.nprocs,
+               args=(list(sys.argv[1:] if argv is None else argv),),
+               device=args.device, backend=backend, timeout_s=None,
+               rank0_output=True)
+        return 0
+    return _run(args)
+
+
+def _rank_main(mesh, argv) -> int:
+    """One rank of ``--nprocs``."""
+    logging.basicConfig(level=logging.INFO if mesh.rank == 0
+                        else logging.WARNING,
+                        format="%(name)s: %(message)s")
+    return _run(build_parser().parse_args(argv), mesh)
+
+
+def _run(args, mesh=None) -> int:
+    """The run, on one card or as one rank of ``mesh``."""
+    say = print if mesh is None or mesh.rank == 0 else (
+        lambda *a, **k: None)
 
     from emfusion_tpu_torch.checkpoint import (
         load_checkpoint, save_checkpoint,
@@ -103,7 +150,7 @@ def main(argv=None):
     from emfusion_tpu_torch.profiling import PhaseTimer
     from emfusion_tpu_torch.segmentation import ReplayMaskProvider
 
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     params = Params()
     if args.config:
         params = load_config(args.config, params)
@@ -118,7 +165,7 @@ def main(argv=None):
     if probe is not None:
         dh, dw = probe.depth.shape[:2]
         if (dw, dh) != tuple(params.frameSize):
-            print(f"frameSize {tuple(params.frameSize)} -> dataset "
+            say(f"frameSize {tuple(params.frameSize)} -> dataset "
                   f"({dw}, {dh}), intrinsics scaled with it")
             params = fit_frame_size(params, dw, dh)
     if os.path.exists(calib):
@@ -126,14 +173,14 @@ def main(argv=None):
 
     provider = ReplayMaskProvider(args.maskdir) if args.maskdir else None
     pipe = EMFusionPipeline(params, provider, device=device,
-                            save_output=bool(args.exportdir))
+                            save_output=bool(args.exportdir), mesh=mesh)
     pipe.timer = PhaseTimer(device, mode="events")
 
     skip_until = 0
     if args.checkpoint and args.resume and os.path.exists(args.checkpoint):
         load_checkpoint(pipe, args.checkpoint)
         skip_until = pipe.frame
-        print(f"resumed from {args.checkpoint} at frame {skip_until}")
+        say(f"resumed from {args.checkpoint} at frame {skip_until}")
 
     viewer = None
     if args.serve:
@@ -167,7 +214,8 @@ def main(argv=None):
         if viewer is not None:
             viewer.publish()
         if args.exportdir:
-            pipe.outputs["renderings"][n] = pipe.render()
+            if pipe.is_writer:
+                pipe.outputs["renderings"][n] = pipe.render()
             if args.frame_meshes and pipe.frame % args.frame_meshes == 0:
                 write_frame_meshes(
                     pipe, os.path.join(args.exportdir, "frame_meshes"),
@@ -178,7 +226,7 @@ def main(argv=None):
             save_checkpoint(pipe, args.checkpoint)
         if n % 10 == 0:
             fps = n / (time.time() - t_start)
-            print(f"frame {n}/{reader.num_frames}  {fps:.2f} fps  "
+            say(f"frame {n}/{reader.num_frames}  {fps:.2f} fps  "
                   f"objects={pipe.active_object_ids}", flush=True)
         if args.frames and n >= args.frames:
             stop = True
@@ -203,19 +251,20 @@ def main(argv=None):
         if prof is not None:
             prof.__exit__(None, None, None)
             os.makedirs(args.profile, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.profile,
-                                                  "trace.json"))
+            prof.export_chrome_trace(os.path.join(
+                args.profile, "trace.json" if mesh is None
+                else f"trace.rank{mesh.rank}.json"))
 
     elapsed = time.time() - t_start
-    print(f"processed {n} frames in {elapsed:.1f}s "
+    say(f"processed {n} frames in {elapsed:.1f}s "
           f"({n / max(elapsed, 1e-9):.2f} fps)")
     if len(frame_times) >= 6:
         tail = frame_times[len(frame_times) // 2:]
         steady = statistics.median(tail)
-        print(f"steady-state: {steady * 1e3:.3f} ms/frame "
+        say(f"steady-state: {steady * 1e3:.3f} ms/frame "
               f"({1.0 / max(steady, 1e-9):.2f} fps, median of last "
               f"{len(tail)} frames)")
-    print(pipe.timer.summary(), file=sys.stderr)
+    say(pipe.timer.summary(), file=sys.stderr)
 
     if args.exportdir:
         write_results(pipe, args.exportdir,
@@ -226,7 +275,7 @@ def main(argv=None):
             os.makedirs(tt_dir, exist_ok=True)
             save_frames(render_turntable(pipe, n_views=args.turntable),
                         os.path.join(tt_dir, "view%03d.png"))
-        print(f"results written to {args.exportdir}")
+        say(f"results written to {args.exportdir}")
     return 0
 
 

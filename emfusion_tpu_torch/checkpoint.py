@@ -17,6 +17,12 @@ there: its object fusion stores ``compute_gradients`` of the fused
 volume, ``pipeline.py:779-782``, and its checkpoint loader recomputes the
 background's), and ignored on load.
 
+A pipeline on a mesh (``distributed/``) writes the one-card file: every
+rank calls :func:`save_checkpoint`, the slots' volumes are gathered from
+their owners, and rank 0 writes. :func:`load_checkpoint` runs on every
+rank, and each keeps its slab and slots, so a checkpoint of any of the
+three (JAX, one card, a mesh) loads into the others.
+
 Checkpoints hold float32 whatever the background's storage dtype (bf16
 has no portable ``.npz`` dtype, ``checkpoint.py:28-34`` of the JAX
 package), and a load casts back to the pipeline's ``vol_dtype``: bf16
@@ -32,6 +38,7 @@ import zipfile
 import numpy as np
 import torch
 
+from emfusion_tpu_torch.distributed.mesh import gather_pool
 from emfusion_tpu_torch.ops.fusion import compute_gradients
 from emfusion_tpu_torch.pipeline import ObjectMeta, state_from_numpy
 
@@ -46,8 +53,9 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def state_arrays(pipe) -> dict:
-    """The pipeline state as the JAX checkpoint's flat dict of arrays."""
-    s, o = pipe.state, pipe.state.objs
+    """The pipeline state as the JAX checkpoint's flat dict of arrays
+    (every rank of a mesh calls it: the pool is gathered)."""
+    s, o = pipe.state, gather_pool(pipe)
     out = {name: _np(getattr(s, name)) for name in _BG}
     out["bg_grads"] = _np(compute_gradients(s.bg_tsdf.float()))
     for name in _OBJ:
@@ -58,9 +66,12 @@ def state_arrays(pipe) -> dict:
 
 
 def save_checkpoint(pipe, path: str) -> None:
-    """Write the pipeline's whole state to ``path`` (.npz), atomically."""
+    """Write the pipeline's whole state to ``path`` (.npz), atomically
+    (rank 0 of a mesh writes; every rank calls this)."""
     pipe.flush()
     arrays = state_arrays(pipe)
+    if not pipe.is_writer:
+        return
     meta = {
         "frame": pipe.frame,
         "next_id": pipe._next_id,
@@ -111,7 +122,8 @@ def load_checkpoint(pipe, path: str) -> None:
                              f"{arrays[name].shape} vs {want} — params "
                              "differ")
     for name in _OBJ:
-        want = tuple(getattr(cur.objs, name).shape)
+        # the whole pool's shapes (a rank of a mesh holds its slots only)
+        want = (pipe.K,) + tuple(getattr(cur.objs, name).shape[1:])
         if tuple(arrays[f"objs.{name}"].shape) != want:
             raise ValueError(f"checkpoint shape mismatch for objs.{name}: "
                              f"{arrays[f'objs.{name}'].shape} vs {want}")

@@ -40,6 +40,13 @@
 // with the stored ones, so a voxel whose bf16 value does not move is not
 // written. A bf16 lane moves its 4 voxels as 8 bytes.
 //
+// Slabs: an item may be the planes [z0, z0 + Z) of a volume Zg planes deep
+// (the z-sharded background of emfusion_tpu_torch/distributed/, where each
+// rank fuses only its slab). Voxel centres are formed from the global
+// plane index z0 + z over the whole depth Zg, exactly as for the whole
+// volume, so a slab fuses bit for bit as the same planes of one
+// whole-volume launch; the row table covers the slab's rows only.
+//
 // Layout: a 1-D grid; each item's blocks are contiguous and a block finds
 // its item among the <= EMF_MAX_ITEMS block offsets of the table, which
 // is passed by value (__grid_constant__, read from the parameter bank).
@@ -61,7 +68,8 @@ struct EmfFuseItem {
   void* tsdf;          // (Z, Y, X) float or emf_bf16
   void* wts;
   const float* assoc;  // (H, W) association weights of this volume
-  int Z, Y, X;
+  int Z, Y, X;         // this item's planes (a z-slab: Z of them)
+  int z0, Zg;          // a slab's first global plane, the whole depth
   int vec;             // 1: 4 voxels a lane, 16-byte (bf16: 8-byte) accesses
   int bf16;            // 1: tsdf and wts are bf16
   EmfPose P;           // volume -> camera
@@ -142,7 +150,7 @@ __device__ __forceinline__ void emf_fuse(const EmfFuseTable& T,
   S* const tsdf = static_cast<S*>(it.tsdf);
   S* const wts = static_cast<S*>(it.wts);
   const float py = ((float)y - 0.5f * (float)(it.Y - 1)) * it.vs;
-  const float pz = ((float)z - 0.5f * (float)(it.Z - 1)) * it.vs;
+  const float pz = ((float)(z + it.z0) - 0.5f * (float)(it.Zg - 1)) * it.vs;
   int cls[V];
   float sdf[V], tmeas[V], aval[V];
   bool any = false;
@@ -243,7 +251,7 @@ __device__ __forceinline__ int emf_edges(const EmfFuseTable& T,
                                          int z) {
   const float px = ((float)x - 0.5f * (float)(it.X - 1)) * it.vs;
   const float py = ((float)y - 0.5f * (float)(it.Y - 1)) * it.vs;
-  const float pz = ((float)z - 0.5f * (float)(it.Z - 1)) * it.vs;
+  const float pz = ((float)(z + it.z0) - 0.5f * (float)(it.Zg - 1)) * it.vs;
   float ccx, ccy, ccz;
   emf_apply(it.P, px, py, pz, ccx, ccy, ccz);
   if (!(ccz > EMF_NEAR)) return 0;

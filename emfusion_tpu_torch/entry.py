@@ -10,7 +10,8 @@ and returns a new ``(state, seg)``, leaving ``state`` as it was, so
 calls with the same arguments give the same result. The state's pool
 holds one object, spawned on the seeding frame from a central mask. Like
 the other entry points it runs on the GPU unless ``device`` says
-otherwise.
+otherwise. :func:`dryrun_multichip` runs such a step on n ranks of the
+sharded pipeline.
 """
 
 from __future__ import annotations
@@ -78,6 +79,47 @@ def entry(device=None):
         return pipe.state, pipe.last_raycast["seg"]
 
     return fn, (pipe.state, depth)
+
+
+def dryrun_multichip(n: int, device=None) -> str:
+    """``__graft_entry__.dryrun_multichip`` of the JAX package: ``n`` ranks
+    (NCCL, a card each; gloo on the CPU with ``device="cpu"``) shard a
+    seeded tiny state over the (obj, z) mesh and run one frame step.
+    Returns (and prints) rank 0's line with the mesh's shape."""
+    from emfusion_tpu_torch.distributed.mesh import launch
+    line = launch("emfusion_tpu_torch.entry:_dryrun_rank", n,
+                  device=device)[0]
+    print(line)
+    return line
+
+
+def _dryrun_rank(mesh) -> str:
+    """One rank of :func:`dryrun_multichip`: the seeded one-card state
+    (:func:`entry`'s seeding frame, on this rank's device) loaded into a
+    sharded pipeline, one frame step."""
+    K = max(8, mesh.size)
+    params = tiny_params(max_objects=K)
+    H, W = params.height, params.width
+    mask = np.zeros((H, W), bool)
+    mask[H // 4:3 * H // 4, W // 4:3 * W // 4] = True
+
+    def detect(rgb, frame):
+        return [Detection(mask=mask, scores=make_score_vector(3, 0.9))]
+
+    seed = EMFusionPipeline(params, CallableMaskProvider(detect),
+                            device=mesh.device)
+    depth = example_depth(params)
+    seed.process_frame(None, depth)
+    pipe = EMFusionPipeline(params, CallableMaskProvider(detect), mesh=mesh)
+    pipe.load_state(seed.state, frame=seed.frame, meta=seed.meta,
+                    next_id=seed._next_id)
+    pipe.process_frame(None, depth)
+    no, nz = mesh.shape
+    return (f"dryrun_multichip({mesh.size}): OK - mesh {{'obj': {no}, "
+            f"'z': {nz}}}, {mesh.backend}, bg slab "
+            f"{pipe._z0}:{pipe._z1} of {params.globalVolumeDims[2]}, slots "
+            f"{pipe._s0}:{pipe._s1} of {K}, live objects "
+            f"{pipe.active_object_ids}")
 
 
 def copy_state(state: PipelineState) -> PipelineState:

@@ -227,20 +227,35 @@ def out_of_window_count(anchor, points_cam, rel_rot, rel_trans, voxel_size,
     return torch.sum(rel & ~_window_ok(lx, ly, lz), dim=-1)
 
 
-def drift_ok(anchor, points_cam, rel_rot, rel_trans, voxel_size, shape,
-             tol: float = 0.01) -> torch.Tensor:
-    """True (bool tensor, one per slot) iff at most ``tol`` of the
-    relevant points left their windows (``vl`` outside [0, WIN-2] on an
-    axis)."""
+DRIFT_TOL = 0.01
+
+
+def drift_counts(anchor, points_cam, rel_rot, rel_trans, voxel_size,
+                 shape):
+    """(relevant points that left their windows (``vl`` outside [0, WIN-2]
+    on an axis), relevant points), float32, one per slot."""
     (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
         anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
     rel = _relevant(vx, vy, vz, pz, shape)
     hi = WIN - 2.0
     bad = (lx < 0) | (lx > hi) | (ly < 0) | (ly > hi) \
         | (lz < 0) | (lz > hi)
-    nrel = torch.clamp(torch.sum(rel.to(torch.float32), dim=-1), min=1.0)
-    nbad = torch.sum((rel & bad).to(torch.float32), dim=-1)
-    return nbad <= tol * nrel
+    return (torch.sum((rel & bad).to(torch.float32), dim=-1),
+            torch.sum(rel.to(torch.float32), dim=-1))
+
+
+def drift_within(nbad, nrel, tol: float = DRIFT_TOL):
+    """The drift test on :func:`drift_counts`' (possibly summed) counts."""
+    return nbad <= tol * torch.clamp(nrel, min=1.0)
+
+
+def drift_ok(anchor, points_cam, rel_rot, rel_trans, voxel_size, shape,
+             tol: float = DRIFT_TOL) -> torch.Tensor:
+    """True (bool tensor, one per slot) iff at most ``tol`` of the
+    relevant points left their windows (``vl`` outside [0, WIN-2] on an
+    axis)."""
+    return drift_within(*drift_counts(anchor, points_cam, rel_rot,
+                                      rel_trans, voxel_size, shape), tol)
 
 
 def sample_value_from_cache(cache: torch.Tensor, anchor, points_cam,

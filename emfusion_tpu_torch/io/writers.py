@@ -13,6 +13,11 @@ byte those of the JAX writers for the same arrays:
   * the export directory tree (``README.md:303-321``), its images encoded
     by :mod:`emfusion_tpu_torch.io.codecs` (the JAX writer skips them
     when ``imageio`` is missing; this one writes them on any machine).
+
+A pipeline on a mesh (``distributed/``) writes the same files: every rank
+calls the writers, which gather what they need (the background mesh
+through ``extract_mesh_zsharded``, the slots' volumes from their owners),
+and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -25,7 +30,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from emfusion_tpu_torch.distributed.mesh import gather_pool
 from emfusion_tpu_torch.io.codecs import write_png
+from emfusion_tpu_torch.distributed.sharded_ops import (
+    extract_mesh_zsharded,
+)
 from emfusion_tpu_torch.ops.marching_cubes import (
     extract_mesh_sparse, extract_pool_meshes,
 )
@@ -158,13 +167,14 @@ def read_volume_bin(filename: str):
     return data, res, voxel
 
 
-def object_meshes(pipe) -> Dict[int, tuple]:
+def object_meshes(pipe, pool=None) -> Dict[int, tuple]:
     """Per live object id its mesh, the voxels with weight and a
     foreground probability above 0.5 (``io/writers.py:290-294``), all
-    slots in one pooled pass."""
-    o = pipe.state.objs
+    slots in one pooled pass (``pool``: the pipeline's whole pool, which
+    a rank of a mesh gathers; the others return {})."""
+    o = gather_pool(pipe) if pool is None else pool
     ids = pipe.active_object_ids
-    if not ids:
+    if not ids or not pipe.is_writer:
         return {}
     slots = [pipe._slot_of(oid) for oid in ids]
     sl = torch.tensor(slots, dtype=torch.long, device=o.tsdf.device)
@@ -175,21 +185,37 @@ def object_meshes(pipe) -> Dict[int, tuple]:
 
 
 def background_mesh(pipe):
-    """The background volume's mesh (voxels with weight), in bands."""
+    """The background volume's mesh (voxels with weight), in bands. On a
+    mesh the first ``obj`` row's ranks mesh their z-slabs
+    (``extract_mesh_zsharded``) and rank 0 gets the mesh; the others get
+    None."""
     s = pipe.state
-    return extract_mesh_sparse(s.bg_tsdf, s.bg_weights > 0,
-                               float(pipe.params.globalVoxelSize))
+    vs = float(pipe.params.globalVoxelSize)
+    mesh = pipe.mesh
+    if mesh is None:
+        return extract_mesh_sparse(s.bg_tsdf, s.bg_weights > 0, vs)
+    if mesh.coords[0] != 0:
+        return None
+    z0, z1 = pipe._z0, pipe._z1
+    return extract_mesh_zsharded(mesh.z, s.bg_tsdf[z0:z1],
+                                 s.bg_weights[z0:z1] > 0, vs, z0,
+                                 s.bg_tsdf.shape[0])
 
 
-def write_frame_meshes(pipe, path: str, frame: int) -> None:
+def write_frame_meshes(pipe, path: str, frame: int):
     """Per-frame mesh dumps (the reference's ``frame_meshes/`` tree,
     ``EMFusion.cpp:1263-1300``): ``mesh_bg_<frame>.ply`` and
-    ``mesh_<id>_<frame>.ply`` per live object."""
+    ``mesh_<id>_<frame>.ply`` per live object (rank 0 of a mesh writes
+    them; every rank calls this). Returns the meshes written, (background
+    mesh, {object id: mesh}), or None where nothing was written."""
+    bg, objs = background_mesh(pipe), object_meshes(pipe)
+    if not pipe.is_writer:
+        return None
     os.makedirs(path, exist_ok=True)
-    write_ply(os.path.join(path, f"mesh_bg_{frame:04d}.ply"),
-              *background_mesh(pipe))
-    for oid, mesh in object_meshes(pipe).items():
+    write_ply(os.path.join(path, f"mesh_bg_{frame:04d}.ply"), *bg)
+    for oid, mesh in objs.items():
         write_ply(os.path.join(path, f"mesh_{oid}_{frame:04d}.ply"), *mesh)
+    return bg, objs
 
 
 def _dump(path: str, sub: str, idx: int, im) -> None:
@@ -207,8 +233,12 @@ def write_results(pipe, path: str, export_volumes: bool = False) -> None:
     ``EMFusion.cpp:253-292`` and its writers ``:991-1313``): the pose
     files, the image dumps of ``pipe.outputs``, ``mesh_bg.ply`` and
     ``mesh_<id>.ply``, and with ``export_volumes`` the ``tsdfs/``
-    volumes."""
+    volumes. On a mesh every rank calls it and rank 0 writes."""
     pipe.flush()
+    pool = gather_pool(pipe)
+    bg_mesh, obj_meshes = background_mesh(pipe), object_meshes(pipe, pool)
+    if not pipe.is_writer:
+        return
     os.makedirs(path, exist_ok=True)
 
     stamps = getattr(pipe, "timestamps", None) or None
@@ -245,8 +275,8 @@ def write_results(pipe, path: str, export_volumes: bool = False) -> None:
             for oid, im in per_obj.items():
                 _dump(path, sub_fmt.format(oid=oid), idx, im)
 
-    write_ply(os.path.join(path, "mesh_bg.ply"), *background_mesh(pipe))
-    for oid, mesh in object_meshes(pipe).items():
+    write_ply(os.path.join(path, "mesh_bg.ply"), *bg_mesh)
+    for oid, mesh in obj_meshes.items():
         write_ply(os.path.join(path, f"mesh_{oid}.ply"), *mesh)
 
     if export_volumes:
@@ -256,7 +286,7 @@ def write_results(pipe, path: str, export_volumes: bool = False) -> None:
         Z, Y, X = bg.shape
         write_volume_bin(os.path.join(tdir, "bg_tsdf.bin"), bg, (X, Y, Z),
                          pipe.params.globalVoxelSize)
-        o = pipe.state.objs
+        o = pool
         for oid in pipe.active_object_ids:
             k = pipe._slot_of(oid)
             vol = o.tsdf[k].cpu().numpy()

@@ -74,7 +74,8 @@ KERNELS = {
 class FuseArgs(ctypes.Structure):
     """One volume of a K1 launch (``EmfFuseItem`` in ``csrc/fusion.cu``)."""
     _fields_ = [("tsdf", _P), ("wts", _P), ("assoc", _P), ("Z", _I),
-                ("Y", _I), ("X", _I), ("vec", _I), ("bf16", _I),
+                ("Y", _I), ("X", _I), ("z0", _I), ("Zg", _I), ("vec", _I),
+                ("bf16", _I),
                 ("pose", _F * 12),
                 ("vs", _F), ("trunc", _F), ("max_w", _F),
                 ("carve_dist", _F), ("has_cap", _I), ("has_margin", _I),

@@ -45,7 +45,12 @@ class FusionItem:
     ``weights`` (updated in place), its (H, W) association image, the
     volume-to-camera rotation and translation, voxel size, truncation
     distance, weight cap and carve rules (see
-    :func:`integrate_tsdf_plain`; None switches a rule off)."""
+    :func:`integrate_tsdf_plain`; None switches a rule off). A z-slab of a
+    volume (``tsdf`` and ``weights`` its planes ``[z0, z0 + Z_slab)``)
+    gives the slab's first global plane ``z0`` and the whole volume's
+    depth ``Z`` (None: the tensor's own), so that its voxel centres are
+    those of the whole volume: the slab fuses bit for bit as the same
+    planes of the whole volume do."""
     tsdf: torch.Tensor
     weights: torch.Tensor
     assoc: torch.Tensor
@@ -57,6 +62,13 @@ class FusionItem:
     carve_dist: Optional[float] = None
     carve_weight_cap: Optional[float] = None
     carve_margin: Optional[float] = None
+    z0: int = 0
+    Z: Optional[int] = None
+
+    @property
+    def depth_Z(self) -> int:
+        """The whole volume's depth, of which this item may be a slab."""
+        return self.tsdf.shape[0] if self.Z is None else int(self.Z)
 
 
 def _carve_flags(truncdist, carve_dist, carve_weight_cap, carve_margin,
@@ -99,11 +111,14 @@ def _axis(n: int, vs: torch.Tensor) -> torch.Tensor:
 
 
 def _chunks(shape, depth, rel_rot_oc, rel_trans_oc, intr, voxel_size,
-            like):
+            like, slab_z0: int = 0, full_Z=None):
     """Per z-chunk of a (Z, Y, X) volume: ``(z0, z1, terms)``, ``terms``
     the voxels' projection, the depth at their pixel, ``valid`` and the
-    sdf (the part of K1 that every voxel computes)."""
+    sdf (the part of K1 that every voxel computes). The volume may be the
+    planes ``[slab_z0, slab_z0 + Z)`` of one ``full_Z`` planes deep: its
+    centres are then that volume's (chunk bounds stay slab-local)."""
     Z, Y, X = shape
+    full_Z = Z if full_Z is None else full_Z
     H, W = depth.shape
     dev = like.device
     fx, fy, cx, cy = intrinsics(intr)
@@ -116,8 +131,8 @@ def _chunks(shape, depth, rel_rot_oc, rel_trans_oc, intr, voxel_size,
     step = max(1, _PLAIN_CHUNK_VOXELS // (Y * X))
     for z0 in range(0, Z, step):
         z1 = min(Z, z0 + step)
-        zs = (torch.arange(z0, z1, dtype=torch.float32, device=dev)
-              - (Z - 1) / 2.0) * vs
+        zs = (torch.arange(slab_z0 + z0, slab_z0 + z1, dtype=torch.float32,
+                           device=dev) - (full_Z - 1) / 2.0) * vs
         ccx, ccy, ccz, in_front, pix_x, pix_y, in_frame, pix = \
             _project_voxels(R, t, xs, ys, zs, intr, H, W)
         depth_val = dflat[pix]
@@ -132,7 +147,8 @@ def _chunks(shape, depth, rel_rot_oc, rel_trans_oc, intr, voxel_size,
 
 
 def voxel_classes(shape, depth: torch.Tensor, rel_rot_oc, rel_trans_oc,
-                  intr, voxel_size, truncdist) -> torch.Tensor:
+                  intr, voxel_size, truncdist, z0: int = 0,
+                  Z=None) -> torch.Tensor:
     """K1's class of each voxel of a (Z, Y, X) volume for this frame, as
     int8: ``SKIP`` in front of the camera and outside the image, or on a
     pixel whose depth is NaN (no rule can change it); ``BEHIND`` behind
@@ -140,17 +156,18 @@ def voxel_classes(shape, depth: torch.Tensor, rel_rot_oc, rel_trans_oc,
     where the weight is 0); ``NEG`` more than ``truncdist`` behind the
     surface (only the -1 rule, where the weight is 0); ``BAND`` the rest,
     which takes the full update. The kernel loads a voxel's weight unless
-    it is ``SKIP``, and its tsdf for ``BAND`` or where the weight is 0."""
+    it is ``SKIP``, and its tsdf for ``BAND`` or where the weight is 0.
+    ``z0``/``Z``: a slab's first plane and the whole depth (FusionItem)."""
     out = torch.empty(tuple(shape), dtype=torch.int8, device=depth.device)
     td = scalar(truncdist, depth)
-    for z0, z1, c in _chunks(shape, depth, rel_rot_oc, rel_trans_oc, intr,
-                             voxel_size, depth):
+    for zc0, zc1, c in _chunks(shape, depth, rel_rot_oc, rel_trans_oc, intr,
+                               voxel_size, depth, z0, Z):
         cls = torch.where(c["in_front"], SKIP, BEHIND)
         cls = torch.where(c["in_front"] & c["in_frame"]
                           & (c["depth_val"] <= 0.0), HOLE, cls)
         cls = torch.where(c["valid"] & (c["sdf"] < -td), NEG, cls)
         cls = torch.where(c["valid"] & (c["sdf"] >= -td), BAND, cls)
-        out[z0:z1] = cls.to(torch.int8)
+        out[zc0:zc1] = cls.to(torch.int8)
     return out
 
 
@@ -158,7 +175,8 @@ def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
                          depth: torch.Tensor, assoc_weights: torch.Tensor,
                          rel_rot_oc, rel_trans_oc, intr, voxel_size,
                          truncdist, max_weight: float, carve_dist=None,
-                         carve_weight_cap=None, carve_margin=None):
+                         carve_weight_cap=None, carve_margin=None,
+                         z0: int = 0, Z=None):
     """Plain PyTorch version of K1, ``kernel_updateTSDF`` semantics
     (``TSDF.cu:327-427``), in place, a z-chunk at a time:
 
@@ -172,18 +190,19 @@ def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
       average is clamped to it, only where ``tsdf_meas - tsdf`` exceeds
       ``carve_margin`` when that is given (see the JAX docstring).
 
-    A bf16 pair is read as float32 and rounded once at the store.
+    A bf16 pair is read as float32 and rounded once at the store. ``z0``
+    and ``Z``: a slab's first plane and the whole depth (FusionItem).
     """
     td = scalar(truncdist, tsdf)
     carve, has_cap, cap, has_margin, margin = _carve_flags(
         truncdist, carve_dist, carve_weight_cap, carve_margin, tsdf.dtype)
     aflat = assoc_weights.reshape(-1)
-    for z0, z1, c in _chunks(tsdf.shape, depth, rel_rot_oc, rel_trans_oc,
-                             intr, voxel_size, tsdf):
+    for zc0, zc1, c in _chunks(tsdf.shape, depth, rel_rot_oc, rel_trans_oc,
+                               intr, voxel_size, tsdf, z0, Z):
         valid, sdf = c["valid"], c["sdf"]
         assoc_val = aflat[c["pix"]]
-        t_old = tsdf[z0:z1].to(torch.float32)
-        w_old = weights[z0:z1].to(torch.float32)
+        t_old = tsdf[zc0:zc1].to(torch.float32)
+        w_old = weights[zc0:zc1].to(torch.float32)
         in_band = valid & (sdf >= -td)
         tsdf_meas = torch.sign(sdf) * torch.clamp(torch.abs(sdf) / td,
                                                   max=1.0)
@@ -207,8 +226,8 @@ def integrate_tsdf_plain(tsdf: torch.Tensor, weights: torch.Tensor,
         reset = unseen & ((c["in_frame"] & c["in_front"]
                            & (c["depth_val"] <= 0.0)) | ~c["in_front"])
         t_out = torch.where(reset, 0.0, t_out)
-        tsdf[z0:z1] = t_out        # rounds to nearest even into bf16
-        weights[z0:z1] = w_out
+        tsdf[zc0:zc1] = t_out      # rounds to nearest even into bf16
+        weights[zc0:zc1] = w_out
     return tsdf, weights
 
 
@@ -227,7 +246,8 @@ def integrate_tsdf_batched(items: Sequence[FusionItem],
             integrate_tsdf_plain(it.tsdf, it.weights, depth, it.assoc,
                                  it.rot, it.trans, intr, it.voxel_size,
                                  it.truncdist, it.max_weight, it.carve_dist,
-                                 it.carve_weight_cap, it.carve_margin)
+                                 it.carve_weight_cap, it.carve_margin,
+                                 it.z0, it.Z)
         return
     H, W = depth.shape
     kernels.check_cuda("integrate_tsdf", depth)
@@ -246,6 +266,9 @@ def integrate_tsdf_batched(items: Sequence[FusionItem],
             raise ValueError("integrate_tsdf: (Z, Y, X) volumes of one "
                              "shape and an (H, W) association image")
         Z, Y, X = it.tsdf.shape
+        if not 0 <= it.z0 <= it.depth_Z - Z:
+            raise ValueError(f"integrate_tsdf: slab [{it.z0}, {it.z0 + Z}) "
+                             f"outside a volume of {it.depth_Z} planes")
         align = 4 * it.tsdf.element_size()     # 4 voxels a lane
         vec = X % 4 == 0 and it.tsdf.data_ptr() % align == 0 \
             and it.weights.data_ptr() % align == 0
@@ -254,7 +277,7 @@ def integrate_tsdf_batched(items: Sequence[FusionItem],
             it.carve_margin, it.tsdf.dtype)
         table.append(kernels.FuseArgs(
             it.tsdf.data_ptr(), it.weights.data_ptr(), it.assoc.data_ptr(),
-            Z, Y, X, int(vec), dt, kernels.pose_array(it.rot, it.trans),
+            Z, Y, X, it.z0, it.depth_Z, int(vec), dt, kernels.pose_array(it.rot, it.trans),
             float(it.voxel_size),
             float(it.truncdist), float(it.max_weight), carve, int(has_cap),
             int(has_margin), cap, margin))

@@ -86,8 +86,11 @@ def _normalize(v):
     return v / torch.where(n > 0, n, torch.ones_like(n))
 
 
-def _band(tsdf, mask, voxel_size, z0: int, z1: int, tabs):
-    """The cubes of layers [z0, z1) of (B, Z, Y, X) volumes: returns
+def _band(tsdf, mask, voxel_size, z0: int, z1: int, tabs, zg0: int = 0,
+          Zg=None):
+    """The cubes of layers [z0, z1) of (B, Z, Y, X) volumes, which are the
+    planes ``[zg0, zg0 + Z)`` of volumes ``Zg`` planes deep (default: the
+    whole volumes), so vertices sit where the whole volume's would: returns
     (vertices (V, 3), normals (V, 3), triangles (T, 3) indexing the band's
     vertices, per-volume vertex and triangle counts (B,)), vertices and
     triangles ordered by volume, then cube (z-major), then edge."""
@@ -117,8 +120,8 @@ def _band(tsdf, mask, voxel_size, z0: int, z1: int, tabs):
                 torch.zeros(B, dtype=torch.int64, device=dev),
                 torch.zeros(B, dtype=torch.int64, device=dev))
     xf, yf = x.to(torch.float32), y.to(torch.float32)
-    zf = (z + z0).to(torch.float32)
-    z_origin = -(Z - 1) / 2.0 * vs
+    zf = (z + z0 + zg0).to(torch.float32)
+    z_origin = -((Z if Zg is None else Zg) - 1) / 2.0 * vs
     corners = CORNER_OFFSETS.tolist()
     val = torch.stack([t[b, z + dz, y + dy, x + dx]
                        for dx, dy, dz in corners])                # (8, M)
@@ -149,16 +152,19 @@ def _band(tsdf, mask, voxel_size, z0: int, z1: int, tabs):
     return verts, norms, tris, nv_b, nt_b
 
 
-def _mesh(tsdf, mask, voxel_size, z_band: int) -> List[Mesh]:
+def _mesh(tsdf, mask, voxel_size, z_band: int, zg0: int = 0, Zg=None,
+          layers=None) -> List[Mesh]:
     """Meshes of (B, Z, Y, X) volumes in bands of ``z_band`` cube layers;
-    one numpy triple per volume, triangles indexing its own vertices."""
+    one numpy triple per volume, triangles indexing its own vertices.
+    ``zg0``/``Zg``/``layers``: see :func:`extract_mesh_slab`."""
     tsdf = tsdf.to(torch.float32)
     B, Z, Y, X = tsdf.shape
+    layers = max(Z - 1, 0) if layers is None else layers
     tabs = _tables(tsdf.device)
     parts = [[] for _ in range(B)]
-    for z0 in range(0, max(Z - 1, 0), z_band):
+    for z0 in range(0, layers, z_band):
         v, n, t, nv, nt = _band(tsdf, mask, voxel_size, z0,
-                                min(z0 + z_band, Z - 1), tabs)
+                                min(z0 + z_band, layers), tabs, zg0, Zg)
         v, n, t = v.cpu().numpy(), n.cpu().numpy(), t.cpu().numpy()
         nv, nt = nv.cpu().numpy(), nt.cpu().numpy()
         ov = np.concatenate([[0], np.cumsum(nv)])
@@ -197,6 +203,24 @@ def extract_mesh_sparse(tsdf: torch.Tensor, mask: torch.Tensor, voxel_size,
     mesh; working memory bounded by the band)."""
     vs = torch.as_tensor([float(voxel_size)], dtype=torch.float32)
     return _mesh(tsdf[None], mask[None], vs, z_band)[0]
+
+
+def extract_mesh_slab(tsdf: torch.Tensor, mask: torch.Tensor, voxel_size,
+                      z0: int, Z: int, layers: int,
+                      z_band: int = 32) -> Mesh:
+    """The cubes of the first ``layers`` layers of a z-slab: ``tsdf`` and
+    ``mask`` hold the planes ``[z0, z0 + n)`` of a (Z, Y, X) volume, with
+    ``n >= layers + 2`` where the slab ends before the volume's last plane
+    (the corners' next plane, and the one after it for their z
+    gradient). The vertices are those of :func:`extract_mesh` of the whole
+    volume for those cubes, bit for bit, at their global positions; the
+    triangles index the slab's own vertices."""
+    n = tsdf.shape[0]
+    if layers > n - 1 or (z0 + n < Z and layers > n - 2):
+        raise ValueError(f"extract_mesh_slab: {n} planes at z0={z0} of "
+                         f"{Z} cannot mesh {layers} cube layers")
+    vs = torch.as_tensor([float(voxel_size)], dtype=torch.float32)
+    return _mesh(tsdf[None], mask[None], vs, z_band, z0, Z, layers)[0]
 
 
 def extract_pool_meshes(tsdf_pool: torch.Tensor, mask_pool: torch.Tensor,

@@ -53,6 +53,18 @@ the host as float32 / bool tensors, so no step waits for the device to
 report a pose. The device is read once per frame for the raycast's
 visibility and association counts (:func:`frame_summary`), and on mask
 frames for the lifecycle's masks, IoUs and percentiles.
+
+With a ``mesh`` of more than one rank (:mod:`~emfusion_tpu_torch.
+distributed.mesh`), the pipeline is one rank of an SPMD program that
+gives the one-card frames, poses and volumes: it holds the volumes of its
+block of slots and fuses only its z-slab of the background, whose whole
+pair it keeps as a read copy, refreshed by an all-gather after each
+fusion. Every rank preprocesses, runs the camera LM and the background
+raycast and the host lifecycle on replicated inputs; the E-step samples,
+object LMs, object raycasts and fusion of a slot run on its owner, whose
+results (weight images, poses, raycast partials, percentiles) are
+gathered or broadcast over the ``obj`` group in slot order, so every
+rank holds the one-card images bit for bit.
 """
 
 from __future__ import annotations
@@ -68,6 +80,11 @@ import torch
 from emfusion_tpu_torch import segmentation as seg_mod
 from emfusion_tpu_torch.config import Params, resolve_params
 from emfusion_tpu_torch.device import resolve_device
+from emfusion_tpu_torch.distributed import comm
+from emfusion_tpu_torch.distributed.mesh import shard_state
+from emfusion_tpu_torch.distributed.sharded_ops import (
+    integrate_tsdf_zsharded,
+)
 from emfusion_tpu_torch.geometry.camera import (
     backproject_depth, preprocess_depth,
 )
@@ -145,13 +162,16 @@ def _translate(t: np.ndarray) -> np.ndarray:
     return m
 
 
-def empty_pool(K: int, res: int, H: int, W: int, device) -> ObjectPool:
-    """K inactive slots of res^3 volumes (``pipeline.py:227-239``)."""
+def empty_pool(K: int, res: int, H: int, W: int, device,
+               held: Optional[int] = None) -> ObjectPool:
+    """K inactive slots of res^3 volumes (``pipeline.py:227-239``); on a
+    rank of a mesh, the volumes of the ``held`` slots it holds only."""
     f32 = torch.float32
+    n = K if held is None else held
     return ObjectPool(
-        tsdf=torch.zeros((K, res, res, res), dtype=f32, device=device),
-        weights=torch.zeros((K, res, res, res), dtype=f32, device=device),
-        fg_counts=torch.zeros((K, 2, res, res, res), dtype=f32,
+        tsdf=torch.zeros((n, res, res, res), dtype=f32, device=device),
+        weights=torch.zeros((n, res, res, res), dtype=f32, device=device),
+        fg_counts=torch.zeros((n, 2, res, res, res), dtype=f32,
                               device=device),
         assoc=torch.zeros((K, H, W), dtype=f32, device=device),
         pose=torch.eye(4, dtype=f32).repeat(K, 1, 1),
@@ -205,48 +225,69 @@ def state_from_numpy(arrays: Dict, device=None,
 # ----------------------------------------------------------------------
 # device functions of the frame step and the lifecycle
 # ----------------------------------------------------------------------
+def nearest_object(obj_rcs: List[dict], slots: List[int],
+                   active: torch.Tensor, H: int, W: int, dev,
+                   n_slots: Optional[int] = None, s0: int = 0) -> dict:
+    """The nearest object surface per pixel among the raycasts ``obj_rcs``
+    of the pool slots ``slots`` (``pipeline.py:616-650``): ``ray`` (H, W)
+    its raylength (``inf`` where no slot hits), ``best`` its slot
+    (int64; 0 where none), ``vertices`` and ``normals`` (3, H, W) (0 where
+    none) and ``obj_masks`` (n, H, W), the hits of the ``n_slots`` slots
+    from ``s0`` on (default: all K). Among equal raylengths the lowest
+    slot wins, ``torch.min``'s first index. ``active`` (K,)."""
+    K = active.shape[0]
+    n = K if n_slots is None else n_slots
+    obj_masks = torch.zeros((n, H, W), dtype=torch.bool, device=dev)
+    if not slots:
+        zeros3 = torch.zeros((3, H, W), dtype=torch.float32, device=dev)
+        return dict(ray=torch.full((H, W), torch.inf, device=dev),
+                    best=torch.zeros((H, W), dtype=torch.int64, device=dev),
+                    vertices=zeros3, normals=zeros3.clone(),
+                    obj_masks=obj_masks)
+    act = active.to(dev)
+    sl = torch.tensor(slots, dtype=torch.long, device=dev)
+    hit = torch.stack([r["mask"] for r in obj_rcs]) & act[sl][:, None, None]
+    ray = torch.where(hit, torch.stack([r["raylengths"]
+                                        for r in obj_rcs]), torch.inf)
+    min_ray, best = torch.min(ray, dim=0)
+    any_obj = torch.isfinite(min_ray)
+
+    def take_best(key):
+        stack = torch.stack([r[key] for r in obj_rcs])        # (n, 3, H, W)
+        idx = best[None, None].expand(1, 3, H, W)
+        return torch.gather(stack, 0, idx)[0]
+
+    obj_masks[sl - s0] = hit
+    return dict(ray=min_ray, best=sl[best],
+                vertices=torch.where(any_obj[None], take_best("vertices"),
+                                     0.0),
+                normals=torch.where(any_obj[None], take_best("normals"),
+                                    0.0),
+                obj_masks=obj_masks)
+
+
 def composite_raycasts(bg_rc: dict, obj_rcs: List[dict], slots: List[int],
                        object_id: torch.Tensor, active: torch.Tensor,
-                       boundary: int) -> dict:
+                       boundary: int, near: Optional[dict] = None) -> dict:
     """The compositing half of ``EMFusion::raycast`` (``EMFusion.cpp:
     726-795``, ``pipeline.py:616-674``): the nearest object surface per
-    pixel among the raycasts ``obj_rcs`` of the pool slots ``slots``, the
-    background where it is more than 5 cm nearer (``:773-776``), the
-    segmentation by object id, and per slot its pixel count inside the
-    frame eroded by ``boundary``. ``object_id``/``active`` (K,) for all
-    slots. Pixels that no object hits have all-``inf`` raylengths; they
-    are gated on ``any_obj``, never on ``argmin``'s index."""
+    pixel among the raycasts ``obj_rcs`` of the pool slots ``slots``
+    (:func:`nearest_object`, or ``near`` where given), the background
+    where it is more than 5 cm nearer (``:773-776``), the segmentation by
+    object id, and per slot its pixel count inside the frame eroded by
+    ``boundary``. ``object_id``/``active`` (K,) for all slots. Pixels that
+    no object hits have all-``inf`` raylengths; they are gated on
+    ``any_obj``, never on ``argmin``'s index."""
     dev = bg_rc["mask"].device
     H, W = bg_rc["mask"].shape
-    K = object_id.shape[0]
     ids = object_id.to(dev)
-    act = active.to(dev)
-    obj_masks = torch.zeros((K, H, W), dtype=torch.bool, device=dev)
-    if slots:
-        sl = torch.tensor(slots, dtype=torch.long, device=dev)
-        hit = torch.stack([r["mask"] for r in obj_rcs]) \
-            & act[sl][:, None, None]
-        ray = torch.where(hit, torch.stack([r["raylengths"]
-                                            for r in obj_rcs]), torch.inf)
-        min_ray, best = torch.min(ray, dim=0)
-        any_obj = torch.isfinite(min_ray)
-
-        def take_best(key):
-            stack = torch.stack([r[key] for r in obj_rcs])    # (n, 3, H, W)
-            idx = best[None, None].expand(1, 3, H, W)
-            return torch.gather(stack, 0, idx)[0]
-
-        comp_ray = torch.where(any_obj, min_ray, 0.0)
-        comp_verts = torch.where(any_obj[None], take_best("vertices"), 0.0)
-        comp_norms = torch.where(any_obj[None], take_best("normals"), 0.0)
-        seg = torch.where(any_obj, ids[sl][best], 0)
-        obj_masks[sl] = hit
-    else:
-        any_obj = torch.zeros((H, W), dtype=torch.bool, device=dev)
-        comp_ray = torch.zeros((H, W), dtype=torch.float32, device=dev)
-        comp_verts = torch.zeros((3, H, W), dtype=torch.float32, device=dev)
-        comp_norms = torch.zeros_like(comp_verts)
-        seg = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    if near is None:
+        near = nearest_object(obj_rcs, slots, active, H, W, dev)
+    any_obj = torch.isfinite(near["ray"])
+    comp_ray = torch.where(any_obj, near["ray"], 0.0)
+    comp_verts, comp_norms = near["vertices"], near["normals"]
+    obj_masks = near["obj_masks"]
+    seg = torch.where(any_obj, ids[near["best"]], 0)
 
     take_bg = bg_rc["mask"] & any_obj \
         & (comp_ray - bg_rc["raylengths"] > 0.05)
@@ -422,13 +463,19 @@ class EMFusionPipeline:
     def __init__(self, params: Params,
                  mask_provider: Optional[seg_mod.MaskProvider] = None,
                  device=None, sampler: Optional[str] = None,
-                 save_output: bool = False):
+                 save_output: bool = False, mesh=None):
         """``sampler``: the LM sampler of the camera and the serial object
         LMs; None reads ``EMF_TRACK_SAMPLER``, default ``auto``, as the
         JAX pipeline does (``pipeline.py:147-155``), and
         :func:`~emfusion_tpu_torch.config.resolve_params` resolves it
         with the other knobs. ``save_output`` keeps the per-
-        frame images of the export tree in :attr:`outputs`."""
+        frame images of the export tree in :attr:`outputs` (on rank 0 of
+        a mesh). ``mesh``: this rank's
+        :class:`~emfusion_tpu_torch.distributed.mesh.Mesh` (its device is
+        the pipeline's); one of a single rank is no mesh."""
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.params = params
         self.mask_provider = mask_provider
@@ -443,6 +490,12 @@ class EMFusionPipeline:
         self.frame = 0
         self.H, self.W = params.height, params.width
         self.K = params.max_objects
+        # the slots whose volumes this rank holds, and its background slab
+        self._s0, self._s1 = (0, self.K) if self.mesh is None \
+            else self.mesh.slots(self.K)
+        Zbg = params.globalVolumeDims[2]
+        self._z0, self._z1 = (0, Zbg) if self.mesh is None \
+            else self.mesh.slab(Zbg)
         self.obj_res = params.objVolumeDims[0]
         self.intr = torch.as_tensor(params.intr)
         tp = params.tsdfParams
@@ -502,7 +555,33 @@ class EMFusionPipeline:
                                 device=self.device),   # EMFusion.cpp:55
             cam_pose=torch.eye(4, dtype=torch.float32),
             objs=empty_pool(self.K, self.obj_res, self.H, self.W,
-                            self.device))
+                            self.device, self._s1 - self._s0))
+
+    def _owns(self, k: int) -> bool:
+        """Whether this rank holds slot ``k``'s volumes."""
+        return self._s0 <= k < self._s1
+
+    def _lv(self, k: int) -> int:
+        """Slot ``k``'s row in this rank's volume tensors."""
+        return k - self._s0
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes files and prints (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """A (K, ...) tensor of per-slot rows, this rank's own rows filled:
+        every rank's rows, in place, over the ``obj`` group."""
+        if self.mesh is not None:
+            comm.all_gather_into(self.mesh.obj, t, t[self._s0:self._s1])
+        return t
+
+    def _from_owner(self, k: int, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as slot ``k``'s owner computed it, on every rank."""
+        if self.mesh is not None:
+            comm.broadcast(self.mesh.obj, t, self.mesh.owner(k, self.K))
+        return t
 
     def load_state(self, state: PipelineState, frame: int,
                    meta: Optional[Dict[int, ObjectMeta]] = None,
@@ -519,7 +598,9 @@ class EMFusionPipeline:
         state.bg_weights = state.bg_weights.to(self.vol_dtype).contiguous()
         if state.objs is None:
             state.objs = empty_pool(self.K, self.obj_res, self.H, self.W,
-                                    self.device)
+                                    self.device, self._s1 - self._s0)
+        elif self.mesh is not None:
+            state = shard_state(state, self.mesh, self.K)
         self.state = state
         self.frame = int(frame)
         self._last_raycast = None
@@ -595,21 +676,27 @@ class EMFusionPipeline:
         pixel grid, then each is repeated s x s times and cropped to
         (H, W). With ``fg_out``, also returns per slot its sampled
         foreground probability as an (H, W) image (0 at the points it did
-        not evaluate), the JAX E-step's ``fg_out``."""
+        not evaluate), the JAX E-step's ``fg_out``. On a mesh each rank
+        samples its own slots, and their images are gathered."""
         tp = self.params.tsdfParams
         s, o = self.state, self.state.objs
-        items, culls = self.estep_items(points, slots)
+        own = [k for k in slots if self._owns(k)]
+        items, culls = self.estep_items(points, own)
         grid = tuple(items[0].points.shape[1:])
         samples = sample_items(items)
         bg_w = weights_from_samples(samples[0][0], self.trunc,
                                     tp.assocSigma, tp.alpha, tp.uniPrior)
-        obj_w = torch.zeros((self.K,) + grid, dtype=torch.float32,
-                            device=self.device)
-        fg_imgs = {}
-        for k, (psi, fg), cull in zip(slots, samples[1:], culls):
-            obj_w[k] = self._object_weights(k, psi, fg, cull, grid)
+        # per slot its weight image (and its fg image), gathered at once
+        per_slot = torch.zeros((self.K, 1 + fg_out) + grid,
+                               dtype=torch.float32, device=self.device)
+        for k, (psi, fg), cull in zip(own, samples[1:], culls):
+            per_slot[k, 0] = self._object_weights(k, psi, fg, cull, grid)
             if fg_out:
-                fg_imgs[k] = self._upsample(self._uncull(fg, cull, grid))
+                per_slot[k, 1] = self._uncull(fg, cull, grid)
+        self._gather_slots(per_slot)
+        obj_w = per_slot[:, 0]
+        fg_imgs = {k: self._upsample(per_slot[k, 1]) for k in slots} \
+            if fg_out else {}
         bg_n, obj_n = normalize_associations(bg_w, obj_w,
                                              o.active.to(self.device))
         s.bg_assoc, o.assoc = self._upsample(bg_n), self._upsample(obj_n)
@@ -656,9 +743,10 @@ class EMFusionPipeline:
         if 0 < self.params.estep_obj_subset < points[0].numel():
             ptsf, idx, inside = self.culled_points(k, points)
             pts, cull = ptsf[:, idx], (idx, inside)
-        return SampleItem(o.tsdf[k], pts, rel[:3, :3], rel[:3, 3],
+        lk = self._lv(k)
+        return SampleItem(o.tsdf[lk], pts, rel[:3, :3], rel[:3, 3],
                           float(o.voxel_size[k]),
-                          counts=o.fg_counts[k]), cull
+                          counts=o.fg_counts[lk]), cull
 
     def _object_weights(self, k: int, psi: torch.Tensor, fg: torch.Tensor,
                         cull, grid) -> torch.Tensor:
@@ -740,29 +828,67 @@ class EMFusionPipeline:
         slot's camera-to-object transform, then ``pose = cam_pose rel^-1``
         (``ObjTSDF::syncTrack``). Serially (``pipeline.py:494-551``): for
         each slot in turn, over all tracking points with the slot's
-        association image; or batched (:meth:`_track_objects_batched`)."""
+        association image; or batched (:meth:`_track_objects_batched`).
+        On a mesh each rank tracks its own slots (:meth:`_gather_tracks`
+        shares the results)."""
         s, o = self.state, self.state.objs
         self.last_obj_track_stats = {}
         self.last_obj_track_weights = {}
         self.last_batched_lm = None
+        own = [k for k in slots if self._owns(k)]
         if self.object_lm == "batched":
-            self._track_objects_batched(points, slots)
-            return
-        grid = self._track_grid()
+            if own:
+                self._track_objects_batched(points, own)
+        else:
+            grid = self._track_grid()
+            for k in own:
+                lk = self._lv(k)
+                pts, asc = self._track_points(points, o.assoc[k])
+                rel_init = reorthonormalize(self._rel_obj(k))
+                rel, stats = track_volume(o.tsdf[lk], o.weights[lk],
+                                          float(o.voxel_size[k]), pts, asc,
+                                          rel_init, self.track_cfg)
+                o.pose[k] = s.cam_pose @ pose_inverse(rel)
+                oid = int(o.object_id[k])
+                self.last_obj_track_stats[oid] = {
+                    key: v for key, v in stats.items()
+                    if not torch.is_tensor(v)}
+                self.last_obj_track_weights[oid] = (
+                    stats["track_weights"].reshape(grid),
+                    stats["huber_weights"].reshape(grid))
+        if self.mesh is not None:
+            self._gather_tracks(slots)
+
+    _STAT_KEYS = ("iterations", "converged", "recaptures", "dropped_points")
+
+    def _gather_tracks(self, slots: List[int]) -> None:
+        """The object LMs' results of every rank on every rank: the poses
+        and LM counts of the slots, and (with ``save_output``) their weight
+        images, each slot's from its owner."""
+        o = self.state.objs
+        self._gather_slots(o.pose)
+        st = torch.zeros((self.K, len(self._STAT_KEYS)), dtype=torch.float64)
         for k in slots:
-            pts, asc = self._track_points(points, o.assoc[k])
-            rel_init = reorthonormalize(self._rel_obj(k))
-            rel, stats = track_volume(o.tsdf[k], o.weights[k],
-                                      float(o.voxel_size[k]), pts, asc,
-                                      rel_init, self.track_cfg)
-            o.pose[k] = s.cam_pose @ pose_inverse(rel)
-            oid = int(o.object_id[k])
-            self.last_obj_track_stats[oid] = {
-                key: v for key, v in stats.items()
-                if not torch.is_tensor(v)}
-            self.last_obj_track_weights[oid] = (
-                stats["track_weights"].reshape(grid),
-                stats["huber_weights"].reshape(grid))
+            mine = self.last_obj_track_stats.get(int(o.object_id[k]))
+            if self._owns(k) and mine is not None:
+                st[k] = torch.tensor([float(mine[key])
+                                      for key in self._STAT_KEYS])
+        self._gather_slots(st)
+        for k in slots:
+            self.last_obj_track_stats[int(o.object_id[k])] = {
+                key: (bool(v) if key == "converged" else int(v))
+                for key, v in zip(self._STAT_KEYS, st[k].tolist())}
+        if not self.save_output:
+            return
+        imgs = torch.zeros((self.K, 2) + self._track_grid(),
+                           dtype=torch.float32, device=self.device)
+        for k in slots:
+            w = self.last_obj_track_weights.get(int(o.object_id[k]))
+            if self._owns(k) and w is not None:
+                imgs[k, 0], imgs[k, 1] = w
+        self._gather_slots(imgs)
+        self.last_obj_track_weights = {
+            int(o.object_id[k]): (imgs[k, 0], imgs[k, 1]) for k in slots}
 
     def _track_grid(self):
         """(rows, columns) of the tracking points' stride grid."""
@@ -821,7 +947,8 @@ class EMFusionPipeline:
         pts = pts_full[:, idx].permute(1, 0, 2).contiguous()   # (S, 3, M)
         rel_init = reorthonormalize(pose_inverse(o.pose[slots])
                                     @ s.cam_pose)
-        return ([o.tsdf[j] for j in slots], [o.weights[j] for j in slots],
+        return ([o.tsdf[self._lv(j)] for j in slots],
+                [o.weights[self._lv(j)] for j in slots],
                 o.voxel_size[slots], pts, torch.gather(asc_all, 1, idx),
                 rel_init, idx, asc_all)
 
@@ -830,7 +957,11 @@ class EMFusionPipeline:
         and each slot of ``slots`` (its weights masked to its foreground),
         composited (:func:`composite_raycasts`), from the state's camera
         or from the camera-to-world ``cam_pose`` (a host (4, 4) float32
-        tensor: the viewers' virtual cameras)."""
+        tensor: the viewers' virtual cameras). On a mesh every rank casts
+        the background from its read copy and its own slots; the nearest
+        object surface of each rank is gathered and combined in rank
+        order (:meth:`_gather_nearest`), the composite then computed on
+        every rank."""
         p = self.params
         s, o = self.state, self.state.objs
         rel = self._rel_bg(cam_pose)
@@ -838,37 +969,82 @@ class EMFusionPipeline:
                                rel[:3, 3], self.intr, self.voxel, self.trunc,
                                self.H, self.W,
                                max_steps=p.raycast_max_steps)
+        own = [k for k in slots if self._owns(k)]
         obj_rcs = []
-        for k in slots:
+        for k in own:
             rk = self._rel_obj(k, cam_pose)
+            lk = self._lv(k)
             obj_rcs.append(raycast_object(
-                o.tsdf[k], o.weights[k], o.fg_counts[k], rk[:3, :3],
+                o.tsdf[lk], o.weights[lk], o.fg_counts[lk], rk[:3, :3],
                 rk[:3, 3], self.intr, float(o.voxel_size[k]),
                 float(o.truncdist[k]), self.H, self.W, p.raycast_max_steps))
+        near = None
+        if self.mesh is not None:
+            near = self._gather_nearest(nearest_object(
+                obj_rcs, own, o.active, self.H, self.W, self.device,
+                self._s1 - self._s0, self._s0))
         return composite_raycasts(bg_rc, obj_rcs, slots, o.object_id,
-                                  o.active, p.boundary)
+                                  o.active, p.boundary, near)
+
+    def _gather_nearest(self, mine: dict) -> dict:
+        """The nearest object surface over every rank's slots from each
+        rank's over its own (:func:`nearest_object`): the ranks' partials
+        gathered over ``obj`` and the nearest taken, the lowest rank (so
+        the lowest slot) among equal raylengths, as the one-card
+        ``torch.min`` over all slots takes it; the hit masks of every
+        slot gathered in slot order."""
+        n = self.mesh.shape[0]
+        H, W = self.H, self.W
+        part = torch.cat([mine["ray"][None], mine["best"][None].to(
+            torch.float32), mine["vertices"], mine["normals"]])  # (8, H, W)
+        allp = torch.empty((n,) + tuple(part.shape), dtype=torch.float32,
+                           device=self.device)
+        comm.all_gather_into(self.mesh.obj, allp, part[None])
+        ray, r = torch.min(allp[:, 0], dim=0)
+        pick = torch.gather(allp, 0, r[None, None].expand(1, 8, H, W))[0]
+        masks = torch.empty((self.K, H, W), dtype=torch.bool,
+                            device=self.device)
+        comm.all_gather_into(self.mesh.obj, masks, mine["obj_masks"])
+        return dict(ray=ray, best=pick[1].to(torch.int64),
+                    vertices=pick[2:5], normals=pick[5:8], obj_masks=masks)
 
     def integrate(self, depth: torch.Tensor) -> None:
         """integrateDepth (``EMFusion.cpp:865-889``): the background, with
         its carve rules (``Params.bg_carve_*``), and each active object
         the raycast saw (``pipeline.py:774-792``), in place, in one K1
-        launch (:meth:`fusion_items`)."""
-        integrate_tsdf_batched(self.fusion_items(), depth, self.intr)
+        launch (:meth:`fusion_items`). On a mesh the rank fuses its
+        background slab and its slots (``distributed.sharded_ops.
+        integrate_tsdf_zsharded``), then its ``z`` group all-gathers the
+        slabs into every rank's read copy, in place."""
+        if self.mesh is None:
+            integrate_tsdf_batched(self.fusion_items(), depth, self.intr)
+            return
+        integrate_tsdf_zsharded(self.fusion_items(), depth, self.intr)
+        s, (z0, z1) = self.state, (self._z0, self._z1)
+        for vol in (s.bg_tsdf, s.bg_weights):
+            comm.all_gather_into(self.mesh.z, vol, vol[z0:z1])
 
     def fusion_items(self) -> List[FusionItem]:
-        """The fusion's K1 work table: the background, then each active
-        object the raycast saw. Another slot is not in it, so its volume
-        is untouched."""
+        """The fusion's K1 work table: the background (this rank's slab of
+        it on a mesh), then each active object the raycast saw (of this
+        rank's slots). Another slot is not in it, so its volume is
+        untouched."""
         s, o = self.state, self.state.objs
         max_w = self.params.tsdfParams.maxTSDFWeight
         cam_inv = pose_inverse(s.cam_pose)
         rel_oc = cam_inv @ s.bg_pose
-        items = [FusionItem(s.bg_tsdf, s.bg_weights, s.bg_assoc,
-                            rel_oc[:3, :3], rel_oc[:3, 3], self.voxel,
-                            self.trunc, max_w, *self.carve_args())]
+        z0, z1 = self._z0, self._z1
+        items = [FusionItem(s.bg_tsdf[z0:z1], s.bg_weights[z0:z1],
+                            s.bg_assoc, rel_oc[:3, :3], rel_oc[:3, 3],
+                            self.voxel, self.trunc, max_w,
+                            *self.carve_args(), z0=z0,
+                            Z=s.bg_tsdf.shape[0])]
         for k in np.nonzero((o.active & o.visible).numpy())[0]:
+            if not self._owns(k):
+                continue
             rk = cam_inv @ o.pose[k]
-            items.append(FusionItem(o.tsdf[k], o.weights[k], o.assoc[k],
+            lk = self._lv(k)
+            items.append(FusionItem(o.tsdf[lk], o.weights[lk], o.assoc[k],
                                     rk[:3, :3], rk[:3, 3],
                                     float(o.voxel_size[k]),
                                     float(o.truncdist[k]), max_w))
@@ -894,11 +1070,12 @@ class EMFusionPipeline:
         """integrateMasks (``EMFusion.cpp:891-906``,
         ``pipeline.py:1574-1597``): each matched active object counts its
         segmentation mask as fg/bg evidence, except where another model
-        occludes its own raycast mask."""
+        occludes its own raycast mask. On a mesh, by each slot's owner."""
         s, o = self.state, self.state.objs
         for k in range(self.K):
             oid = int(self._h_ids[k])
-            if not self._h_active[k] or oid not in matches:
+            if not self._h_active[k] or oid not in matches \
+                    or not self._owns(k):
                 continue
             mask = torch.as_tensor(matches[oid]).to(self.device)
             if rc is None:
@@ -906,8 +1083,9 @@ class EMFusionPipeline:
             else:
                 occl = rc["obj_masks"][k] & (rc["seg"] != oid)
             rk = pose_inverse(s.cam_pose) @ o.pose[k]
-            o.fg_counts[k] = integrate_fg_mask(
-                o.tsdf[k], o.weights[k], o.fg_counts[k], mask, occl,
+            lk = self._lv(k)
+            o.fg_counts[lk] = integrate_fg_mask(
+                o.tsdf[lk], o.weights[lk], o.fg_counts[lk], mask, occl,
                 rk[:3, :3], rk[:3, 3], self.intr, float(o.voxel_size[k]))
 
     # ------------------------------------------------------------------
@@ -978,7 +1156,10 @@ class EMFusionPipeline:
         (``pipeline.py:1098-1150``): the association images before the
         camera LM and after the last E-step, the LMs' track and Huber
         weights on the stride grid, and the objects' sampled foreground
-        probabilities, each object's keyed by its id."""
+        probabilities, each object's keyed by its id (rank 0 of a mesh
+        keeps them)."""
+        if not self.is_writer:
+            return
         out, f = self.outputs, self.frame
         o = self.state.objs
         live = [int(k) for k in np.nonzero(self._h_active)[0]]
@@ -1072,7 +1253,7 @@ class EMFusionPipeline:
         dets = seg_mod.filter_detections(dets, p.FILTER_CLASSES,
                                          p.STATIC_OBJECTS,
                                          min_pixels=p.mask_min_pixels)
-        if self.save_output:
+        if self.save_output and self.is_writer:
             self.outputs["masks"][self.frame] = [d.mask for d in dets]
             self.outputs["mask_vis"][self.frame] = visualize_detections(
                 rgb, dets)                       # MaskRCNN::visualize
@@ -1201,9 +1382,11 @@ class EMFusionPipeline:
 
         new_id = self._next_id
         self._next_id += 1
-        o.tsdf[slot] = 0.0
-        o.weights[slot] = 0.0
-        o.fg_counts[slot] = 0.0
+        if self._owns(slot):
+            ls = self._lv(slot)
+            o.tsdf[ls] = 0.0
+            o.weights[ls] = 0.0
+            o.fg_counts[ls] = 0.0
         o.assoc[slot] = 1.0                  # createObj: assoc = 1
         o.pose[slot] = torch.from_numpy(pose)
         o.voxel_size[slot] = voxel
@@ -1235,14 +1418,19 @@ class EMFusionPipeline:
         if valid.sum() == 0:
             return np.zeros(3, np.float32)
         o = self.state.objs
-        T = np.linalg.inv(o.pose[slot].numpy())
-        pts_o = (pts_w @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
         dev = self.device
-        p10, p90, _ = surface_and_new_percentiles(
-            o.tsdf[slot], o.weights[slot], o.fg_counts[slot],
-            o.voxel_size[slot].to(dev), torch.as_tensor(pts_o).to(dev),
-            torch.as_tensor(valid).to(dev))
-        return self._resize_obj(slot, p10.cpu().numpy(), p90.cpu().numpy())
+        p = torch.zeros(6, dtype=torch.float32, device=dev)
+        if self._owns(slot):
+            T = np.linalg.inv(o.pose[slot].numpy())
+            pts_o = (pts_w @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+            ls = self._lv(slot)
+            p10, p90, _ = surface_and_new_percentiles(
+                o.tsdf[ls], o.weights[ls], o.fg_counts[ls],
+                o.voxel_size[slot].to(dev), torch.as_tensor(pts_o).to(dev),
+                torch.as_tensor(valid).to(dev))
+            p = torch.cat([p10, p90])
+        p = self._from_owner(slot, p).cpu().numpy()
+        return self._resize_obj(slot, p[:3], p[3:])
 
     def _resize_obj(self, slot, p10, p90) -> np.ndarray:
         """Recentre / rescale (``pipeline.py:1529-1571``, replacing
@@ -1268,13 +1456,15 @@ class EMFusionPipeline:
         new_voxel = new_res * voxel / self.obj_res
         pose = o.pose[slot].numpy() @ _translate(new_center)
 
-        t2, w2, f2 = resample_slot(
-            o.tsdf[slot], o.weights[slot], o.fg_counts[slot],
-            np.float32(voxel), np.float32(new_voxel),
-            torch.as_tensor(new_center))
-        o.tsdf[slot] = t2
-        o.weights[slot] = w2
-        o.fg_counts[slot] = f2
+        if self._owns(slot):
+            ls = self._lv(slot)
+            t2, w2, f2 = resample_slot(
+                o.tsdf[ls], o.weights[ls], o.fg_counts[ls],
+                np.float32(voxel), np.float32(new_voxel),
+                torch.as_tensor(new_center))
+            o.tsdf[ls] = t2
+            o.weights[ls] = w2
+            o.fg_counts[ls] = f2
         o.pose[slot] = torch.from_numpy(pose)
         o.voxel_size[slot] = new_voxel
         self._obj_poses.setdefault(int(o.object_id[slot]), {})[

@@ -41,6 +41,15 @@ LM semantics as ``tracking.py:16-23`` of the JAX package:
     ``mu *= max(1/3, 1-(2 rho-1)^3)`` on accept, ``mu *= nu; nu *= nu_init``
     and reuse of the gradient on reject.
 
+With a ``group`` (:mod:`~emfusion_tpu_torch.distributed.comm`), each rank
+of it holds its block of the tracking points and :func:`track_volume` is
+the pixel-sharded LM of the JAX package's ``test_pixel_sharded_gn_
+tracking_matches`` (``reduceAb``, ``TSDF.cpp:375-389``): the weight
+maximum is an all-reduce MAX, the 43 floats of (A, b, err) an all-reduce
+SUM before the host reads them, and every trial error (with the capture
+sampler's drift flag) an all-reduce SUM too, so every rank takes the same
+decisions and ends on the same pose bits.
+
 :func:`track_volumes_batched` runs the same LM for S object slots at once,
 against caches that stay fixed within each of its two stages (one K3
 launch for all slots before each stage), whatever ``sampler`` says, as in
@@ -55,8 +64,10 @@ import dataclasses
 
 import torch
 
+from emfusion_tpu_torch.distributed import comm
 from emfusion_tpu_torch.geometry.capture import (
-    capture_neighborhoods, capture_neighborhoods_batched, drift_ok,
+    capture_neighborhoods, capture_neighborhoods_batched, drift_counts,
+    drift_within,
     out_of_window_count, sample_system_from_cache, sample_value_from_cache,
 )
 from emfusion_tpu_torch.geometry.sampling import (
@@ -100,8 +111,9 @@ class _Sampler:
     """What a track call's sampler reads: the volumes, the points, and the
     poses moved to the points' device."""
 
-    def __init__(self, tsdf, weights, voxel_size, points, cfg):
+    def __init__(self, tsdf, weights, voxel_size, points, cfg, group=None):
         self.tsdf, self.weights = tsdf, weights
+        self.group = group
         self.vs = voxel_size
         self.points = points
         self.shape = tuple(tsdf.shape)
@@ -111,6 +123,11 @@ class _Sampler:
 
     def dev_pose(self, R, t):
         return R.to(self.dev), t.to(self.dev)
+
+    def reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the group's ranks (itself without one)."""
+        return t if self.group is None else comm.all_reduce(self.group, t,
+                                                            op)
 
 
 class _Gather(_Sampler):
@@ -130,7 +147,7 @@ class _Gather(_Sampler):
         Rd, td = self.dev_pose(R, t)
         psi = sample_volume_at_points_plain(self.tsdf, self.points, Rd, td,
                                             self.vs, margin=1)
-        return torch.sum(w * psi * psi).cpu()
+        return self.reduce(torch.sum(w * psi * psi)[None]).cpu()[0]
 
     def dropped(self, Rd, td) -> int:
         return 0
@@ -163,14 +180,16 @@ class _Window(_Sampler):
         Rd, td = self.dev_pose(R, t)
         err = self.error(w, Rd, td)
         if self.recaps >= self.cfg.max_recaptures:
-            return err.cpu()
-        ok = drift_ok(self.anchor, self.points, Rd, td, self.vs, self.shape)
-        host = torch.stack([err, ok.to(err.dtype)]).cpu()
-        if bool(host[1]):
+            return self.reduce(err[None]).cpu()[0]
+        nbad, nrel = drift_counts(self.anchor, self.points, Rd, td, self.vs,
+                                  self.shape)
+        # the error and the drift counts in one read (and one reduction)
+        host = self.reduce(torch.stack([err, nbad, nrel])).cpu()
+        if bool(drift_within(host[1], host[2])):
             return host[0]
         self.capture(Rd, td)
         self.recaps += 1
-        return self.error(w, Rd, td).cpu()
+        return self.reduce(self.error(w, Rd, td)[None]).cpu()[0]
 
     def error(self, w, Rd, td):
         psi = sample_value_from_cache(self.cache[0:1], self.anchor,
@@ -181,14 +200,17 @@ class _Window(_Sampler):
     def dropped(self, Rd, td) -> int:
         """Relevant points outside their windows at the final pose: they
         contributed nothing since the last capture."""
-        return int(out_of_window_count(self.anchor, self.points, Rd, td,
-                                       self.vs, self.shape))
+        n = out_of_window_count(self.anchor, self.points, Rd, td, self.vs,
+                                self.shape)
+        return int(self.reduce(n.reshape(1).to(torch.int64))[0])
 
 
 def track_volume(tsdf: torch.Tensor, weights: torch.Tensor, voxel_size,
                  points: torch.Tensor, assoc: torch.Tensor,
-                 rel_pose_co: torch.Tensor, cfg: TrackConfig):
-    """Run the LM loop for one volume with ``cfg``'s sampler.
+                 rel_pose_co: torch.Tensor, cfg: TrackConfig, group=None):
+    """Run the LM loop for one volume with ``cfg``'s sampler; with a
+    ``group``, over this rank's block of the points (the pixel-sharded LM
+    of the module's docstring).
 
     Args:
       tsdf/weights: (Z, Y, X) float32 on the compute device.
@@ -208,9 +230,9 @@ def track_volume(tsdf: torch.Tensor, weights: torch.Tensor, voxel_size,
     rel_pose_co = torch.as_tensor(rel_pose_co, dtype=f32).cpu()
     R, t = rel_pose_co[:3, :3].clone(), rel_pose_co[:3, 3].clone()
     if cfg.sampler == "gather":
-        win = _Gather(tsdf, weights, voxel_size, points, cfg)
+        win = _Gather(tsdf, weights, voxel_size, points, cfg, group)
     else:
-        win = _Window(tsdf, weights, voxel_size, points, cfg)
+        win = _Window(tsdf, weights, voxel_size, points, cfg, group)
         win.capture(*win.dev_pose(R, t))
 
     def eval_system(R, t):
@@ -226,14 +248,14 @@ def track_volume(tsdf: torch.Tensor, weights: torch.Tensor, voxel_size,
             torch.clamp(cfg.huber_thresh / torch.clamp(abs_psi, min=1e-30),
                         max=1.0), 0.0)
         intw = torch.clamp(intw, max=cfg.max_tsdf_weight)
-        wmax = torch.max(intw)
+        wmax = win.reduce(torch.max(intw)[None], "max")[0]
         intw = torch.where(wmax > 0, intw / wmax, 0.0)
         w = huber * intw * assoc
         Jw = J * w[None, :]
         A = Jw @ J.T
         b = Jw @ psi
         err = torch.sum(w * psi * psi)
-        host = torch.cat([A.reshape(-1), b, err[None]]).cpu()
+        host = win.reduce(torch.cat([A.reshape(-1), b, err[None]])).cpu()
         return w, huber, host[:36].reshape(6, 6), host[36:42], host[42]
 
     mu = torch.tensor(0.0, dtype=f32)

@@ -7,7 +7,10 @@ over work tables of 1 to 18 volumes of mixed shapes, the batched
 object LM on the card against the same call on the CPU, and the bf16
 forms: K1 and K2 over a bf16 volume beside float32 ones in one table,
 K3's bf16 cache, K4 on a bf16 pair at the camera and from an orbit
-camera outside the volume, and the wrappers refusing other dtypes.
+camera outside the volume, and the wrappers refusing other dtypes; K1's
+slab form (the z-sharded background) against the plain slab and the
+whole-volume launch, and the sharded pipeline on two ranks under NCCL
+against the one-card pipeline (skips with fewer than two cards).
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -788,3 +791,84 @@ def test_kernels_refuse_other_dtypes(cuda, scene):
         sampling.sample_volume_at_points(t.double(), scene["pts"].to(cuda),
                                          T[:3, :3], T[:3, 3], VOXEL)
     assert kernels.launches == before
+
+
+@pytest.mark.parametrize("cuts", [(0, 18, 37), (0, 5, 21, 37), (0, 36, 37)])
+def test_slab_fusion_kernel(cuda, scene, cuts):
+    """K1's slab form (the z-sharded background): the 37-plane volume cut
+    into z-slabs at ``cuts`` (ragged, one of a single plane), each fused
+    alone in its own launch as a rank of a mesh fuses its slab, is bit
+    for bit the plain version of the slab and the same planes of one
+    whole-volume launch; float32 and bf16, 4-voxel lanes and single."""
+    T = np.linalg.inv(cam_to_vol(2))
+    R, tr = torch.tensor(T[:3, :3]), torch.tensor(T[:3, 3])
+    Z = SHAPE[0]
+    depth = scene["depth"].to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        t0 = scene["tsdf"].to(cuda, dtype)
+        w0 = scene["wts"].to(cuda, dtype)
+        for vec in (True, False):
+            whole = FusionItem(t0.clone(), w0.clone(), torch.ones(
+                H, W, device=cuda), R, tr, VOXEL, TRUNC, 64.0, 0.8 * TRUNC,
+                0.0, 0.25)
+            if vec:                # X = 48: 4 voxels a lane (51: one)
+                whole = dataclasses.replace(
+                    whole, tsdf=whole.tsdf[..., :48].contiguous(),
+                    weights=whole.weights[..., :48].contiguous())
+            base = copy_vol(whole)
+            launched("fusion", lambda: fusion.integrate_tsdf_batched(
+                [whole], depth, scene["intr"]))
+            for z0, z1 in zip(cuts[:-1], cuts[1:]):
+                slab = dataclasses.replace(
+                    base, tsdf=base.tsdf[z0:z1].clone(),
+                    weights=base.weights[z0:z1].clone(), z0=z0, Z=Z)
+                plain = copy_vol(slab)
+                launched("fusion", lambda: fusion.integrate_tsdf_batched(
+                    [slab], depth, scene["intr"]))
+                fusion.integrate_tsdf_plain(
+                    plain.tsdf, plain.weights, depth, plain.assoc,
+                    R.to(cuda), tr.to(cuda), scene["intr"], VOXEL, TRUNC,
+                    64.0, 0.8 * TRUNC, 0.0, 0.25, z0=z0, Z=Z)
+                for a in (plain, dataclasses.replace(
+                        whole, tsdf=whole.tsdf[z0:z1],
+                        weights=whole.weights[z0:z1])):
+                    assert torch.equal(slab.tsdf, a.tsdf)
+                    assert torch.equal(slab.weights, a.weights)
+
+
+def copy_vol(item):
+    return dataclasses.replace(item, tsdf=item.tsdf.clone(),
+                               weights=item.weights.clone())
+
+
+def test_slab_outside_volume_refused(cuda, scene):
+    t = scene["tsdf"].to(cuda)
+    item = FusionItem(t[:10].clone(), t[:10].clone(),
+                      torch.ones(H, W, device=cuda), torch.eye(3),
+                      torch.zeros(3), VOXEL, TRUNC, 64.0, z0=30, Z=SHAPE[0])
+    with pytest.raises(ValueError):
+        fusion.integrate_tsdf_batched([item], scene["depth"].to(cuda),
+                                      scene["intr"])
+
+
+def test_sharded_pipeline_nccl(cuda):
+    """Two ranks under NCCL, one card each (skips with fewer cards): the
+    background-only frames of ``tests/test_distributed.py``'s
+    ``TestShardedPipeline`` and the 16-object stress state, sharded over a
+    (1, 2) mesh, against the one-card pipeline: E-step images, composite,
+    poses, volumes and the sharded meshes bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (NCCL takes one rank a card)")
+    import torch_dist_workers as W
+    from emfusion_tpu_torch.distributed.mesh import launch
+    P = dict(W.SHARDED_PIPELINE, max_objects=16, visibilityThresh=16,
+             boundary=2)
+    frames = W.wave_frames(4)
+    st = W.stress_state(P, frames[0], z=1.0)
+    res = launch("torch_dist_workers:pipeline_rank", 2,
+                 args=(P, frames[1:], None, st, 1, True), device="cuda",
+                 timeout_s=600)
+    ref = W.run_frames(W.make_pipeline(P, device=cuda, state=st),
+                       frames[1:], 1, True)
+    W.assert_same_records(res[0]["recs"], ref)
+    assert len(ref[-1]["ids"]) > 8
