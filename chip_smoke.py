@@ -14,16 +14,25 @@
    raycast's march (steps per ray, lane use of 32-ray warps, shares of
    zero-corner and weight samples) from its plain version's counts, and
    the fusion's voxel classes (in the image, behind the camera, changed)
-   from which its bound is counted.
+   from which its bound is counted. The device-resident LM's kernels
+   (``lm_system``, ``lm_trial``, ``lm_step``, ``csrc/lm.cu``: the
+   counterpart of the JAX package's ``lax.while_loop`` body, not of a
+   Pallas kernel) are held phase by phase over the camera LM of the next
+   frame (307,200 points on 512^3): per-point values exact, float64 sums
+   within a float32 ulp once rounded, the step's poses within 1e-5.
 3. Runs the main path, ``EMFusionPipeline.process_frame`` without
    objects, over 24 frames of a smooth ground-truth camera path with the
-   default LM sampler (gather, the exact path); fails unless every kernel
-   of the path was launched in that run, K1 once per fusion and K2 once
-   per E-step, and the camera ATE is under 1 voxel. Prints the camera
-   LM's iterations a call, ms an iteration, re-captures and dropped
-   points. Then (after step 4) runs the same frames with the capture
-   sampler (which also launches K3) and prints both samplers' LM figures
-   side by side.
+   default LM sampler (gather, the exact path, its LM on the device);
+   fails unless every kernel of the path was launched in that run (the
+   LM kernels too), K1 once per fusion and K2 once per E-step, the
+   camera ATE is under 1 voxel, and every LM call read the device at
+   most ceil(iterations / LM_CHUNK) + 1 times. Prints the camera LM's
+   iterations a call, ms an iteration, device reads a call, re-captures
+   and dropped points. Then (after step 4) runs the same frames with the
+   capture sampler (which also launches K3), and with the gather LM in
+   the per-iteration host loop, and prints each against the device LM:
+   iterations, ms an iteration, ``track_camera`` ms, device reads a call
+   and the largest camera pose gap.
 4. Profiles three more frames with ``torch.profiler``: the device's busy
    share of the wall time and the device ops that took most of it (the
    full table goes to ``chiprun_out/profile_ops.txt``).
@@ -33,18 +42,22 @@
    0 and 30 (spawn, then match). Prints its phase times, e2e, peak memory,
    launches per frame and LM iterations; fails if an object is lost, if an
    object's x-motion recovers less than 0.35 or more than 2.0 of the truth, if
-   the camera ATE reaches 1 voxel, if a kernel of the path never ran, if K1, K2
-   and K4 never ran at the object shape, or unless K1 launched once per fusion
-   and K2 once per E-step.
+   the camera ATE reaches 1 voxel, if a kernel of the path never ran, if K1, K2,
+   K4 and the LM kernels never ran at the object shape, unless K1 launched once
+   per fusion and K2 once per E-step, or if an LM call (the camera's, or the
+   table of every serial object LM) read the device more than
+   ceil(iterations / LM_CHUNK) + 1 times.
 6. Holds K1 and K2 against their plain versions over the object path's
    final work tables (the background and both slots, as the pipeline
-   builds them), and K3-K4 at an object's shapes (its 64^3 volume at its
-   own voxel size, fg-masked weights for K4), timed as in step 2; then
+   builds them), K3-K4 at an object's shapes (its 64^3 volume at its
+   own voxel size, fg-masked weights for K4) and the LM kernels over the
+   serial object LMs' table of both slots, timed as in step 2; then
    profiles three more frames of the object path as in step 4
    (``chiprun_out/object_profile_ops.txt``).
 7. Fills every slot of that pipeline's pool (``max_objects``, 16) with a
    copy of one of its two objects, centred on a grid across the image,
-   and holds K1 and K2 over the background and all 16 slots.
+   and holds K1 and K2 over the background and all 16 slots, and the LM
+   kernels over a table of the 16 slots' LMs.
 8. Runs the accelerator path: the object path's scene and masks over
    40 frames under the JAX package's accelerator tracking configuration
    (``tracking_stride=3``, ``estep_scale=2``, ``motion_model="constvel"``,
@@ -140,7 +153,10 @@ background-only main path's, except K3's: the exact paths' LMs gather,
 so the ``capture`` row carries the main path's capture run's launches
 and ``capture_object`` the accelerator path's at the object shape; the
 K1 rows also carry ``bound_all_ms``, the bound if every voxel were read
-and written), and as its last line
+and written), the ``lm_*`` rows: the LM kernels at the background's
+shape (the main path's launches), over the object path's two-slot table
+(``*_objects``) and a full pool (``*_pool``, both with the object path's
+launches at the object shape); and as its last line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
@@ -149,6 +165,7 @@ phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -191,12 +208,22 @@ KERNEL_ROWS = [
     ("warp_to_pixels", "emfusion_tpu_torch/csrc/warp.cu",
      "emfusion_tpu/ops/pallas/warp_pallas.py:180", "warp"),
 ]
+# the device-resident LM of the gather sampler (csrc/lm.cu): the
+# counterpart of the JAX package's lax.while_loop body (tracking.py:
+# 242-322), not of a pallas_call; held at the background's shape, the
+# object path's two-slot table and a full pool's
+LM_KERNELS = ["lm_system", "lm_trial", "lm_step"]
+LM_ROWS = [(f"{k}{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
+            "emfusion_tpu/tracking.py:242", k)
+           for suffix in ("", "_objects", "_pool") for k in LM_KERNELS]
 # K6 (warp) is not on the main path: the fusion kernel makes its pick;
 # K3 (capture) is on the paths whose LMs run the capture sampler (the
 # main path's capture run, the accelerator path), not on the exact paths,
-# whose LMs gather (the default sampler)
+# whose LMs gather (the default sampler) on the device (lm_*), or in the
+# host loop (the main path's comparison run)
 CAPTURE_PATH_KERNELS = [row[3] for row in KERNEL_ROWS if row[3] != "warp"]
-PATH_KERNELS = [k for k in CAPTURE_PATH_KERNELS if k != "capture"]
+HOST_LOOP_KERNELS = [k for k in CAPTURE_PATH_KERNELS if k != "capture"]
+PATH_KERNELS = HOST_LOOP_KERNELS + LM_KERNELS
 # the same kernels held at an object's shapes (object_kernel_phases), and
 # K1 and K2 over a full pool (pool_kernel_phases)
 OBJECT_ROWS = [(f"{name}_object", src, replaces, kernel)
@@ -715,6 +742,190 @@ def hold_fusion(torch, items, depth, intr):
     return row
 
 
+def lm_cells(torch, it, R, t):
+    """Per point of LM item ``it`` at the pose (R, t): the flat indices
+    of the 27 clipped corners of the points that ``lm_system`` gathers (a
+    validity rule of ψ or of a shifted trilerp admits them) and of the 8
+    corners of those with a valid (margin-1) ψ and weight, and the valid
+    points' mask."""
+    from emfusion_tpu_torch.geometry.sampling import transform_to_grid
+    Z, Y, X = it.tsdf.shape
+    vx, vy, vz, pz = transform_to_grid(it.points, R, t, it.voxel_size,
+                                       (Z, Y, X))
+
+    def ok(ex, ey, ez, m):
+        return ((pz > 0) & (vx + ex >= 0) & (vy + ey >= 0) & (vz + ez >= 0)
+                & (vx + ex + m < X) & (vy + ey + m < Y) & (vz + ez + m < Z))
+
+    v1 = ok(0, 0, 0, 1)
+    adm = v1 | ok(1, 0, 0, 2) | ok(0, 1, 0, 2) | ok(0, 0, 1, 2)
+    x0, y0, z0 = (torch.floor(v).long() for v in (vx, vy, vz))
+    d = (0, 1, 2)
+    c27 = torch.cat([((z0[adm] + dz).clamp(0, Z - 1) * Y
+                      + (y0[adm] + dy).clamp(0, Y - 1)) * X
+                     + (x0[adm] + dx).clamp(0, X - 1)
+                     for dz in d for dy in d for dx in d])
+    c8 = torch.cat([((z0[v1] + dz) * Y + y0[v1] + dy) * X + x0[v1] + dx
+                    for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)])
+    return c27, c8, v1
+
+
+def lm_system_bound(torch, items, run):
+    """``lm_system``'s bound for this state, charging only what the
+    function needs: per point its 12 bytes of coordinates read and its
+    track and Huber weights written; the 4 bytes of its association
+    weight only where the other factors of its track weight (Huber and
+    integration weight) are not 0; each distinct voxel of the tsdf
+    corners and weight cells it reads once; and the sums. Float32
+    operations: per point 56 (the transform 18, the grid coordinates 6,
+    the validity rules 31, the weight maximum 1), per gathered point 175
+    more (four trilerps from the 27 corners, the weight's, the gradient,
+    the Huber weight), per point whose Huber and integration weights are
+    not 0, 3 more (its track weight), and per point whose track weight
+    is not 0, 72 more (J and the 28 terms, each float64 addition counted
+    as one)."""
+    from emfusion_tpu_torch.tracking import SF_R, SF_T
+    nbytes = ops = 0
+    for k, it in enumerate(items):
+        c27, c8, _ = lm_cells(torch, it, run.sf[k, SF_R:SF_R + 9].reshape(
+            3, 3), run.sf[k, SF_T:SF_T + 3])
+        sl = run.point_slice(k)
+        factors = int(((run.hub[sl] != 0) & (run.scratch[4, sl] != 0))
+                      .sum())
+        terms = int((run.w[sl] != 0).sum())
+        n = it.points.shape[1]
+        nbytes += (20 * n + 4 * factors + it.tsdf.element_size() * (
+            distinct(torch, c27) + distinct(torch, c8)) + 8 * 29)
+        ops += 56 * n + 175 * (c27.numel() // 27) + 3 * factors + 72 * terms
+    return bound(nbytes, ops)
+
+
+def lm_trial_bound(torch, items, run):
+    """``lm_trial``'s bound for the LMs with a trial step (the others
+    return at once), charging only what the function needs: per point
+    the 4 bytes of its track weight read (a point whose weight is 0 adds
+    a term of exactly 0); per point whose weight is not 0 its 12 bytes of
+    coordinates; the distinct voxels of the cells of those points that
+    are valid at the trial pose, once; a sum written. Float32
+    operations: 1 a point (the weight's test), 34 a point whose weight is
+    not 0 (the transform 18, the grid coordinates 6, the validity 10) and
+    27 more a sampled one (the trilerp and the term)."""
+    from emfusion_tpu_torch.tracking import SF_RN, SF_TN, SI_TRIAL
+    nbytes = ops = 0
+    for k, it in enumerate(items):
+        if not int(run.si[k, SI_TRIAL]):
+            continue
+        R = run.sf[k, SF_RN:SF_RN + 9].reshape(3, 3)
+        t = run.sf[k, SF_TN:SF_TN + 3]
+        weighted = run.w[run.point_slice(k)] != 0
+        _, _, v1 = lm_cells(torch, it, R, t)
+        use = v1 & weighted
+        c8 = lm_cells(torch, dataclasses.replace(
+            it, points=it.points[:, use]), R, t)[1]
+        n, nw = it.points.shape[1], int(weighted.sum())
+        nbytes += (4 * n + 12 * nw + it.tsdf.element_size() * distinct(
+            torch, c8) + 8)
+        ops += n + 34 * nw + 27 * int(use.sum())
+    return bound(nbytes, ops)
+
+
+def hold_lm(torch, items, cfg):
+    """The device-resident LM's kernels over the table ``items`` (one LM
+    an item, as the pipeline builds them) against their plain versions,
+    phase after phase on one state (the plain run takes the kernel's
+    state after each comparison): ``lm_system``'s per-point values (ψ,
+    gradient, clamped weight, Huber and track weights) and weight maxima
+    exactly (tol 0) and its float64 sums, rounded to float32, within a
+    float32 ulp (a tie); ``lm_trial``'s sums within a float32 ulp (its
+    tol); ``lm_step``'s records after both phases: the int words exactly,
+    the poses within 1e-5 (its max_abs_err and tol: sinf, cosf and acosf
+    against PyTorch's CUDA operators) and the other words within 1e-5
+    relative. Device times from CUDA graphs (``lm_step``'s a launch's, over
+    alternating phases); the LMs run with an unreachable ``max_iter`` so
+    that repeated calls keep working. ``stopped_ms``: each kernel's time
+    once every LM has stopped (what an iteration enqueued past the end
+    of a chunk costs). Returns the three rows."""
+    from emfusion_tpu_torch import tracking as tr
+    cfg = dataclasses.replace(cfg, max_iter=10 ** 6)
+    k, q = tr.LMRun(items, cfg), tr.LMRun(items, cfg)
+    n_pts = sum(k.n)
+
+    def sums_gap(a, b):
+        af, bf = a.float(), b.float()
+        ulp = (torch.nextafter(bf, torch.full_like(bf, float("inf")))
+               - bf).abs()
+        ok = bool(((af - bf).abs() <= ulp).all())
+        gap, top = float((af - bf).abs().max()), float(ulp.max())
+        b.copy_(a)
+        return (gap if ok else float("inf")), top
+
+    def step_gap(phase):
+        tr.lm_step(k, cfg, phase)
+        tr.lm_step_plain(q, cfg, phase)
+        torch.cuda.synchronize()
+        rel = float(((k.sf - q.sf).abs() / q.sf.abs().clamp(min=1.0)).max())
+        gap = max_err(k.sf[:, :tr.SF_X], q.sf[:, :tr.SF_X])
+        ok = torch.equal(k.si, q.si) and rel <= 1e-5
+        q.si.copy_(k.si)
+        q.sf.copy_(k.sf)
+        return gap if ok else float("inf")
+
+    what = dict(items=len(items), points=n_pts,
+                shapes=[list(it.tsdf.shape) for it in items])
+    tr.lm_system(k, cfg)
+    tr.lm_system_plain(q, cfg)
+    torch.cuda.synchronize()
+    per_point = max(max_err(a, b) for a, b in (
+        (k.w, q.w), (k.hub, q.hub), (k.scratch, q.scratch),
+        (k.wmax, q.wmax)))
+    sys_gap, sys_ulp = sums_gap(k.sys, q.sys)
+    rows = {"lm_system": dict(
+        what, max_abs_err=per_point if sys_gap <= sys_ulp else float("inf"),
+        tol=0.0, sums_max_abs_err=sys_gap, sums_ulp=sys_ulp,
+        bound=lm_system_bound(torch, items, k),
+        ms=graph_ms(torch, lambda: tr.lm_system(k, cfg), 10),
+        plain_ms=time_ms(torch, lambda: tr.lm_system_plain(q, cfg), 2,
+                         warmup=1), library_ms=None)}
+    q.sys.copy_(k.sys)
+    g0 = step_gap(0)
+    tr.lm_trial(k, cfg)
+    tr.lm_trial_plain(q, cfg)
+    torch.cuda.synchronize()
+    t_gap, t_ulp = sums_gap(k.trial, q.trial)
+    rows["lm_trial"] = dict(
+        what, max_abs_err=t_gap, tol=t_ulp,
+        bound=lm_trial_bound(torch, items, k),
+        ms=graph_ms(torch, lambda: tr.lm_trial(k, cfg), 10),
+        plain_ms=time_ms(torch, lambda: tr.lm_trial_plain(q, cfg), 2,
+                         warmup=1), library_ms=None)
+    q.trial.copy_(k.trial)
+    g1 = step_gap(1)
+    S = len(items)
+    # a launch reads and writes its LMs' records and reads their sums;
+    # ~600 operations an LM (the solve, se3_log, se3_exp, the products)
+    step_bound = bound(S * (2 * 4 * (tr.SI_N + tr.SF_N) + 8 * 29), 600 * S)
+
+    def pair(step):
+        step(k, cfg, 0)
+        step(k, cfg, 1)
+
+    rows["lm_step"] = dict(
+        what, max_abs_err=max(g0, g1), tol=1e-5, bound=step_bound,
+        ms=graph_ms(torch, lambda: pair(tr.lm_step), 10) / 2,
+        plain_ms=time_ms(torch, lambda: pair(tr.lm_step_plain), 2,
+                         warmup=1) / 2, library_ms=None)
+    k.si[:, tr.SI_CONV] = 1
+    k.si[:, tr.SI_TRIAL] = 0
+    for name, fn in (("lm_system", lambda: tr.lm_system(k, cfg)),
+                     ("lm_trial", lambda: tr.lm_trial(k, cfg)),
+                     ("lm_step", lambda: pair(tr.lm_step))):
+        rows[name]["stopped_ms"] = graph_ms(torch, fn, 10) / (
+            2 if name == "lm_step" else 1)
+    del k, q
+    torch.cuda.empty_cache()
+    return rows
+
+
 def print_row(name, r):
     """One line of a kernel row: its check, times, bound and, for the
     batched kernels, its table and (K1) the all-voxel bound and the
@@ -730,6 +941,8 @@ def print_row(name, r):
                  f"{r['shares']['in_image']:.3f}, behind "
                  f"{r['shares']['behind']:.3f}, changed "
                  f"{r['shares']['changed']:.3f}")
+    if "stopped_ms" in r:
+        extra = f", once every LM has stopped {r['stopped_ms']:.4f} ms"
     print(f"{name}{what}: max_abs_err {r['max_abs_err']:.3e} (tol "
           f"{r['tol']:.0e}), {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
           f"ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}){extra}",
@@ -785,6 +998,9 @@ def kernel_phases(torch, pipe, depth_raw, report):
                                    p.raycast_max_steps, report)
     rows["fusion"] = hold_fusion(torch, pipe.fusion_items(), depth,
                                  pipe.intr)
+    # the camera LM of the next frame, as track_camera builds it
+    rows.update(hold_lm(torch, [pipe.camera_lm_item(points)],
+                        pipe.track_cfg))
     inv = pose_inverse(s.cam_pose) @ s.bg_pose
     Ro, to = inv[:3, :3], inv[:3, 3]
 
@@ -826,7 +1042,8 @@ def object_kernel_phases(torch, pipe, depth_raw):
     over an E-step's table (the background and every live slot, its
     culled points, its fg/bg counts), as the pipeline builds them; K3 and
     K4 on the first live slot's 64^3 volume at its own voxel size (all
-    tracking points; the raycast with fg-masked weights). Returns the
+    tracking points; the raycast with fg-masked weights); the LM kernels
+    over the serial object LMs' table of the live slots. Returns the
     rows."""
     from emfusion_tpu_torch.geometry.se3 import pose_inverse
     from emfusion_tpu_torch.volume import fg_probs
@@ -854,6 +1071,10 @@ def object_kernel_phases(torch, pipe, depth_raw):
         torch, pipe.estep_items(points, live)[0])
     rows["fusion_object"] = hold_fusion(torch, pipe.fusion_items(), depth,
                                         pipe.intr)
+    # the serial object LMs' table, as track_objects builds it
+    for name, r in hold_lm(torch, pipe.object_lm_items(points, live),
+                           pipe.track_cfg).items():
+        rows[f"{name}_objects"] = r
     return rows
 
 
@@ -900,16 +1121,21 @@ def fill_pool(torch, pipe):
 
 
 def pool_kernel_phases(torch, pipe, depth_raw):
-    """K1 and K2 at a full pool (:func:`fill_pool`, which replaces
-    ``pipe``'s pool); the tables are the pipeline's own (``fusion_items``,
-    ``estep_items``). Returns the rows and the pool's spheres."""
+    """K1, K2 and the LM kernels at a full pool (:func:`fill_pool`, which
+    replaces ``pipe``'s pool); the tables are the pipeline's own
+    (``fusion_items``, ``estep_items``, ``object_lm_items``). Returns the
+    rows and the pool's spheres."""
     K = pipe.K
     spheres = fill_pool(torch, pipe)
     depth, points = pipe.preprocess(depth_raw)
-    return {"sample_pool": hold_sample(
+    rows = {"sample_pool": hold_sample(
                 torch, pipe.estep_items(points, list(range(K)))[0]),
             "fusion_pool": hold_fusion(torch, pipe.fusion_items(), depth,
-                                       pipe.intr)}, spheres
+                                       pipe.intr)}
+    for name, r in hold_lm(torch, pipe.object_lm_items(points, list(
+            range(K))), pipe.track_cfg).items():
+        rows[f"{name}_pool"] = r
+    return rows, spheres
 
 
 def raycast_ops(st, n_rays, n_hits):
@@ -1009,13 +1235,47 @@ def run_frames(torch, pipe, frames):
             by_shape={k: v - before.get(k, 0)
                       for k, v in kernels.launches_by_shape.items()},
             batched_lm=pipe.last_batched_lm if i > 0 else None,
-            lm=pipe.lm_counts() if i > 0 else None))
+            lm=pipe.lm_counts() if i > 0 else None,
+            reads=lm_reads(pipe) if i > 0 else None))
         if i > 0:
             lm_iters.append([pipe.last_track_stats["iterations"]] + [
                 st["iterations"]
                 for st in pipe.last_obj_track_stats.values()])
     return (e2e, dict(kernels.launches), dict(kernels.launches_by_shape),
             torch.cuda.max_memory_allocated(), lm_iters, per_frame)
+
+
+def lm_reads(pipe):
+    """The last frame's LMs' reads of the device and iterations: the
+    camera LM's, and the serial object LMs' (one table: its reads, its
+    longest LM's iterations), where they count them."""
+    cam = pipe.last_track_stats or {}
+    obj = list(pipe.last_obj_track_stats.values())
+    return dict(camera=(cam.get("host_reads"), cam.get("iterations")),
+                objects=(max((st.get("host_reads") or 0 for st in obj),
+                             default=None),
+                         max((st["iterations"] for st in obj),
+                             default=None)))
+
+
+def check_reads(name, per_frame, device=True):
+    """The camera's and the object tables' mean reads of the device a
+    call (where the LMs count them); with ``device`` (the LMs are the
+    gather sampler's on the device) fails unless every call read the
+    device at most ceil(iterations / LM_CHUNK) + 1 times."""
+    from emfusion_tpu_torch.tracking import LM_CHUNK
+    means = {}
+    for who in ("camera", "objects"):
+        calls = [f["reads"][who] for f in per_frame
+                 if f["reads"] and f["reads"][who][0]]
+        bad = [(r, it) for r, it in calls
+               if r > -(-it // LM_CHUNK) + 1]
+        if bad and device:
+            raise RuntimeError(f"{name}: the {who} LM read the device "
+                               f"more than ceil(it / {LM_CHUNK}) + 1 times "
+                               f"(reads, iterations): {bad[:5]}")
+        means[who] = float(np.mean([r for r, _ in calls])) if calls else None
+    return means
 
 
 def camera_ate(pipe, n_frames):
@@ -1072,24 +1332,47 @@ def print_lm_summary(name, summ):
         for who, s in summ.items() if s["calls"]), flush=True)
 
 
+@contextlib.contextmanager
+def host_lm_loop():
+    """Within the block the pipeline's camera LM runs in the port's per-
+    iteration host loop (``tracking._track_volume_host``, the device
+    LM's reference) in place of ``tracking.track_volume``: the
+    comparison run of the background path."""
+    from emfusion_tpu_torch import pipeline, tracking
+    pipeline.track_volume = tracking._track_volume_host
+    try:
+        yield
+    finally:
+        pipeline.track_volume = tracking.track_volume
+
+
 def main_path(torch, params, frames, report, sampler=None,
-              key="main_path"):
+              key="main_path", host_loop=False):
     """The port's main path without objects, through the entry points a
     user calls, over ``frames`` with the LM sampler ``sampler`` (None:
-    the default, gather). Reports its LM's iterations a call and ms an
-    iteration (``track_camera`` ms over iterations)."""
+    the default, gather) and, with ``host_loop``, the camera LM in the
+    per-iteration host loop (:func:`host_lm_loop`, the comparison;
+    default: on the device). Reports its LM's iterations a call, ms an
+    iteration (``track_camera`` ms over iterations) and reads of the
+    device a call, and keeps the camera poses."""
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
     n_frames = len(frames)
     pipe = EMFusionPipeline(params, sampler=sampler)
-    e2e, launches, _, peak, lm_iters, per_frame = run_frames(torch, pipe,
-                                                             frames)
+    with host_lm_loop() if host_loop else contextlib.nullcontext():
+        e2e, launches, _, peak, lm_iters, per_frame = run_frames(
+            torch, pipe, frames)
     ate = camera_ate(pipe, n_frames)
     phases = pipe.timer.ms_per_call()
     it = float(np.mean([i[0] for i in lm_iters]))
     lm = lm_summary(per_frame)
+    device = pipe.sampler == "gather" and not host_loop
+    loop_kind = "device" if device else "host"
+    reads = check_reads(key, per_frame, device=device)
     report[key] = dict(
-        frames=n_frames, sampler=pipe.sampler,
+        frames=n_frames, sampler=pipe.sampler, loop=loop_kind,
+        camera_lm_host_reads_mean=reads["camera"],
+        poses={f: q.tolist() for f, q in pipe.poses.items()},
         e2e_ms_per_frame=float(np.mean(e2e[1:])),
         e2e_ms_frame0=e2e[0], phase_ms_per_call=phases,
         max_memory_allocated=peak, launches=launches, ate=ate,
@@ -1106,16 +1389,52 @@ def main_path(torch, params, frames, report, sampler=None,
         f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
     print(f"{key} camera LM: {it:.2f} iterations a call, "
           f"{phases['track_camera']:.3f} ms a call, "
-          f"{phases['track_camera'] / it:.4f} ms an iteration", flush=True)
+          f"{phases['track_camera'] / it:.4f} ms an iteration, "
+          f"{reads['camera']:.2f} device reads a call ({loop_kind} loop)",
+          flush=True)
     print_lm_summary(key, lm)
     print(f"peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
           f"ATE rmse {ate['rmse'] * 1e3:.3f} mm", flush=True)
     check_launches(key, launches, CAPTURE_PATH_KERNELS
-                   if pipe.sampler == "capture" else PATH_KERNELS,
+                   if pipe.sampler == "capture" else HOST_LOOP_KERNELS
+                   if host_loop else PATH_KERNELS,
                    pipe.timer)
     if not ate["rmse"] < VOXEL_CUT:
         raise RuntimeError(f"{key}: ATE {ate['rmse']} m >= {VOXEL_CUT} m")
     return launches, pipe
+
+
+LM_CHUNKS = (1, 2, 4, 8, 16)   # the chunk sizes of lm_chunk_sweep
+
+
+def lm_chunk_sweep(torch, pipe, depth_raw, report, repeats=5):
+    """The camera LM of the next frame on ``pipe``'s state, run whole by
+    ``tracking.run_lm_items`` with each chunk of ``LM_CHUNKS`` (iterations
+    enqueued between two reads of the state), in turns: host ms a call
+    (a synchronised host clock; the median of ``repeats``), reads and
+    iterations. Every chunk must end on the same pose bits."""
+    from emfusion_tpu_torch.tracking import run_lm_items
+
+    _, points = pipe.preprocess(depth_raw)
+    item = pipe.camera_lm_item(points)
+    ms = {c: [] for c in LM_CHUNKS}
+    res = {}
+    for _ in range(repeats):
+        for c in LM_CHUNKS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[c] = run_lm_items([item], pipe.track_cfg, chunk=c)[0]
+            ms[c].append(1e3 * (time.perf_counter() - t0))
+    poses = {c: r["pose"] for c, r in res.items()}
+    if any(not torch.equal(p, poses[LM_CHUNKS[0]]) for p in poses.values()):
+        raise RuntimeError("the device LM's pose depends on its chunk")
+    out = {c: dict(ms=float(np.median(ms[c])), ms_all=ms[c],
+                   reads=res[c]["host_reads"],
+                   iterations=res[c]["iterations"]) for c in LM_CHUNKS}
+    report["lm_chunk_sweep"] = out
+    print("camera LM by chunk (iterations enqueued between reads): " + ", ".join(
+        f"k={c} {r['ms']:.3f} ms ({r['reads']} reads, {r['iterations']} "
+        "iterations)" for c, r in out.items()), flush=True)
 
 
 def object_scene(scene, params, n_frames, rng, step=1):
@@ -1175,9 +1494,9 @@ def object_path(torch, params, scene, n_frames, rng, report):
 
     frames, masks = object_scene(scene, params, n_frames, rng)
     pipe = EMFusionPipeline(params, mask_provider(masks))
-    e2e, launches, by_shape, peak, lm_iters, per_frame = run_frames(
+    e2e, launches, by_shape, peak, lm_iters, per_frame_lm = run_frames(
         torch, pipe, frames)
-    lm = lm_summary(per_frame)
+    lm = lm_summary(per_frame_lm)
     ate = camera_ate(pipe, n_frames)
     phases = pipe.timer.ms_per_call()
     rec = motion_recovery(pipe)
@@ -1220,6 +1539,11 @@ def object_path(torch, params, scene, n_frames, rng, report):
           f"{params.maxTrackingIter}-iteration cap), sampler "
           f"{pipe.sampler}", flush=True)
     print_lm_summary("object path", lm)
+    reads = check_reads("object path", per_frame_lm)
+    report["object_path"]["lm_host_reads_mean"] = reads
+    print(f"object path LM device reads a call: camera "
+          f"{reads['camera']:.2f}, object table {reads['objects']:.2f}",
+          flush=True)
     print(f"object path: peak memory {peak / 2**30:.3f} GiB; live objects "
           f"{pipe.active_object_ids}; camera ATE rmse "
           f"{ate['rmse'] * 1e3:.3f} mm; x-motion recovery " + ", ".join(
@@ -1233,7 +1557,8 @@ def object_path(torch, params, scene, n_frames, rng, report):
 def check_objects(name, pipe, launches, obj_launches, rec, ate):
     """Fails if a kernel of the path never ran (or K1 and K2 not once per
     fusion and per E-step), if K1, K2 and K4 (and K3 where the LMs
-    capture) never ran at the object shape, if an object is lost, if an
+    capture, the LM kernels where they run on the device) never ran at
+    the object shape, if an object is lost, if an
     object's x-motion recovers less than 0.35 or more than 2.0 of the
     truth (the JAX gate's band), or if the camera ATE reaches a voxel."""
     capture = pipe.sampler == "capture" or pipe.object_lm == "batched"
@@ -1241,7 +1566,8 @@ def check_objects(name, pipe, launches, obj_launches, rec, ate):
                    else PATH_KERNELS, pipe.timer)
     check_launches(f"{name} at the object shape", obj_launches,
                    [row[3] for row in OBJECT_ROWS
-                    if capture or row[3] != "capture"])
+                    if capture or row[3] != "capture"]
+                   + ([] if capture else LM_KERNELS))
     if len(rec) != len(MOVERS) or \
             sorted(r["mover"] for r in rec.values()) != list(
                 range(len(MOVERS))):
@@ -2696,6 +3022,10 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     profile_frames(torch, pipe, [
         sensor_depth(scene.render(gt_pose(N_FRAMES + i)), rng)
         for i in range(PROFILE_FRAMES)], report, "profile")
+    # its own noise, so the later steps draw what they drew before
+    lm_chunk_sweep(torch, pipe, sensor_depth(scene.render(
+        gt_pose(N_FRAMES + PROFILE_FRAMES)),
+        np.random.default_rng(args.seed + 1)), report)
     del pipe
     torch.cuda.empty_cache()
     # the same frames with the capture sampler, the exact paths' LM before
@@ -2714,6 +3044,28 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
           f"{g['phase_ms_per_call']['track_camera']:.3f} / "
           f"{c['phase_ms_per_call']['track_camera']:.3f}, ATE mm "
           f"{g['ate']['rmse'] * 1e3:.4f} / {c['ate']['rmse'] * 1e3:.4f}",
+          flush=True)
+    # the same frames with the gather LM in the per-iteration host loop
+    _, pipe = main_path(torch, params, frames, report, host_loop=True,
+                        key="main_path_host")
+    del pipe
+    torch.cuda.empty_cache()
+    h = report["main_path_host"]
+    gap = max(float(np.abs(np.array(q) - np.array(h["poses"][f])).max())
+              for f, q in g["poses"].items())
+    report["device_lm_vs_host_loop_pose_gap"] = gap
+    print("camera LM, device loop against host loop on the same frames: "
+          f"iterations a call {g['camera_lm_iterations_mean']:.2f} / "
+          f"{h['camera_lm_iterations_mean']:.2f}, ms an iteration "
+          f"{g['camera_lm_ms_per_iteration']:.4f} / "
+          f"{h['camera_lm_ms_per_iteration']:.4f}, track_camera ms "
+          f"{g['phase_ms_per_call']['track_camera']:.3f} / "
+          f"{h['phase_ms_per_call']['track_camera']:.3f}, device reads a "
+          f"call {g['camera_lm_host_reads_mean']:.2f} / "
+          f"{h['camera_lm_host_reads_mean']:.2f}, e2e ms "
+          f"{g['e2e_ms_per_frame']:.3f} / {h['e2e_ms_per_frame']:.3f}, "
+          f"largest camera pose gap {gap:.3e}, ATE mm "
+          f"{g['ate']['rmse'] * 1e3:.4f} / {h['ate']['rmse'] * 1e3:.4f}",
           flush=True)
     lap("main_path")
 
@@ -2789,7 +3141,7 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     row_launches = {name: (obj_launches if name in obj_rows
                            else launches)[kernel]
                     for name, _, _, kernel in (KERNEL_ROWS + OBJECT_ROWS
-                                               + POOL_ROWS)}
+                                               + POOL_ROWS + LM_ROWS)}
     # K3 runs on the paths whose LMs capture: at the background's shape
     # the main path's capture run, at the objects' the accelerator path
     row_launches.update(capture=cap_launches["capture"],
@@ -2807,7 +3159,7 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     table = [table_row(name, src, replaces, rows[name], row_launches[name])
              for name, src, replaces, kernel in (
                  KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS + ACCEL_ROWS
-                 + BF16_ROWS + VIEW_ROWS + SLAB_ROWS)]
+                 + BF16_ROWS + VIEW_ROWS + SLAB_ROWS + LM_ROWS)]
     return finish(torch, report, rows, table, card, t0)
 
 

@@ -295,9 +295,13 @@ def launch(target: str, nprocs: int, args: Sequence = (), device=None,
                 codes = [p.poll() for p in procs]
                 bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
                 if bad:
-                    r = bad[0]
+                    r = _first_failure(tmp, nprocs, bad[0])
+                    try:
+                        code = procs[r].wait(timeout=10)
+                    except subprocess.TimeoutExpired:
+                        code = None
                     raise RuntimeError(
-                        f"rank {r} of {nprocs} failed (exit {codes[r]}); "
+                        f"rank {r} of {nprocs} failed (exit {code}); "
                         f"the others were ended:\n{_tail(logs[r])}")
                 if all(c == 0 for c in codes):
                     break
@@ -317,6 +321,21 @@ def launch(target: str, nprocs: int, args: Sequence = (), device=None,
             with open(os.path.join(tmp, f"result{r}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
         return results
+
+
+def _first_failure(tmp: str, nprocs: int, default: int) -> int:
+    """The rank whose target raised first (the failure stamps that
+    :func:`_rank_main` writes before it leaves the group, whose closing
+    then fails the others' collectives), or ``default`` where no rank
+    left one (a rank that died without raising)."""
+    stamps = {}
+    for r in range(nprocs):
+        try:
+            with open(os.path.join(tmp, f"failed{r}"), "r") as f:
+                stamps[r] = float(f.read())
+        except (OSError, ValueError):
+            pass
+    return min(stamps, key=stamps.get) if stamps else default
 
 
 def _tail(log: Optional[str], n: int = 6000) -> str:
@@ -344,6 +363,12 @@ def _rank_main(spec_path: str, tmp: str) -> None:
         with open(os.path.join(tmp, f"result{mesh.rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
         dist.barrier()
+    except BaseException:
+        # stamped before the group closes: the launcher reports the rank
+        # that failed first, not one whose collective its leaving broke
+        with open(os.path.join(tmp, f"failed{dist.get_rank()}"), "w") as f:
+            f.write(repr(time.time()))
+        raise
     finally:
         dist.destroy_process_group()
 

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-Each ``csrc/*.cu`` file is a kernel for Hopper (``sm_90a``) with a plain
-C entry point. At first use every source is compiled by its own ``nvcc``
+Each ``csrc/*.cu`` file holds kernels for Hopper (``sm_90a``) with plain
+C entry points (``lm.cu`` three: ``lm_system``, ``lm_trial`` and
+``lm_step``). At first use every source is compiled by its own ``nvcc``
 process, all started together, into a shared library under ``build/``
 (listed in ``.gitignore``); the file name carries a hash of the sources
 and flags, so an edit rebuilds. The libraries are loaded with ``ctypes``.
@@ -30,7 +31,12 @@ array of :class:`FuseArgs` / :class:`SampleArgs` / :class:`CaptureArgs`,
 one per volume, which the C entry copies into the kernel's parameters, so
 the background and every object slot take one launch
 (:func:`launch_table`; more volumes than the sources' ``EMF_MAX_ITEMS``
-take one launch per that many).
+take one launch per that many). The device-resident LM's kernels
+(``lm.cu``) take a table of :class:`LmItemArgs`, one per LM, with the
+state and buffers of :class:`LmBufsArgs` and the constants of
+:class:`LmCfgArgs` (``tracking.LMRun`` builds them); ``lm_system`` and
+``lm_step`` launch once per phase, so each counts two launches an
+iteration.
 """
 
 from __future__ import annotations
@@ -69,6 +75,9 @@ KERNELS = {
                   [_P, _P, _P, _I, _I, _I, _F]),
     "warp": ("warp.cu", "emf_warp", [_P, _P] + [_I] * 4 + [_F] * 13
              + [_I] * 3),
+    "lm_system": ("lm.cu", "emf_lm_system", [_P, _I, _I, _P, _P]),
+    "lm_trial": ("lm.cu", "emf_lm_trial", [_P, _I, _P, _P]),
+    "lm_step": ("lm.cu", "emf_lm_step", [_I, _I, _P, _P]),
 }
 
 class FuseArgs(ctypes.Structure):
@@ -99,6 +108,26 @@ class CaptureArgs(ctypes.Structure):
                 ("bf16", _I), ("pose", _F * 12), ("vs", _F)]
 
 
+class LmItemArgs(ctypes.Structure):
+    """One LM of an ``lm.cu`` launch (``EmfLmItem``)."""
+    _fields_ = [("tsdf", _P), ("wts", _P), ("pts", _P), ("assoc", _P),
+                ("stride", _I), ("n", _I), ("Z", _I), ("Y", _I), ("X", _I),
+                ("bf16", _I), ("vs", _F), ("p0", _I)]
+
+
+class LmBufsArgs(ctypes.Structure):
+    """The state and per-point buffers of an LM table (``EmfLmBufs``)."""
+    _fields_ = [("si", _P), ("sf", _P), ("sys", _P), ("trial", _P),
+                ("wmax", _P), ("w", _P), ("hub", _P), ("scratch", _P),
+                ("part", _P), ("count", _P), ("total", _I)]
+
+
+class LmCfgArgs(ctypes.Structure):
+    """The LM's constants (``EmfLmCfg``)."""
+    _fields_ = [("tau", _F), ("eps1", _F), ("eps2", _F), ("nu_init", _F),
+                ("huber", _F), ("max_w", _F), ("max_iter", _I)]
+
+
 launches = {name: 0 for name in KERNELS}
 launches_by_shape: Counter = Counter()   # (name, (Z, Y, X)) -> launches
 build_log: dict = {}
@@ -122,22 +151,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _library_path(name: str) -> str:
-    src = os.path.join(CSRC, KERNELS[name][0])
+def _source(name: str) -> str:
+    """The stem of kernel ``name``'s source, which names its library."""
+    return os.path.splitext(KERNELS[name][0])[0]
+
+
+def _library_path(src: str) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    for path in [os.path.join(CSRC, f"{src}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{src}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=None) -> float:
-    """Compile the kernels that are not built yet, one ``nvcc`` each, all
-    at once. Returns the seconds it took; raises with the compiler's
-    output if one fails."""
+    """Compile the sources of the kernels ``names`` (default all) that are
+    not built yet, one ``nvcc`` each, all at once; ``build_log`` keeps
+    each source's compiler output under its stem. Returns the seconds it
+    took; raises with the compiler's output if one fails."""
     names = list(KERNELS) if names is None else list(names)
-    todo = [(n, _library_path(n)) for n in names]
-    todo = [(n, so) for n, so in todo if not os.path.exists(so)]
+    srcs = sorted({_source(n) for n in names})
+    todo = [(src, _library_path(src)) for src in srcs]
+    todo = [(src, so) for src, so in todo if not os.path.exists(so)]
     t0 = time.perf_counter()
     if not todo:
         return 0.0
@@ -146,8 +182,7 @@ def build(names=None) -> float:
     procs = []
     for name, so in todo:
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, KERNELS[name][0])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -164,20 +199,24 @@ def build(names=None) -> float:
     return time.perf_counter() - t0
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``'s source (built at first
+    use); besides the kernels' entries it has helpers such as
+    ``emf_max_items``."""
+    src = _source(name)
+    lib = _libs.get(src)
     if lib is None:
-        so = _library_path(name)
+        so = _library_path(src)
         if not os.path.exists(so):
             build([name])
-        lib = _libs[name] = ctypes.CDLL(so)
+        lib = _libs[src] = ctypes.CDLL(so)
     return lib
 
 
 def _fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_lib(name), KERNELS[name][1])
+        fn = getattr(library(name), KERNELS[name][1])
         fn.argtypes = list(KERNELS[name][2]) + [_P]
         fn.restype = _I
         _fns[name] = fn
@@ -204,7 +243,7 @@ def launch_table(name: str, table, *args) -> None:
     list of its ctypes items, followed by ``args``: one launch for as many
     items as the kernel's source takes (``emf_max_items``), each counted
     under the shapes of its items' volumes."""
-    cap = _lib(name).emf_max_items()
+    cap = library(name).emf_max_items()
     for i0 in range(0, len(table), cap):
         part = table[i0:i0 + cap]
         arr = (type(part[0]) * len(part))(*part)

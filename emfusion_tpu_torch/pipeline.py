@@ -30,8 +30,12 @@ The camera LM and the serial object LMs run the pipeline's ``sampler``
 (``EMF_TRACK_SAMPLER`` or the constructor's argument, as the JAX pipeline
 reads it; :func:`~emfusion_tpu_torch.config.resolve_params` resolves
 ``auto``): the exact gather sampler on every device, or ``capture``, the
-JAX package's accelerator sampler. The JAX package's accelerator
-configuration is run by asking for its knobs:
+JAX package's accelerator sampler. The gather sampler's LMs run on the
+device (:func:`~emfusion_tpu_torch.tracking.run_lm_items`, the JAX
+package's ``lax.while_loop``): the camera's as one LM, a frame's serial
+object LMs as one table of every slot, each read by the host once per
+few iterations to learn whether it has stopped. The JAX package's
+accelerator configuration is run by asking for its knobs:
 ``tracking_stride=3``, ``estep_scale=2`` (the association weights on the
 ``[::2, ::2]`` pixel grid, upsampled), ``motion_model="constvel"`` (the
 camera LM starts at a constant-velocity prediction from the last two
@@ -102,7 +106,8 @@ from emfusion_tpu_torch.ops.raycast import raycast_object, raycast_volume
 from emfusion_tpu_torch.ops.render import make_colormap, render_phong
 from emfusion_tpu_torch.profiling import PhaseTimer
 from emfusion_tpu_torch.tracking import (
-    TrackConfig, track_volume, track_volumes_batched,
+    LMItem, TrackConfig, track_volume, track_volumes_batched,
+    track_volumes_gather,
 )
 from emfusion_tpu_torch.viz import visualize_detections
 from emfusion_tpu_torch.volume import VOLUME_DTYPES, fg_probs, make_volume
@@ -814,23 +819,36 @@ class EMFusionPipeline:
         constant-velocity model, started and captured at ``cam_pose @
         delta`` (:meth:`motion_delta`, ``pipeline.py:430-459``)."""
         s = self.state
+        it = self.camera_lm_item(points)
+        rel, stats = track_volume(it.tsdf, it.weights, it.voxel_size,
+                                  it.points, it.assoc, it.rel_pose,
+                                  self.track_cfg)
+        s.cam_pose = s.bg_pose @ rel
+        self.last_track_stats = stats
+
+    def camera_lm_item(self, points: torch.Tensor) -> LMItem:
+        """The camera LM (:meth:`track_camera`): the background volumes,
+        the tracking points with the background's association image, and
+        the re-orthonormalised camera-to-volume start."""
+        s = self.state
         pts, asc = self._track_points(points, s.bg_assoc)
         delta = self.motion_delta()
         pred = s.cam_pose if delta is None else s.cam_pose @ delta
-        rel_init = reorthonormalize(pose_inverse(s.bg_pose) @ pred)
-        rel, stats = track_volume(s.bg_tsdf, s.bg_weights, self.voxel, pts,
-                                  asc, rel_init, self.track_cfg)
-        s.cam_pose = s.bg_pose @ rel
-        self.last_track_stats = stats
+        return LMItem(s.bg_tsdf, s.bg_weights, self.voxel, pts, asc,
+                      reorthonormalize(pose_inverse(s.bg_pose) @ pred))
 
     def track_objects(self, points: torch.Tensor, slots: List[int]) -> None:
         """Object LMs (``EMFusion.cpp:692-720``), each started at the
         slot's camera-to-object transform, then ``pose = cam_pose rel^-1``
-        (``ObjTSDF::syncTrack``). Serially (``pipeline.py:494-551``): for
-        each slot in turn, over all tracking points with the slot's
-        association image; or batched (:meth:`_track_objects_batched`).
-        On a mesh each rank tracks its own slots (:meth:`_gather_tracks`
-        shares the results)."""
+        (``ObjTSDF::syncTrack``). Serially (``pipeline.py:494-551``): each
+        slot's LM over all tracking points with the slot's association
+        image, the gather sampler's as one device-resident table of every
+        slot (:func:`~emfusion_tpu_torch.tracking.track_volumes_gather`,
+        the JAX pipeline's ``lax.scan``; each slot's LM is the one it
+        would run alone), the capture sampler's one slot after another;
+        or batched (:meth:`_track_objects_batched`). On a mesh each rank
+        tracks its own slots (:meth:`_gather_tracks` shares the
+        results)."""
         s, o = self.state, self.state.objs
         self.last_obj_track_stats = {}
         self.last_obj_track_weights = {}
@@ -841,13 +859,15 @@ class EMFusionPipeline:
                 self._track_objects_batched(points, own)
         else:
             grid = self._track_grid()
-            for k in own:
-                lk = self._lv(k)
-                pts, asc = self._track_points(points, o.assoc[k])
-                rel_init = reorthonormalize(self._rel_obj(k))
-                rel, stats = track_volume(o.tsdf[lk], o.weights[lk],
-                                          float(o.voxel_size[k]), pts, asc,
-                                          rel_init, self.track_cfg)
+            items = self.object_lm_items(points, own)
+            cfg = self.track_cfg
+            if cfg.sampler == "gather":
+                results = track_volumes_gather(items, cfg)
+            else:
+                results = [track_volume(it.tsdf, it.weights, it.voxel_size,
+                                        it.points, it.assoc, it.rel_pose,
+                                        cfg) for it in items]
+            for k, (rel, stats) in zip(own, results):
                 o.pose[k] = s.cam_pose @ pose_inverse(rel)
                 oid = int(o.object_id[k])
                 self.last_obj_track_stats[oid] = {
@@ -858,6 +878,21 @@ class EMFusionPipeline:
                     stats["huber_weights"].reshape(grid))
         if self.mesh is not None:
             self._gather_tracks(slots)
+
+    def object_lm_items(self, points: torch.Tensor, slots: List[int]):
+        """The serial object LMs of ``slots`` (slots this rank holds): per
+        slot its volumes and voxel size, the tracking points with its
+        association image, and its re-orthonormalised camera-to-object
+        start, as :class:`~emfusion_tpu_torch.tracking.LMItem` s."""
+        o = self.state.objs
+        items = []
+        for k in slots:
+            lk = self._lv(k)
+            pts, asc = self._track_points(points, o.assoc[k])
+            items.append(LMItem(o.tsdf[lk], o.weights[lk],
+                                float(o.voxel_size[k]), pts, asc,
+                                reorthonormalize(self._rel_obj(k))))
+        return items
 
     _STAT_KEYS = ("iterations", "converged", "recaptures", "dropped_points")
 

@@ -10,7 +10,11 @@ K3's bf16 cache, K4 on a bf16 pair at the camera and from an orbit
 camera outside the volume, and the wrappers refusing other dtypes; K1's
 slab form (the z-sharded background) against the plain slab and the
 whole-volume launch, and the sharded pipeline on two ranks under NCCL
-against the one-card pipeline (skips with fewer than two cards).
+against the one-card pipeline (skips with fewer than two cards); the
+device-resident LM's kernels (``lm_system``, ``lm_trial``, ``lm_step``)
+phase by phase against their plain versions over tables of 1, 3 and 16
+LMs at 1, 31 and 4,097 points, and whole LMs on the card against the
+plain versions on the CPU.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -872,3 +876,154 @@ def test_sharded_pipeline_nccl(cuda):
                        frames[1:], 1, True)
     W.assert_same_records(res[0]["recs"], ref)
     assert len(ref[-1]["ids"]) > 8
+
+
+# ---------------------------------------------------------------------
+# the device-resident LM (csrc/lm.cu): lm_system, lm_trial and lm_step
+def lm_items(cuda, scene, n, S):
+    """S LMs on the scene's volume (every third as a bf16 pair), each at n
+    of frame 2's valid points (a ragged count; repeated where the frame
+    has fewer), with its own association weights and a start moved off
+    frame 2's camera-to-volume transform by its own twist."""
+    from emfusion_tpu_torch.geometry.se3 import reorthonormalize, se3_exp
+    from emfusion_tpu_torch.tracking import LMItem
+    flat = scene["pts"].reshape(3, -1)
+    valid = torch.nonzero(flat[2] > 0).flatten()
+    rng = np.random.RandomState(100 * S + n)
+    items = []
+    for k in range(S):
+        idx = valid[torch.tensor(rng.randint(0, len(valid), n))]
+        pts = flat[:, idx].contiguous().to(cuda)
+        asc = torch.tensor(rng.uniform(0.3, 1.0, n).astype(np.float32),
+                           device=cuda)
+        xi = torch.tensor(rng.normal(0, 0.01, 6).astype(np.float32))
+        start = reorthonormalize(torch.tensor(cam_to_vol(2)) @ se3_exp(xi))
+        tsdf, wts = scene["tsdf"].to(cuda), scene["wts"].to(cuda)
+        if k % 3 == 2:
+            tsdf, wts = bf16(tsdf), bf16(wts)
+        items.append(LMItem(tsdf, wts, VOXEL, pts, asc, start))
+    return items
+
+
+def hold_lm_phase(kernel_run, plain_run, launch, plain, name):
+    """One phase on both runs: ``launch`` through the kernel wrapper, which
+    must launch kernel ``name``, and ``plain``, its plain version."""
+    before = kernels.launches[name]
+    launch(kernel_run)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] > before
+    plain(plain_run)
+
+
+def assert_sums_agree(k, q):
+    """The float64 sums, rounded to float32, equal (a tie may put one a
+    float32 ulp apart); then the plain run takes the kernel's sums, so
+    both go on from one state."""
+    kf, qf = k.float(), q.float()
+    ulp = torch.abs(torch.nextafter(qf, torch.full_like(qf, np.inf)) - qf)
+    assert (torch.abs(kf - qf) <= ulp).all()
+    assert (kf == qf).float().mean() > 0.99
+    q.copy_(k)
+
+
+def assert_states_agree(k, q):
+    """The records after a step: the int words bit-equal, the float words
+    within 1e-5 (sinf, cosf, acosf there against PyTorch's CUDA
+    operators); then the plain run takes the kernel's record."""
+    assert torch.equal(k.si, q.si)
+    assert torch.allclose(k.sf, q.sf, rtol=1e-5, atol=1e-6)
+    q.sf.copy_(k.sf)
+
+
+@pytest.mark.parametrize("n", [1, 31, 4097])
+@pytest.mark.parametrize("S", [1, 3, 16])
+def test_lm_kernels_match_plain(cuda, scene, n, S):
+    """Every phase of ten LM iterations of S LMs (n points each) held
+    against its plain version on the card, in lockstep: the per-point
+    values (ψ, gradient, clamped weight, Huber and track weights) and the
+    weight maxima bit-equal, the float64 sums equal once rounded to
+    float32, the step's records as ``assert_states_agree`` states."""
+    from emfusion_tpu_torch import tracking as tr
+    cfg = TrackConfig(max_iter=10)
+    items = lm_items(cuda, scene, n, S)
+    k, q = tr.LMRun(items, cfg), tr.LMRun(items, cfg)
+    for _ in range(cfg.max_iter):
+        hold_lm_phase(k, q, lambda r: tr.lm_system(r, cfg),
+                      lambda r: tr.lm_system_plain(r, cfg), "lm_system")
+        for a, b in ((k.w, q.w), (k.hub, q.hub), (k.scratch, q.scratch),
+                     (k.wmax, q.wmax)):
+            assert torch.equal(a, b)
+        assert_sums_agree(k.sys, q.sys)
+        for phase, name in ((0, "lm_step"), (None, "lm_trial"),
+                            (1, "lm_step")):
+            if phase is None:
+                hold_lm_phase(k, q, lambda r: tr.lm_trial(r, cfg),
+                              lambda r: tr.lm_trial_plain(r, cfg), name)
+                assert_sums_agree(k.trial, q.trial)
+                continue
+            hold_lm_phase(k, q, lambda r: tr.lm_step(r, cfg, phase),
+                          lambda r: tr.lm_step_plain(r, cfg, phase), name)
+            assert_states_agree(k, q)
+    assert int(k.si[:, tr.SI_IT].max()) >= 2
+    if n > 1:
+        assert (k.w != 0).any()
+
+
+def test_lm_kernels_refuse_bad_inputs(cuda, scene):
+    """A volume pair of two dtypes, or points without contiguous rows,
+    raise at the table's binding."""
+    from emfusion_tpu_torch.tracking import LMItem, LMRun
+    it = lm_items(cuda, scene, 64, 1)[0]
+    bad = [LMItem(it.tsdf, bf16(it.weights), VOXEL, it.points, it.assoc,
+                  it.rel_pose),
+           LMItem(it.tsdf, it.weights, VOXEL, it.points.t().contiguous().t(),
+                  it.assoc, it.rel_pose)]
+    for b in bad:
+        with pytest.raises(ValueError):
+            LMRun([b], TrackConfig())
+
+
+def test_lm_table_cap_is_the_kernels(cuda, scene):
+    """A table takes as many LMs as ``lm.cu``'s launch does
+    (``emf_max_items``; the plain tables take ``LM_MAX_ITEMS``, its
+    value), and one LM more runs as a second table."""
+    from emfusion_tpu_torch import tracking as tr
+    cap = kernels.library("lm_system").emf_max_items()
+    assert cap == tr.LM_MAX_ITEMS
+    items = lm_items(cuda, scene, 31, cap + 1)
+    before = kernels.launches["lm_step"]
+    res = tr.run_lm_items(items, TrackConfig(max_iter=1))
+    assert len(res) == cap + 1
+    assert all(r["iterations"] == 1 for r in res)
+    assert kernels.launches["lm_step"] - before == 2 * 2
+
+
+def test_device_lm_card_matches_cpu(cuda, scene):
+    """Whole LMs: ``run_lm_items`` on the card (the kernels) against the
+    plain versions on the CPU, over a table of three LMs at 4,097 points:
+    the same iterations (within 1) and converged flags, poses within
+    1e-5; the card reads the state at most ceil(iterations / LM_CHUNK)
+    times. The CPU's sin and cos round apart from the card's, so the last
+    evaluations' poses differ by up to 1e-5, and a point there may cross
+    a validity bound, where its weights jump to 0: the last weights agree
+    within 1e-4 at all but 0.5% of the points."""
+    from emfusion_tpu_torch import tracking as tr
+    cfg = TrackConfig(max_iter=40)
+    items = lm_items(cuda, scene, 4097, 3)
+    cpu = [tr.LMItem(it.tsdf.cpu(), it.weights.cpu(), it.voxel_size,
+                     it.points.cpu(), it.assoc.cpu(), it.rel_pose)
+           for it in items]
+    before = dict(kernels.launches)
+    kres = tr.run_lm_items(items, cfg)
+    torch.cuda.synchronize()
+    qres = tr.run_lm_items(cpu, cfg)
+    iters = max(r["iterations"] for r in kres)
+    assert kres[0]["host_reads"] <= -(-iters // tr.LM_CHUNK)
+    assert kernels.launches["lm_trial"] > before["lm_trial"]
+    for a, b in zip(kres, qres):
+        assert abs(a["iterations"] - b["iterations"]) <= 1
+        assert a["converged"] == b["converged"]
+        assert torch.allclose(a["pose"], b["pose"], rtol=0, atol=1e-5)
+        for key in ("track_weights", "huber_weights"):
+            off = (a[key].cpu() - b[key]).abs() > 1e-4
+            assert off.float().mean() < 0.005, key
