@@ -15,24 +15,37 @@
    zero-corner and weight samples) from its plain version's counts, and
    the fusion's voxel classes (in the image, behind the camera, changed)
    from which its bound is counted. The device-resident LM's kernels
-   (``lm_system``, ``lm_trial``, ``lm_step``, ``csrc/lm.cu``: the
-   counterpart of the JAX package's ``lax.while_loop`` body, not of a
-   Pallas kernel) are held phase by phase over the camera LM of the next
-   frame (307,200 points on 512^3): per-point values exact, float64 sums
-   within a float32 ulp once rounded, the step's poses within 1e-5.
+   (``csrc/lm.cu``: the counterpart of the JAX package's
+   ``lax.while_loop`` body, not of a Pallas kernel) are held over the
+   camera LM of the next frame (307,200 points on 512^3): the split
+   kernels (``lm_system``, ``lm_trial``, ``lm_step``) phase by phase, and
+   the cooperative ``lm_run`` iteration by iteration against the plain
+   iteration until the LM stops: per-point values and int words exact,
+   float64 sums within a float32 ulp once rounded, the poses within 1e-5;
+   one launch of ``max_iter`` iterations must end on the same bits, and
+   the plain iteration run alone on the same int words and within 1e-5.
+   ``lm_run``'s ms is an iteration's device time within a launch that
+   runs the LM to its end, its bound this run's (per iteration the LMs
+   that evaluate and those that trial) over its iterations, and the split
+   kernels are timed over the same iterations; a launch of one iteration
+   and one once every LM has stopped are timed too.
 3. Runs the main path, ``EMFusionPipeline.process_frame`` without
    objects, over 24 frames of a smooth ground-truth camera path with the
    default LM sampler (gather, the exact path, its LM on the device);
-   fails unless every kernel of the path was launched in that run (the
-   LM kernels too), K1 once per fusion and K2 once per E-step, the
-   camera ATE is under 1 voxel, and every LM call read the device at
-   most ceil(iterations / LM_CHUNK) + 1 times. Prints the camera LM's
-   iterations a call, ms an iteration, device reads a call, re-captures
-   and dropped points. Then (after step 4) runs the same frames with the
-   capture sampler (which also launches K3), and with the gather LM in
-   the per-iteration host loop, and prints each against the device LM:
+   fails unless every kernel of the path was launched in that run
+   (``lm_run`` too, and none of the split LM kernels), K1 once per
+   fusion and K2 once per E-step, the camera ATE is under 1 voxel, and
+   every LM call read the device at most once a table (one ``lm_run`` of
+   ``max_iter`` iterations). Prints the camera LM's iterations a call, ms an iteration,
+   device reads a call, re-captures and dropped points. Then (after step
+   4) runs the same frames with the capture sampler (which also launches
+   K3), with the gather LM in the per-iteration host loop, and with the
+   device LM as the split kernels (``tracking._run_lm_split``, 4
+   iterations between reads), and prints each against ``lm_run``:
    iterations, ms an iteration, ``track_camera`` ms, device reads a call
-   and the largest camera pose gap.
+   and the largest camera pose gap (the split kernels' must be within
+   1e-5). Then times the camera LM whole at chunks of 4, 8, 16 and
+   ``max_iter`` iterations a launch of ``lm_run`` (the path's).
 4. Profiles three more frames with ``torch.profiler``: the device's busy
    share of the wall time and the device ops that took most of it (the
    full table goes to ``chiprun_out/profile_ops.txt``).
@@ -43,15 +56,16 @@
    launches per frame and LM iterations; fails if an object is lost, if an
    object's x-motion recovers less than 0.35 or more than 2.0 of the truth, if
    the camera ATE reaches 1 voxel, if a kernel of the path never ran, if K1, K2,
-   K4 and the LM kernels never ran at the object shape, unless K1 launched once
+   K4 and ``lm_run`` never ran at the object shape, if a split LM kernel
+   ran, unless K1 launched once
    per fusion and K2 once per E-step, or if an LM call (the camera's, or the
-   table of every serial object LM) read the device more than
-   ceil(iterations / LM_CHUNK) + 1 times.
+   table of every serial object LM) read the device more than once.
 6. Holds K1 and K2 against their plain versions over the object path's
    final work tables (the background and both slots, as the pipeline
    builds them), K3-K4 at an object's shapes (its 64^3 volume at its
    own voxel size, fg-masked weights for K4) and the LM kernels over the
-   serial object LMs' table of both slots, timed as in step 2; then
+   serial object LMs' table of both slots, held and timed as in step 2;
+   then
    profiles three more frames of the object path as in step 4
    (``chiprun_out/object_profile_ops.txt``).
 7. Fills every slot of that pipeline's pool (``max_objects``, 16) with a
@@ -127,7 +141,8 @@
    and triangle count); (b) the read copy's refresh alone, timed; (c)
    the pixel-sharded ``track_volume`` on a frame's 307,200 points
    against the one-rank LM (1e-4; whether within 1e-5 is printed beside
-   the one-rank LM's own spread over reordered sums); (d) the object
+   the one-rank LM's own spread over reordered sums; it must launch the
+   split LM kernels and not ``lm_run``); (d) the object
    path's frames 0-31 (spawn, match) against step 5's poses (camera
    1e-5, objects 1e-4), failing as the object path does. Prints the
    frames' ms beside the one-card pipeline's, the collectives a frame
@@ -154,9 +169,14 @@ so the ``capture`` row carries the main path's capture run's launches
 and ``capture_object`` the accelerator path's at the object shape; the
 K1 rows also carry ``bound_all_ms``, the bound if every voxel were read
 and written), the ``lm_*`` rows: the LM kernels at the background's
-shape (the main path's launches), over the object path's two-slot table
-(``*_objects``) and a full pool (``*_pool``, both with the object path's
-launches at the object shape); and as its last line
+shape, over the object path's two-slot table (``*_objects``) and a full
+pool (``*_pool``): ``lm_run`` with the main path's launches (the
+object path's at the object shape), the split kernels with the launches
+of rank 0's pixel-sharded LM in step 11 (the only path that runs them; 0
+at the object shape), its ``bound_ms`` this run's per-iteration bound:
+``lm_system``'s over the LMs that evaluate plus ``lm_trial``'s over
+those that trial, summed over the run to its stop, over its
+iterations; and as its last line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails. A fuller report goes to ``chiprun_out/chip_smoke.json``.
@@ -167,6 +187,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -211,8 +232,26 @@ KERNEL_ROWS = [
 # the device-resident LM of the gather sampler (csrc/lm.cu): the
 # counterpart of the JAX package's lax.while_loop body (tracking.py:
 # 242-322), not of a pallas_call; held at the background's shape, the
-# object path's two-slot table and a full pool's
-LM_KERNELS = ["lm_system", "lm_trial", "lm_step"]
+# object path's two-slot table and a full pool's. lm_run (a chunk of
+# iterations a cooperative launch) runs the exact paths' LMs; the split
+# kernels the pixel-sharded LM's
+LM_RUN = "lm_run"
+LM_SPLIT_KERNELS = ["lm_system", "lm_trial", "lm_step"]
+LM_KERNELS = [LM_RUN] + LM_SPLIT_KERNELS
+SPLIT_CHUNK = 4               # the split loop's iterations between reads
+
+
+def one_read(iterations):
+    """Reads of the device an LM call of ``lm_run`` may take: one a
+    table (a launch of ``max_iter`` iterations, then one read)."""
+    return 1
+
+
+def split_reads(iterations):
+    """Reads a call of the split loop may take: one a chunk of
+    ``SPLIT_CHUNK`` iterations, and one more where the last chunk ended
+    on the stop."""
+    return -(-iterations // SPLIT_CHUNK) + 1
 LM_ROWS = [(f"{k}{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
             "emfusion_tpu/tracking.py:242", k)
            for suffix in ("", "_objects", "_pool") for k in LM_KERNELS]
@@ -223,7 +262,8 @@ LM_ROWS = [(f"{k}{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
 # host loop (the main path's comparison run)
 CAPTURE_PATH_KERNELS = [row[3] for row in KERNEL_ROWS if row[3] != "warp"]
 HOST_LOOP_KERNELS = [k for k in CAPTURE_PATH_KERNELS if k != "capture"]
-PATH_KERNELS = HOST_LOOP_KERNELS + LM_KERNELS
+PATH_KERNELS = HOST_LOOP_KERNELS + [LM_RUN]
+SPLIT_PATH_KERNELS = HOST_LOOP_KERNELS + LM_SPLIT_KERNELS
 # the same kernels held at an object's shapes (object_kernel_phases), and
 # K1 and K2 over a full pool (pool_kernel_phases)
 OBJECT_ROWS = [(f"{name}_object", src, replaces, kernel)
@@ -770,9 +810,9 @@ def lm_cells(torch, it, R, t):
     return c27, c8, v1
 
 
-def lm_system_bound(torch, items, run):
-    """``lm_system``'s bound for this state, charging only what the
-    function needs: per point its 12 bytes of coordinates read and its
+def lm_system_bound(torch, items, run, only=None):
+    """``lm_system``'s bound for this state (over the LMs ``only``, or
+    all), charging only what the function needs: per point its 12 bytes of coordinates read and its
     track and Huber weights written; the 4 bytes of its association
     weight only where the other factors of its track weight (Huber and
     integration weight) are not 0; each distinct voxel of the tsdf
@@ -787,6 +827,8 @@ def lm_system_bound(torch, items, run):
     from emfusion_tpu_torch.tracking import SF_R, SF_T
     nbytes = ops = 0
     for k, it in enumerate(items):
+        if only is not None and k not in only:
+            continue
         c27, c8, _ = lm_cells(torch, it, run.sf[k, SF_R:SF_R + 9].reshape(
             3, 3), run.sf[k, SF_T:SF_T + 3])
         sl = run.point_slice(k)
@@ -829,9 +871,157 @@ def lm_trial_bound(torch, items, run):
     return bound(nbytes, ops)
 
 
+def sums_gap(torch, a, b):
+    """The float64 sums ``a`` (kernel) and ``b`` (plain), rounded to
+    float32: (their largest gap, or inf where one is more than a float32
+    ulp apart; the largest ulp); then ``b`` takes ``a``'s values, so both
+    runs go on from one state."""
+    af, bf = a.float(), b.float()
+    ulp = (torch.nextafter(bf, torch.full_like(bf, float("inf"))) - bf).abs()
+    ok = bool(((af - bf).abs() <= ulp).all())
+    gap, top = float((af - bf).abs().max()), float(ulp.max())
+    b.copy_(a)
+    return (gap if ok else float("inf")), top
+
+
+def plain_iteration(tr, run, cfg):
+    """One LM iteration of the plain versions on ``run``'s device."""
+    tr.lm_system_plain(run, cfg)
+    tr.lm_step_plain(run, cfg, 0)
+    tr.lm_trial_plain(run, cfg)
+    tr.lm_step_plain(run, cfg, 1)
+
+
+def hold_lm_run(torch, items, cfg, reps=20):
+    """``lm_run`` over the table ``items`` with the LM constants ``cfg``,
+    from a fresh state, against the plain iteration
+    (:func:`plain_iteration`) on the card, three ways:
+    (1) a launch an iteration in lockstep with the plain iteration until
+    every LM has stopped: the per-point values (ψ, gradient, clamped
+    weight, Huber and track weights), the weight maxima and the int words
+    of the records exactly, the float64 sums and trial errors within a
+    float32 ulp once rounded, the poses within 1e-5 (``max_abs_err``,
+    ``tol``) and the other float words within 1e-5 relative; the plain
+    run takes the kernel's state after each iteration;
+    (2) one launch of ``max_iter`` iterations (what the path launches),
+    which must end on (1)'s last state bit for bit (records, sums,
+    per-point values; ``whole_equal``);
+    (3) the plain iteration alone to its stop, whose int words must equal
+    (2)'s and its poses lie within 1e-5 of them (``whole_gap``).
+    ``bound``: this run's, per iteration of (1) ``lm_system``'s bound
+    over the LMs that evaluate in it plus ``lm_trial``'s over those that
+    trial, summed over the run (``bound_run``) and divided by its
+    iterations (``run_iterations``, the longest LM's); ``bound_first``
+    that of the first iteration, where every LM evaluates. Times (CUDA
+    events around a launch, the fresh state restored before each; medians
+    of ``reps``): ``run_ms`` the launch of (2) and ``ms`` that over the
+    iterations; ``split_ms`` the split kernels over the same iterations
+    from the same state (one CUDA graph of the run, the restore in it),
+    over the iterations; ``launch_ms`` a launch of one iteration and
+    ``stopped_ms`` a launch once every LM has stopped (both with the
+    host's launch in them: the card waits for it); ``plain_ms`` the first
+    iteration of the plain versions. Returns the row."""
+    from emfusion_tpu_torch import tracking as tr
+    k, q = tr.LMRun(items, cfg), tr.LMRun(items, cfg)
+    si0, sf0 = k.si.clone(), k.sf.clone()
+    ok, gap, iters = True, 0.0, 0
+    spent = {"bytes": 0.0, "operations": 0.0}
+    first = None
+    while iters < cfg.max_iter and bool(q.running(q.si, cfg).any()):
+        evaluating = tr._items_with(q, cfg, tr.SI_EVAL)
+        tr.lm_run(k, cfg, 1)
+        tr.lm_system_plain(q, cfg)
+        b_sys = lm_system_bound(torch, items, q, evaluating)
+        tr.lm_step_plain(q, cfg, 0)
+        b_trial = lm_trial_bound(torch, items, q)
+        tr.lm_trial_plain(q, cfg)
+        tr.lm_step_plain(q, cfg, 1)
+        for t, by in (b_sys, b_trial):
+            spent[by] += t
+        if first is None:
+            first = b_sys[0] + b_trial[0]
+        torch.cuda.synchronize()
+        ok &= all(torch.equal(a, b) for a, b in (
+            (k.w, q.w), (k.hub, q.hub), (k.scratch, q.scratch),
+            (k.wmax, q.wmax), (k.si, q.si)))
+        for a, b in ((k.sys, q.sys), (k.trial, q.trial)):
+            g, ulp = sums_gap(torch, a, b)
+            ok &= g <= ulp
+        rel = float(((k.sf - q.sf).abs() / q.sf.abs().clamp(min=1.0)).max())
+        ok &= rel <= 1e-5
+        gap = max(gap, max_err(k.sf[:, :tr.SF_X], q.sf[:, :tr.SF_X]))
+        q.si.copy_(k.si)
+        q.sf.copy_(k.sf)
+        iters += 1
+    words = ("si", "sf", "sys", "trial", "w", "hub", "scratch", "wmax")
+    chain = {n: getattr(k, n).clone() for n in words}
+
+    def restore(run):
+        run.si.copy_(si0)
+        run.sf.copy_(sf0)
+
+    restore(k)
+    tr.lm_run(k, cfg, cfg.max_iter)
+    torch.cuda.synchronize()
+    whole_equal = all(torch.equal(getattr(k, n), v) for n, v in chain.items())
+    restore(q)
+    for _ in range(cfg.max_iter):
+        if not bool(q.running(q.si, cfg).any()):
+            break
+        plain_iteration(tr, q, cfg)
+    torch.cuda.synchronize()
+    whole_gap = (max_err(k.sf[:, :tr.SF_X], q.sf[:, :tr.SF_X])
+                 if torch.equal(k.si, q.si) else float("inf"))
+    ok &= whole_equal and whole_gap <= 1e-5
+
+    def launch_ms(n, fresh=True):
+        times = []
+        for _ in range(reps):
+            if fresh:
+                restore(k)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr.lm_run(k, cfg, n)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    one = launch_ms(1)
+    whole = launch_ms(cfg.max_iter)
+
+    def split_run():
+        restore(k)
+        for _ in range(iters):
+            tr.lm_iteration(k, cfg)
+
+    split = graph_ms(torch, split_run, 1)
+    split_gap = max_err(k.sf[:, :tr.SF_X], chain["sf"][:, :tr.SF_X])
+    k.si[:, tr.SI_CONV] = 1
+    stopped = launch_ms(cfg.max_iter, fresh=False)
+    by = max(spent, key=spent.get)
+    n = max(iters, 1)
+    row = dict(
+        items=len(items), points=sum(k.n),
+        shapes=[list(it.tsdf.shape) for it in items],
+        max_abs_err=max(gap, whole_gap) if ok else float("inf"), tol=1e-5,
+        whole_equal=whole_equal, whole_gap=whole_gap,
+        bound=(sum(spent.values()) / n, by), bound_run=sum(spent.values()),
+        bound_first=first, ms=whole / n, launch_ms=one, run_ms=whole,
+        run_iterations=iters, split_ms=split / n, split_pose_gap=split_gap,
+        stopped_ms=stopped, grid=k.grid, spans=k.part.shape[0],
+        plain_ms=time_ms(torch, lambda: (restore(q), plain_iteration(
+            tr, q, cfg)), 2, warmup=1), library_ms=None)
+    del k, q
+    torch.cuda.empty_cache()
+    return row
+
+
 def hold_lm(torch, items, cfg):
     """The device-resident LM's kernels over the table ``items`` (one LM
-    an item, as the pipeline builds them) against their plain versions,
+    an item, as the pipeline builds them) against their plain versions:
+    ``lm_run`` as :func:`hold_lm_run` holds it, and the split kernels
     phase after phase on one state (the plain run takes the kernel's
     state after each comparison): ``lm_system``'s per-point values (ψ,
     gradient, clamped weight, Huber and track weights) and weight maxima
@@ -844,20 +1034,12 @@ def hold_lm(torch, items, cfg):
     alternating phases); the LMs run with an unreachable ``max_iter`` so
     that repeated calls keep working. ``stopped_ms``: each kernel's time
     once every LM has stopped (what an iteration enqueued past the end
-    of a chunk costs). Returns the three rows."""
+    of a chunk costs). Returns the four rows."""
     from emfusion_tpu_torch import tracking as tr
+    run_cfg = cfg
     cfg = dataclasses.replace(cfg, max_iter=10 ** 6)
     k, q = tr.LMRun(items, cfg), tr.LMRun(items, cfg)
     n_pts = sum(k.n)
-
-    def sums_gap(a, b):
-        af, bf = a.float(), b.float()
-        ulp = (torch.nextafter(bf, torch.full_like(bf, float("inf")))
-               - bf).abs()
-        ok = bool(((af - bf).abs() <= ulp).all())
-        gap, top = float((af - bf).abs().max()), float(ulp.max())
-        b.copy_(a)
-        return (gap if ok else float("inf")), top
 
     def step_gap(phase):
         tr.lm_step(k, cfg, phase)
@@ -878,7 +1060,7 @@ def hold_lm(torch, items, cfg):
     per_point = max(max_err(a, b) for a, b in (
         (k.w, q.w), (k.hub, q.hub), (k.scratch, q.scratch),
         (k.wmax, q.wmax)))
-    sys_gap, sys_ulp = sums_gap(k.sys, q.sys)
+    sys_gap, sys_ulp = sums_gap(torch, k.sys, q.sys)
     rows = {"lm_system": dict(
         what, max_abs_err=per_point if sys_gap <= sys_ulp else float("inf"),
         tol=0.0, sums_max_abs_err=sys_gap, sums_ulp=sys_ulp,
@@ -891,7 +1073,7 @@ def hold_lm(torch, items, cfg):
     tr.lm_trial(k, cfg)
     tr.lm_trial_plain(q, cfg)
     torch.cuda.synchronize()
-    t_gap, t_ulp = sums_gap(k.trial, q.trial)
+    t_gap, t_ulp = sums_gap(torch, k.trial, q.trial)
     rows["lm_trial"] = dict(
         what, max_abs_err=t_gap, tol=t_ulp,
         bound=lm_trial_bound(torch, items, k),
@@ -923,6 +1105,7 @@ def hold_lm(torch, items, cfg):
             2 if name == "lm_step" else 1)
     del k, q
     torch.cuda.empty_cache()
+    rows[LM_RUN] = hold_lm_run(torch, items, run_cfg)
     return rows
 
 
@@ -943,6 +1126,17 @@ def print_row(name, r):
                  f"{r['shares']['changed']:.3f}")
     if "stopped_ms" in r:
         extra = f", once every LM has stopped {r['stopped_ms']:.4f} ms"
+    if "run_ms" in r:
+        extra += (f"; ms an iteration of a whole LM ({r['run_ms']:.4f} ms "
+                  f"over {r['run_iterations']} iterations; the split "
+                  f"kernels {r['split_ms']:.4f} ms an iteration over the "
+                  f"same, pose gap {r['split_pose_gap']:.3e}), the run's "
+                  f"bound {r['bound_run']:.5f} ms (its first iteration "
+                  f"{r['bound_first']:.5f}), one launch equal to the "
+                  f"chain: {r['whole_equal']}, plain run alone "
+                  f"{r['whole_gap']:.3e} away; a launch of one iteration "
+                  f"{r['launch_ms']:.4f} ms, {r['grid']} blocks over "
+                  f"{r['spans']} spans")
     print(f"{name}{what}: max_abs_err {r['max_abs_err']:.3e} (tol "
           f"{r['tol']:.0e}), {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
           f"ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}){extra}",
@@ -1258,22 +1452,20 @@ def lm_reads(pipe):
                              default=None)))
 
 
-def check_reads(name, per_frame, device=True):
+def check_reads(name, per_frame, most):
     """The camera's and the object tables' mean reads of the device a
-    call (where the LMs count them); with ``device`` (the LMs are the
-    gather sampler's on the device) fails unless every call read the
-    device at most ceil(iterations / LM_CHUNK) + 1 times."""
-    from emfusion_tpu_torch.tracking import LM_CHUNK
+    call (where the LMs count them); with ``most`` (the LMs are the
+    gather sampler's on the device: the reads a call may take, given its
+    iterations) fails if a call read the device more often."""
     means = {}
     for who in ("camera", "objects"):
         calls = [f["reads"][who] for f in per_frame
                  if f["reads"] and f["reads"][who][0]]
-        bad = [(r, it) for r, it in calls
-               if r > -(-it // LM_CHUNK) + 1]
-        if bad and device:
+        bad = [(r, it) for r, it in calls if most and r > most(it)]
+        if bad:
             raise RuntimeError(f"{name}: the {who} LM read the device "
-                               f"more than ceil(it / {LM_CHUNK}) + 1 times "
-                               f"(reads, iterations): {bad[:5]}")
+                               f"more often than it may (reads, "
+                               f"iterations): {bad[:5]}")
         means[who] = float(np.mean([r for r, _ in calls])) if calls else None
     return means
 
@@ -1285,13 +1477,20 @@ def camera_ate(pipe, n_frames):
     return evaluate_ate(poses, gt, max_difference=0.5)
 
 
-def check_launches(name, launches, kernels_of_path, timer=None):
-    """Fails if a kernel of the path never ran; with the path's
+def check_launches(name, launches, kernels_of_path, timer=None,
+                   forbidden=()):
+    """Fails if a kernel of the path never ran, or a kernel of
+    ``forbidden`` ran (the split LM kernels on an exact one-card path,
+    ``lm_run`` where the split kernels run its LMs); with the path's
     ``PhaseTimer``, also unless K1 launched once per fusion (once a
     frame) and K2 once per E-step."""
     missing = [k for k in kernels_of_path if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"{name} never launched kernels {missing}")
+    ran = [k for k in forbidden if launches.get(k, 0) > 0]
+    if ran:
+        raise RuntimeError(f"{name} launched kernels {ran}, which its LMs "
+                           "do not run")
     if timer is not None:
         esteps = sum(n for ph, n in timer.counts.items()
                      if ph.startswith("estep"))
@@ -1333,6 +1532,22 @@ def print_lm_summary(name, summ):
 
 
 @contextlib.contextmanager
+def split_lm_loop():
+    """Within the block the gather sampler's LMs run as the split kernels
+    (``tracking._run_lm_split``, ``SPLIT_CHUNK`` iterations between two
+    reads) in place of ``lm_run``: the comparison run of the background
+    path."""
+    from emfusion_tpu_torch import tracking
+    run = tracking.run_lm_items
+    tracking.run_lm_items = functools.partial(tracking._run_lm_split,
+                                              chunk=SPLIT_CHUNK)
+    try:
+        yield
+    finally:
+        tracking.run_lm_items = run
+
+
+@contextlib.contextmanager
 def host_lm_loop():
     """Within the block the pipeline's camera LM runs in the port's per-
     iteration host loop (``tracking._track_volume_host``, the device
@@ -1347,28 +1562,30 @@ def host_lm_loop():
 
 
 def main_path(torch, params, frames, report, sampler=None,
-              key="main_path", host_loop=False):
+              key="main_path", loop="device"):
     """The port's main path without objects, through the entry points a
     user calls, over ``frames`` with the LM sampler ``sampler`` (None:
-    the default, gather) and, with ``host_loop``, the camera LM in the
-    per-iteration host loop (:func:`host_lm_loop`, the comparison;
-    default: on the device). Reports its LM's iterations a call, ms an
-    iteration (``track_camera`` ms over iterations) and reads of the
-    device a call, and keeps the camera poses."""
+    the default, gather) and the gather LM's ``loop``: ``device``
+    (``lm_run``, the default), ``split`` (:func:`split_lm_loop`) or
+    ``host`` (:func:`host_lm_loop`), the last two comparisons. Reports
+    its LM's iterations a call, ms an iteration (``track_camera`` ms over
+    iterations) and reads of the device a call, and keeps the camera
+    poses."""
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
     n_frames = len(frames)
     pipe = EMFusionPipeline(params, sampler=sampler)
-    with host_lm_loop() if host_loop else contextlib.nullcontext():
+    with {"device": contextlib.nullcontext, "split": split_lm_loop,
+          "host": host_lm_loop}[loop]():
         e2e, launches, _, peak, lm_iters, per_frame = run_frames(
             torch, pipe, frames)
     ate = camera_ate(pipe, n_frames)
     phases = pipe.timer.ms_per_call()
     it = float(np.mean([i[0] for i in lm_iters]))
     lm = lm_summary(per_frame)
-    device = pipe.sampler == "gather" and not host_loop
-    loop_kind = "device" if device else "host"
-    reads = check_reads(key, per_frame, device=device)
+    loop_kind = loop if pipe.sampler == "gather" else "host"
+    reads = check_reads(key, per_frame, {
+        "device": one_read, "split": split_reads}.get(loop_kind))
     report[key] = dict(
         frames=n_frames, sampler=pipe.sampler, loop=loop_kind,
         camera_lm_host_reads_mean=reads["camera"],
@@ -1395,44 +1612,57 @@ def main_path(torch, params, frames, report, sampler=None,
     print_lm_summary(key, lm)
     print(f"peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
           f"ATE rmse {ate['rmse'] * 1e3:.3f} mm", flush=True)
-    check_launches(key, launches, CAPTURE_PATH_KERNELS
-                   if pipe.sampler == "capture" else HOST_LOOP_KERNELS
-                   if host_loop else PATH_KERNELS,
-                   pipe.timer)
+    check_launches(key, launches, {
+        "device": PATH_KERNELS, "split": SPLIT_PATH_KERNELS,
+        "host": CAPTURE_PATH_KERNELS if pipe.sampler == "capture"
+        else HOST_LOOP_KERNELS}[loop_kind], pipe.timer,
+        forbidden={"device": LM_SPLIT_KERNELS, "split": [LM_RUN]}.get(
+            loop_kind, LM_KERNELS))
     if not ate["rmse"] < VOXEL_CUT:
         raise RuntimeError(f"{key}: ATE {ate['rmse']} m >= {VOXEL_CUT} m")
     return launches, pipe
 
 
-LM_CHUNKS = (1, 2, 4, 8, 16)   # the chunk sizes of lm_chunk_sweep
+LM_CHUNKS = (4, 8, 16)   # chunk sizes of lm_chunk_sweep, and max_iter
 
 
 def lm_chunk_sweep(torch, pipe, depth_raw, report, repeats=5):
-    """The camera LM of the next frame on ``pipe``'s state, run whole by
-    ``tracking.run_lm_items`` with each chunk of ``LM_CHUNKS`` (iterations
-    enqueued between two reads of the state), in turns: host ms a call
-    (a synchronised host clock; the median of ``repeats``), reads and
-    iterations. Every chunk must end on the same pose bits."""
-    from emfusion_tpu_torch.tracking import run_lm_items
+    """The camera LM of the next frame on ``pipe``'s state, run whole
+    with launches of ``lm_run`` of each chunk of ``LM_CHUNKS`` iterations
+    (``tracking._run_tables``, a read of the state after each) and as the
+    path runs it (``tracking.run_lm_items``: one launch of ``max_iter``),
+    in turns: host ms a call (a synchronised host clock; the median of
+    ``repeats``), reads and iterations. Every chunk must end on the same
+    pose bits."""
+    from emfusion_tpu_torch import tracking as tr
 
     _, points = pipe.preprocess(depth_raw)
     item = pipe.camera_lm_item(points)
-    ms = {c: [] for c in LM_CHUNKS}
+    cfg = pipe.track_cfg
+    chunks = LM_CHUNKS + (cfg.max_iter,)
+    ms = {c: [] for c in chunks}
     res = {}
+
+    def run(c):
+        if c == cfg.max_iter:
+            return tr.run_lm_items([item], cfg)[0]
+        return tr._run_tables([item], cfg, c,
+                              lambda r, n: tr.lm_run(r, cfg, n))[0]
+
     for _ in range(repeats):
-        for c in LM_CHUNKS:
+        for c in chunks:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res[c] = run_lm_items([item], pipe.track_cfg, chunk=c)[0]
+            res[c] = run(c)
             ms[c].append(1e3 * (time.perf_counter() - t0))
     poses = {c: r["pose"] for c, r in res.items()}
-    if any(not torch.equal(p, poses[LM_CHUNKS[0]]) for p in poses.values()):
+    if any(not torch.equal(p, poses[chunks[0]]) for p in poses.values()):
         raise RuntimeError("the device LM's pose depends on its chunk")
     out = {c: dict(ms=float(np.median(ms[c])), ms_all=ms[c],
                    reads=res[c]["host_reads"],
-                   iterations=res[c]["iterations"]) for c in LM_CHUNKS}
+                   iterations=res[c]["iterations"]) for c in chunks}
     report["lm_chunk_sweep"] = out
-    print("camera LM by chunk (iterations enqueued between reads): " + ", ".join(
+    print("camera LM by chunk (iterations a launch, between reads): " + ", ".join(
         f"k={c} {r['ms']:.3f} ms ({r['reads']} reads, {r['iterations']} "
         "iterations)" for c, r in out.items()), flush=True)
 
@@ -1539,7 +1769,7 @@ def object_path(torch, params, scene, n_frames, rng, report):
           f"{params.maxTrackingIter}-iteration cap), sampler "
           f"{pipe.sampler}", flush=True)
     print_lm_summary("object path", lm)
-    reads = check_reads("object path", per_frame_lm)
+    reads = check_reads("object path", per_frame_lm, one_read)
     report["object_path"]["lm_host_reads_mean"] = reads
     print(f"object path LM device reads a call: camera "
           f"{reads['camera']:.2f}, object table {reads['objects']:.2f}",
@@ -1557,17 +1787,19 @@ def object_path(torch, params, scene, n_frames, rng, report):
 def check_objects(name, pipe, launches, obj_launches, rec, ate):
     """Fails if a kernel of the path never ran (or K1 and K2 not once per
     fusion and per E-step), if K1, K2 and K4 (and K3 where the LMs
-    capture, the LM kernels where they run on the device) never ran at
-    the object shape, if an object is lost, if an
+    capture, ``lm_run`` where they run on the device) never ran at the
+    object shape, if a split LM kernel ran on an exact path, if an object
+    is lost, if an
     object's x-motion recovers less than 0.35 or more than 2.0 of the
     truth (the JAX gate's band), or if the camera ATE reaches a voxel."""
     capture = pipe.sampler == "capture" or pipe.object_lm == "batched"
     check_launches(name, launches, CAPTURE_PATH_KERNELS if capture
-                   else PATH_KERNELS, pipe.timer)
+                   else PATH_KERNELS, pipe.timer,
+                   forbidden=() if capture else LM_SPLIT_KERNELS)
     check_launches(f"{name} at the object shape", obj_launches,
                    [row[3] for row in OBJECT_ROWS
                     if capture or row[3] != "capture"]
-                   + ([] if capture else LM_KERNELS))
+                   + ([] if capture else [LM_RUN]))
     if len(rec) != len(MOVERS) or \
             sorted(r["mover"] for r in rec.values()) != list(
                 range(len(MOVERS))):
@@ -2002,7 +2234,8 @@ def cli_path(torch, params, scene, rng, report, config, then=None):
         after = then(pipe, seq, os.path.join(seq, "masks")) if then else None
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    check_launches("cli path", launches, PATH_KERNELS)
+    check_launches("cli path", launches, PATH_KERNELS,
+                   forbidden=LM_SPLIT_KERNELS)
     if not ate["ate_rmse"] < VOXEL_CUT:
         raise RuntimeError(f"cli path: ATE {ate['ate_rmse']} m >= "
                            f"{VOXEL_CUT} m")
@@ -2592,6 +2825,7 @@ def dist_lm(torch, mesh, pipe, depth_raw):
     iterations and the all-reduces (calls, bytes, ms) of the call, and on
     rank 0 the largest pose differences to the one-rank LM and between
     the one-rank LMs (its spread)."""
+    from emfusion_tpu_torch import kernels
     from emfusion_tpu_torch.geometry.se3 import (
         pose_inverse, reorthonormalize, se3_exp,
     )
@@ -2606,6 +2840,7 @@ def dist_lm(torch, mesh, pipe, depth_raw):
     start = reorthonormalize(pose_inverse(s.bg_pose) @ s.cam_pose @ se3_exp(
         torch.tensor([0.004, -0.003, 0.002, 0.003, -0.002, 0.004])))
     mesh.stats.reset()
+    before = dict(kernels.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pose, st = track_volume(s.bg_tsdf, s.bg_weights, pipe.voxel,
@@ -2614,7 +2849,9 @@ def dist_lm(torch, mesh, pipe, depth_raw):
     torch.cuda.synchronize()
     out = dict(ms=1e3 * (time.perf_counter() - t0),
                iterations=st["iterations"], pose=pose.numpy(),
-               comm=mesh.stats.summary(), points=n)
+               comm=mesh.stats.summary(), points=n,
+               launches={k: kernels.launches[k] - before[k]
+                         for k in LM_KERNELS})
     if mesh.rank == 0:
         one, st1 = track_volume(s.bg_tsdf, s.bg_weights, pipe.voxel, pts,
                                 asc, start, pipe.track_cfg)
@@ -2720,8 +2957,10 @@ def distributed_step(torch, params, stress, life, report):
     is more than 1e-4 from the one-rank LM or the ranks disagree, or the
     lifecycle run loses an object, recovers outside 0.35-2.0, reaches 1
     voxel of ATE or is off the one-card poses (camera 1e-5, objects
-    1e-4). Returns the ``fusion_slab`` row's launches (rank 0's slab
-    launches over the stress frames)."""
+    1e-4), or if the pixel-sharded LM launched ``lm_run`` or never
+    launched a split LM kernel. Returns the ``fusion_slab`` row's
+    launches (rank 0's slab launches over the stress frames) and rank
+    0's LM kernel launches in the pixel-sharded LM."""
     from emfusion_tpu_torch.distributed.mesh import launch, mesh_shape
 
     path, f0, spheres = stress
@@ -2767,6 +3006,7 @@ def distributed_step(torch, params, stress, life, report):
         comm_per_frame=comm_pf, refresh_ms=st["refresh_ms"],
         refresh_bytes=st["refresh_bytes"], refresh_gb_per_s=gbps,
         lm=dict(iterations=lm["iterations"], ms=lm["ms"], points=lm["points"],
+                launches=lm["launches"],
                 one_rank_iterations=lm["one_rank_iterations"],
                 reordered_iterations=lm["reordered_iterations"],
                 max_abs_diff=lm["max_abs_diff"],
@@ -2804,7 +3044,8 @@ def distributed_step(torch, params, stress, life, report):
           f"one-rank LM on the points reordered (reversed, two shuffles): "
           f"{lm['reordered_iterations']} iterations, up to "
           f"{lm['one_rank_spread']:.2e} from the first; within 1e-5 of the "
-          f"one-rank LM: {lm['max_abs_diff'] <= 1e-5}", flush=True)
+          f"one-rank LM: {lm['max_abs_diff'] <= 1e-5}; rank 0's LM "
+          f"launches {lm['launches']}", flush=True)
     print("distributed peak memory per rank GiB: " + ", ".join(
         f"{r['peak'] / 2**30:.3f}" for r in res), flush=True)
     print(f"distributed lifecycle: {len(frames)} frames, live objects "
@@ -2835,6 +3076,10 @@ def distributed_step(torch, params, stress, life, report):
     # pose is held to 1e-4 (a wrong reduction moves it by the start's
     # twist, ~4e-3); whether it is also within 1e-5 is reported beside
     # the one-rank LM's own spread under reordered sums
+    if lm["launches"][LM_RUN] or not all(
+            lm["launches"][k] > 0 for k in LM_SPLIT_KERNELS):
+        raise RuntimeError(f"pixel-sharded LM: launches {lm['launches']}, "
+                           "expected the split kernels alone")
     if not lm["max_abs_diff"] <= LM_POSE_TOL:
         raise RuntimeError(f"pixel-sharded LM: {lm['max_abs_diff']} from "
                            f"the one-rank LM (limit {LM_POSE_TOL})")
@@ -2862,7 +3107,7 @@ def distributed_step(torch, params, stress, life, report):
     if not all(f["slab_launches"] >= 1 for f in st["frames"]):
         raise RuntimeError("distributed stress scene: K1 never ran on a "
                            "slab in a frame")
-    return sum(f["slab_launches"] for f in st["frames"])
+    return sum(f["slab_launches"] for f in st["frames"]), lm["launches"]
 
 
 def main() -> int:
@@ -2987,9 +3232,9 @@ def only_distributed(torch, args, params, scene, rng, report, stress_path,
     del pipe
     torch.cuda.empty_cache()
     lap("reference (one card)")
-    slab_launches = distributed_step(torch, params,
-                                     (stress_path, f0, spheres), life,
-                                     report)
+    slab_launches, _ = distributed_step(torch, params,
+                                        (stress_path, f0, spheres), life,
+                                        report)
     lap("distributed")
     table = [table_row(*SLAB_ROWS[0][:3], rows["fusion_slab"],
                        slab_launches)]
@@ -3046,7 +3291,7 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
           f"{g['ate']['rmse'] * 1e3:.4f} / {c['ate']['rmse'] * 1e3:.4f}",
           flush=True)
     # the same frames with the gather LM in the per-iteration host loop
-    _, pipe = main_path(torch, params, frames, report, host_loop=True,
+    _, pipe = main_path(torch, params, frames, report, loop="host",
                         key="main_path_host")
     del pipe
     torch.cuda.empty_cache()
@@ -3067,6 +3312,28 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
           f"largest camera pose gap {gap:.3e}, ATE mm "
           f"{g['ate']['rmse'] * 1e3:.4f} / {h['ate']['rmse'] * 1e3:.4f}",
           flush=True)
+    # the same frames with the device LM as the split kernels
+    _, pipe = main_path(torch, params, frames, report, loop="split",
+                        key="main_path_split")
+    del pipe
+    torch.cuda.empty_cache()
+    sp = report["main_path_split"]
+    gap = max(float(np.abs(np.array(q) - np.array(sp["poses"][f])).max())
+              for f, q in g["poses"].items())
+    report["lm_run_vs_split_pose_gap"] = gap
+    print("camera LM, lm_run against the split kernels on the same frames: "
+          f"iterations a call {g['camera_lm_iterations_mean']:.2f} / "
+          f"{sp['camera_lm_iterations_mean']:.2f}, ms an iteration "
+          f"{g['camera_lm_ms_per_iteration']:.4f} / "
+          f"{sp['camera_lm_ms_per_iteration']:.4f}, track_camera ms "
+          f"{g['phase_ms_per_call']['track_camera']:.3f} / "
+          f"{sp['phase_ms_per_call']['track_camera']:.3f}, device reads a "
+          f"call {g['camera_lm_host_reads_mean']:.2f} / "
+          f"{sp['camera_lm_host_reads_mean']:.2f}, e2e ms "
+          f"{g['e2e_ms_per_frame']:.3f} / {sp['e2e_ms_per_frame']:.3f}, "
+          f"largest camera pose gap {gap:.3e}", flush=True)
+    if not gap <= 1e-5:
+        raise RuntimeError(f"lm_run ends {gap} from the split kernels")
     lap("main_path")
 
     obj_launches, pipe, obj_frames, obj_masks = object_path(
@@ -3135,7 +3402,8 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     lap("viewer")
     small_reference(torch, np.random.default_rng(args.seed), report)
     lap("small_reference")
-    slab_launches = distributed_step(torch, params, stress, life, report)
+    slab_launches, group_lm = distributed_step(torch, params, stress, life,
+                                               report)
     lap("distributed")
 
     row_launches = {name: (obj_launches if name in obj_rows
@@ -3155,6 +3423,8 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
                         raycast_bf16=bf_launches["background"]["raycast"],
                         raycast_orbit=orbit_launches,
                         fusion_slab=slab_launches)
+    # the split LM kernels run the pixel-sharded LM alone (step 11)
+    row_launches.update({k: group_lm[k] for k in LM_SPLIT_KERNELS})
     report["cli_path_launches"] = cli_launches
     table = [table_row(name, src, replaces, rows[name], row_launches[name])
              for name, src, replaces, kernel in (

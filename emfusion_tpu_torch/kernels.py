@@ -1,8 +1,8 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
 Each ``csrc/*.cu`` file holds kernels for Hopper (``sm_90a``) with plain
-C entry points (``lm.cu`` three: ``lm_system``, ``lm_trial`` and
-``lm_step``). At first use every source is compiled by its own ``nvcc``
+C entry points (``lm.cu`` four: ``lm_run``, and the split ``lm_system``,
+``lm_trial`` and ``lm_step``). At first use every source is compiled by its own ``nvcc``
 process, all started together, into a shared library under ``build/``
 (listed in ``.gitignore``); the file name carries a hash of the sources
 and flags, so an edit rebuilds. The libraries are loaded with ``ctypes``.
@@ -34,9 +34,12 @@ the background and every object slot take one launch
 take one launch per that many). The device-resident LM's kernels
 (``lm.cu``) take a table of :class:`LmItemArgs`, one per LM, with the
 state and buffers of :class:`LmBufsArgs` and the constants of
-:class:`LmCfgArgs` (``tracking.LMRun`` builds them); ``lm_system`` and
-``lm_step`` launch once per phase, so each counts two launches an
-iteration.
+:class:`LmCfgArgs` (``tracking.LMRun`` builds them). ``lm_run`` is one
+cooperative launch (``cudaLaunchCooperativeKernel``) for up to
+``max_iter`` LM iterations of the whole table, its grid at most the blocks the card holds
+at once (``emf_lm_run_blocks``); the split kernels, which the pixel-
+sharded LM launches, count per phase: ``lm_system`` and ``lm_step`` two
+launches an iteration, ``lm_trial`` one.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ KERNELS = {
                   [_P, _P, _P, _I, _I, _I, _F]),
     "warp": ("warp.cu", "emf_warp", [_P, _P] + [_I] * 4 + [_F] * 13
              + [_I] * 3),
+    "lm_run": ("lm.cu", "emf_lm_run", [_P, _I, _I, _P, _P, _I]),
     "lm_system": ("lm.cu", "emf_lm_system", [_P, _I, _I, _P, _P]),
     "lm_trial": ("lm.cu", "emf_lm_trial", [_P, _I, _P, _P]),
     "lm_step": ("lm.cu", "emf_lm_step", [_I, _I, _P, _P]),

@@ -67,19 +67,23 @@ terms of the system, summed in float64), :func:`lm_step` phase 0 (the
 gradient test, the 6x6 solve, the step test and the trial pose),
 :func:`lm_trial` (the trial error) and :func:`lm_step` phase 1 (accept
 or reject, the damping, ``it += 1``); an LM that has stopped ignores
-them. The host enqueues ``LM_CHUNK`` iterations, then reads the state
-once (a non-blocking copy into pinned memory and one event) to learn
-whether every LM has stopped: ``host_reads`` per call is at most
-``ceil(iterations / LM_CHUNK)``. On a CUDA tensor each of the three
-launches its kernel (``csrc/lm.cu``); on the CPU it runs its plain
-version (:func:`lm_system_plain`, :func:`lm_trial_plain`,
-:func:`lm_step_plain`), which computes every per-point value and every
-scalar step with the kernel's float32 operations, so the two agree bit
-for bit except where a float64 sum, rounded to float32, lands on a tie.
-With a ``group`` (the pixel-sharded LM) the weight maximum and the
-float64 sums are all-reduced between the phases, and the state is read
-after every iteration, so that no collective is issued for an iteration
-no rank runs.
+them. :func:`lm_run` runs up to ``max_iter`` iterations of the table
+and stops early once every LM has stopped: on a CUDA tensor one
+cooperative launch of ``csrc/lm.cu``'s ``emf_lm_run``, which runs the
+four steps as phases with grid-wide barriers between them; on the CPU
+:func:`lm_iteration` over the plain versions (:func:`lm_system_plain`,
+:func:`lm_trial_plain`, :func:`lm_step_plain`), which compute every
+per-point value and every scalar step with the kernel's float32
+operations, so the two agree bit for bit except where a float64 sum,
+rounded to float32, lands on a tie. A table takes one call of
+:func:`lm_run`, after which the host reads the state once (a
+non-blocking copy into pinned memory and one event): ``host_reads`` is
+1 a call. With a ``group`` (the pixel-sharded LM) the weight maximum and
+the float64 sums are all-reduced between the steps, so the iteration
+runs as the split launches of :func:`lm_system`, :func:`lm_step` and
+:func:`lm_trial` (:func:`_run_lm_split`), and the state is read after
+every iteration, so that no collective is started for an iteration no
+rank runs.
 """
 
 from __future__ import annotations
@@ -588,8 +592,8 @@ def track_volumes_batched(tsdfs, weights, voxel_sizes, points: torch.Tensor,
 # ---------------------------------------------------------------------
 # The device-resident LM of the gather sampler (csrc/lm.cu)
 
-LM_CHUNK = 4      # iterations enqueued between two reads of the state
 LM_NSUM = 28      # the system's float64 sums: A's 21 unique terms, b, err
+LM_PART = 30      # a span's partials (lm.cu's EMF_LM_PART): sums, trial, max
 LM_MAX_ITEMS = 17  # LMs a plain table takes (lm.cu's EMF_MAX_ITEMS)
 # the words of an LM's state record (lm.cu's SI_* and SF_*)
 SI_IT, SI_CONV, SI_EVAL, SI_FIRST, SI_TRIAL, SI_RAN, SI_N = (
@@ -628,8 +632,10 @@ class LMRun:
     last evaluation's float64 sums ``sys`` (S, 28), the trial errors
     ``trial`` (S,) and the weight maxima ``wmax`` (S,); the packed per-
     point buffers ``w``, ``hub`` and ``scratch`` (5, total), LM ``k``'s
-    points at ``p0[k]``; on a CUDA device also the kernels' block
-    partials and tickets and their ctypes arguments. Every LM starts
+    points at ``p0[k]``; on a CUDA device also the kernels' span
+    partials, the split kernels' tickets, the ctypes arguments and
+    ``grid``, the blocks of an ``lm_run`` launch (min(spans, the blocks
+    the card holds at once)). Every LM starts
     afresh (``mu`` 0, ``nu`` ``nu_init``, a first iteration, a gradient
     to evaluate), as the JAX loop's ``init`` (``tracking.py:392-401``)."""
 
@@ -671,16 +677,19 @@ class LMRun:
         """The kernels' buffers and ctypes arguments; raises on what they
         do not take."""
         S = len(self.items)
-        lm_blocks = kernels.library("lm_system").emf_lm_blocks
-        blocks = sum(lm_blocks(n) for n in self.n)
-        self.part = torch.empty((blocks, LM_NSUM), dtype=torch.float64,
+        lib = kernels.library("lm_run")
+        spans = sum(lib.emf_lm_spans(n) for n in self.n)
+        resident = lib.emf_lm_run_blocks()
+        if resident < 1:
+            raise RuntimeError("lm_run: the device's occupancy query failed")
+        self.grid = min(spans, resident)
+        self.part = torch.empty((spans, LM_PART), dtype=torch.float64,
                                 device=self.dev)
         self.count = torch.zeros(S, dtype=torch.int32, device=self.dev)
         args = []
         for it, n, p0 in zip(self.items, self.n, self.p0):
-            code = kernels.volume_dtype_code("lm_system", it.tsdf,
-                                             it.weights)
-            kernels.check_cuda("lm_system", it.tsdf, it.weights, it.assoc,
+            code = kernels.volume_dtype_code("lm_run", it.tsdf, it.weights)
+            kernels.check_cuda("lm_run", it.tsdf, it.weights, it.assoc,
                                allow_bf16=True)
             pts = it.points
             if (it.tsdf.dim() != 3 or it.weights.shape != it.tsdf.shape
@@ -688,11 +697,11 @@ class LMRun:
                     or (n > 1 and pts.stride(1) != 1)
                     or it.assoc.dtype != torch.float32
                     or it.assoc.shape != (n,)):
-                raise ValueError("lm_system: (Z, Y, X) volumes, float32 "
+                raise ValueError("lm_run: (Z, Y, X) volumes, float32 "
                                  "(3, N) points with contiguous rows and "
                                  "float32 (N,) weights")
             if pts.device != self.dev or it.tsdf.device != self.dev:
-                raise ValueError("lm_system: all tensors must be on one "
+                raise ValueError("lm_run: all tensors must be on one "
                                  "CUDA device")
             Z, Y, X = it.tsdf.shape
             args.append(kernels.LmItemArgs(
@@ -1089,41 +1098,48 @@ def lm_step(run: LMRun, cfg: TrackConfig, phase: int) -> None:
 
 
 def lm_iteration(run: LMRun, cfg: TrackConfig, group=None) -> None:
-    """One LM iteration of every LM of ``run``, enqueued."""
+    """One LM iteration of every LM of ``run`` as the split steps,
+    enqueued."""
     lm_system(run, cfg, group)
     lm_step(run, cfg, 0)
     lm_trial(run, cfg, group)
     lm_step(run, cfg, 1)
 
 
-def run_lm_items(items: Sequence[LMItem], cfg: TrackConfig, group=None,
-                 chunk: int = None) -> List[dict]:
-    """The gather sampler's LM of every item on the items' device, each as
-    it would run alone: iterations enqueued ``chunk`` at a time (default
-    ``LM_CHUNK``; 1 with a ``group``), the state read once after each
-    chunk, until every LM has stopped or ``max_iter`` iterations were
-    enqueued. Items take one table (:class:`LMRun`) per as many as a
-    launch takes (``lm.cu``'s ``emf_max_items()`` on a CUDA device,
-    ``LM_MAX_ITEMS``, its value, on the CPU), one after another.
+def lm_run(run: LMRun, cfg: TrackConfig, iters: int) -> None:
+    """Up to ``iters`` LM iterations of every LM of ``run``, stopping once
+    every LM has stopped: on a CUDA device one cooperative launch of
+    ``lm.cu``'s ``emf_lm_run`` over ``run.grid`` blocks, enqueued; else
+    :func:`lm_iteration` over the plain versions, ``iters`` times at most
+    (the stop read from the state, a plain version's host read)."""
+    if not run.cuda:
+        for _ in range(iters):
+            if not bool(run.running(run.si, cfg).any()):
+                break
+            lm_iteration(run, cfg)
+        return
+    kernels.launch("lm_run", ctypes.addressof(run.table), len(run.items),
+                   iters, ctypes.addressof(run.bufs),
+                   ctypes.addressof(run.cfg_args), run.grid,
+                   shapes=run.shapes)
 
-    Returns per item a dict: ``pose`` (4, 4) host float32, ``iterations``,
-    ``converged``, ``grad_norm`` (max|b| of the last evaluation),
-    ``recaptures`` and ``dropped_points`` (0), ``host_reads`` (its
-    table's reads of the state), and ``track_weights`` /
-    ``huber_weights``, the (N,) weights of its last evaluation on the
-    device."""
-    if chunk is None:
-        chunk = 1 if group is not None else LM_CHUNK
+
+def _run_tables(items: Sequence[LMItem], cfg: TrackConfig, chunk: int,
+                iterate) -> List[dict]:
+    """The loop of :func:`run_lm_items` and :func:`_run_lm_split`: per
+    table of as many items as a launch takes, ``iterate(run, n)`` enqueues
+    ``n`` = ``chunk`` iterations (fewer at ``max_iter``), then the state is
+    read once, until every LM has stopped or ``max_iter`` iterations were
+    enqueued."""
     out = []
-    cap = (kernels.library("lm_system").emf_max_items()
+    cap = (kernels.library("lm_run").emf_max_items()
            if items and items[0].tsdf.is_cuda else LM_MAX_ITEMS)
     for g0 in range(0, len(items), cap):
         run = LMRun(items[g0:g0 + cap], cfg)
         done = 0
         while True:
             n = min(chunk, cfg.max_iter - done)
-            for _ in range(n):
-                lm_iteration(run, cfg, group)
+            iterate(run, n)
             done += n
             si, sf = run.read()
             if done >= cfg.max_iter or not bool(run.running(si, cfg).any()):
@@ -1140,6 +1156,42 @@ def run_lm_items(items: Sequence[LMItem], cfg: TrackConfig, group=None,
                 recaptures=0, dropped_points=0, host_reads=run.reads,
                 track_weights=run.w[sl], huber_weights=run.hub[sl]))
     return out
+
+
+def run_lm_items(items: Sequence[LMItem], cfg: TrackConfig,
+                 group=None) -> List[dict]:
+    """The gather sampler's LM of every item on the items' device, each as
+    it would run alone: one :func:`lm_run` of ``max_iter`` iterations a
+    table (it stops once every LM has stopped), the state read once after
+    it; with a ``group``, :func:`_run_lm_split` (one iteration a read).
+    Items take one table (:class:`LMRun`) per as many as a launch takes
+    (``lm.cu``'s ``emf_max_items()`` on a CUDA device, ``LM_MAX_ITEMS``,
+    its value, on the CPU), one after another.
+
+    Returns per item a dict: ``pose`` (4, 4) host float32, ``iterations``,
+    ``converged``, ``grad_norm`` (max|b| of the last evaluation),
+    ``recaptures`` and ``dropped_points`` (0), ``host_reads`` (its
+    table's reads of the state), and ``track_weights`` /
+    ``huber_weights``, the (N,) weights of its last evaluation on the
+    device."""
+    if group is not None:
+        return _run_lm_split(items, cfg, group)
+    return _run_tables(items, cfg, cfg.max_iter,
+                       lambda run, n: lm_run(run, cfg, n))
+
+
+def _run_lm_split(items: Sequence[LMItem], cfg: TrackConfig, group=None,
+                  chunk: int = 1) -> List[dict]:
+    """:func:`run_lm_items` with each iteration enqueued as the split steps
+    (:func:`lm_iteration`: on a CUDA device five launches of ``lm.cu``'s
+    ``lm_system``, ``lm_step`` and ``lm_trial``, with a ``group``'s
+    all-reduces between them), ``chunk`` iterations between two reads of
+    the state: the pixel-sharded LM's loop, and on one card the
+    comparison that ``lm_run`` is held against."""
+    def iterate(run, n):
+        for _ in range(n):
+            lm_iteration(run, cfg, group)
+    return _run_tables(items, cfg, chunk, iterate)
 
 
 def track_volumes_gather(items: Sequence[LMItem], cfg: TrackConfig,

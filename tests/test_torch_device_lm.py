@@ -25,9 +25,9 @@ from emfusion_tpu.tracking import track_volume as jax_track
 from emfusion_tpu_torch import kernels
 from emfusion_tpu_torch.distributed.mesh import launch
 from emfusion_tpu_torch.tracking import (
-    LM_CHUNK, SF_MU, SF_R, SI_CONV, SI_EVAL, SI_IT, SI_TRIAL, LMItem,
-    LMRun, TrackConfig, _track_volume_host, lm_iteration, run_lm_items,
-    track_volume, track_volumes_gather,
+    SF_MU, SF_R, SI_CONV, SI_EVAL, SI_IT, SI_TRIAL, LMItem, LMRun,
+    TrackConfig, _run_lm_split, _track_volume_host, lm_iteration,
+    run_lm_items, track_volume, track_volumes_gather,
 )
 from test_raycast import sphere_volume
 from test_torch_fusion import VOXEL as JUMP_VOXEL
@@ -109,7 +109,7 @@ def test_device_lm_matches_jax_default(cases, name):
     assert abs(st["iterations"] - int(ref_st["iterations"])) <= 3
     assert st["converged"] == bool(ref_st["converged"])
     assert st["recaptures"] == 0 and st["dropped_points"] == 0
-    assert 1 <= st["host_reads"] <= -(-st["iterations"] // LM_CHUNK) + 1
+    assert st["host_reads"] == 1
     np.testing.assert_allclose(st["track_weights"].numpy(),
                                np.asarray(ref_st["track_weights"]),
                                rtol=0, atol=1e-3)
@@ -220,32 +220,59 @@ def test_max_iter_stop(cases):
     assert not torch.equal(out, torch.tensor(case[5]))
 
 
-def test_chunks_and_a_stop_at_a_chunk_end(cases):
-    """The chunk only sets when the host reads: an LM of n iterations
-    gives the same bits with chunks of 1, n - 1 and n, reading the state
-    n, 2 and 1 times (a stop at the last iteration of a chunk, and one
-    iteration into the next); a stopped LM ignores the rest of its chunk,
-    and any later iteration (its state keeps its bits, but for the flags
-    of the iteration in flight)."""
-    case = cases["sphere"]
+def still_sphere():
+    """A smaller sphere whose association weights are 0: its LM stops at
+    its first evaluation."""
+    still = list(sphere_case(n=300, seed=5, res=48))
+    still[4] = np.zeros_like(still[4])
+    return tuple(still)
+
+
+@pytest.mark.parametrize("name", ["sphere", "jump5", "table"])
+def test_chunks_and_a_stop_at_a_chunk_end(cases, name):
+    """The chunk only sets when the host reads: a table whose longest LM
+    runs n iterations gives the same bits in the split loop
+    (``_run_lm_split``) with chunks of 1, 4, n - 1, n and ``max_iter``,
+    reading the state n, ceil(n / 4), 2, 1 and 1 times (a stop at the
+    last iteration of a chunk, and one iteration into the next), and in
+    ``run_lm_items`` (one ``lm_run`` of ``max_iter`` iterations, which
+    stops once every LM has stopped; one read). The table holds the
+    sphere, the 5-voxel jump and :func:`still_sphere`, which stops at its
+    first evaluation while the others run on. A stopped LM ignores the
+    rest of its chunk, and any later iteration (its state keeps its bits,
+    but for the flags of the iteration in flight)."""
+    scene = {"sphere": [cases["sphere"]], "jump5": [cases["jump5"]],
+             "table": [cases["sphere"], cases["jump5"], still_sphere()]}
     cfg = TrackConfig(max_iter=50)
-    item = LMItem(*torch_args(case))
-    ref = run_lm_items([item], cfg, chunk=1)[0]
-    n = ref["iterations"]
-    assert ref["converged"] and 4 < n < 50 and ref["host_reads"] == n
-    for chunk, reads in ((n - 1, 2), (n, 1), (50, 1)):
-        got = run_lm_items([item], cfg, chunk=chunk)[0]
-        assert got["host_reads"] == reads
-        assert torch.equal(got["pose"], ref["pose"])
-        assert got["iterations"] == n
-        assert torch.equal(got["track_weights"], ref["track_weights"])
-    run, hist = iterate(case, cfg, n + 3)
-    assert int(hist[n - 1][0][SI_CONV]) == 1
-    for si, sf, sums in hist[n:]:
-        assert torch.equal(si[:SI_TRIAL], hist[n - 1][0][:SI_TRIAL])
-        assert torch.equal(sf, hist[n - 1][1])
-        assert torch.equal(sums, hist[n - 1][2])
-    assert int(run.si[0, SI_IT]) == n
+    items = [LMItem(*torch_args(c)) for c in scene[name]]
+    ref = _run_lm_split(items, cfg, chunk=1)
+    n = max(r["iterations"] for r in ref)
+    assert 4 < n < 50 and ref[0]["host_reads"] == n
+    runs = [(_run_lm_split(items, cfg, chunk=chunk), reads)
+            for chunk, reads in ((4, -(-n // 4)), (n - 1, 2), (n, 1),
+                                 (50, 1))]
+    before = dict(kernels.launches)
+    runs.append((run_lm_items(items, cfg), 1))
+    assert kernels.launches == before
+    for got, reads in runs:
+        for a, b in zip(got, ref):
+            assert a["host_reads"] == reads
+            assert torch.equal(a["pose"], b["pose"])
+            for key in ("iterations", "converged", "grad_norm"):
+                assert a[key] == b[key], key
+            for key in ("track_weights", "huber_weights"):
+                assert torch.equal(a[key], b[key]), key
+    if name == "table":
+        assert ref[2]["iterations"] == 1 and ref[2]["converged"]
+        assert min(r["iterations"] for r in ref[:2]) > 1
+    n0 = ref[0]["iterations"]
+    run, hist = iterate(scene[name][0], cfg, n0 + 3)
+    assert int(hist[n0 - 1][0][SI_CONV]) == 1
+    for si, sf, sums in hist[n0:]:
+        assert torch.equal(si[:SI_TRIAL], hist[n0 - 1][0][:SI_TRIAL])
+        assert torch.equal(sf, hist[n0 - 1][1])
+        assert torch.equal(sums, hist[n0 - 1][2])
+    assert int(run.si[0, SI_IT]) == n0
 
 
 def test_no_valid_point(cases):

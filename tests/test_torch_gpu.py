@@ -11,10 +11,15 @@ camera outside the volume, and the wrappers refusing other dtypes; K1's
 slab form (the z-sharded background) against the plain slab and the
 whole-volume launch, and the sharded pipeline on two ranks under NCCL
 against the one-card pipeline (skips with fewer than two cards); the
-device-resident LM's kernels (``lm_system``, ``lm_trial``, ``lm_step``)
-phase by phase against their plain versions over tables of 1, 3 and 16
-LMs at 1, 31 and 4,097 points, and whole LMs on the card against the
-plain versions on the CPU.
+device-resident LM: the split kernels (``lm_system``, ``lm_trial``,
+``lm_step``, with their fixed-order final passes) phase by phase against
+their plain versions over tables of 1, 3 and 16 LMs at 1, 31 and 4,097
+points; the cooperative ``lm_run`` iteration by iteration against the
+plain iteration over tables of 1 and 17 LMs (bf16 items among them, an
+item of 0 points), on its own grid and on grids smaller than the span
+count, a table that stops in its first iteration and one that runs into
+``max_iter``; and whole LMs on the card against the plain versions on
+the CPU.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -991,19 +996,20 @@ def test_lm_table_cap_is_the_kernels(cuda, scene):
     cap = kernels.library("lm_system").emf_max_items()
     assert cap == tr.LM_MAX_ITEMS
     items = lm_items(cuda, scene, 31, cap + 1)
-    before = kernels.launches["lm_step"]
+    before = dict(kernels.launches)
     res = tr.run_lm_items(items, TrackConfig(max_iter=1))
     assert len(res) == cap + 1
     assert all(r["iterations"] == 1 for r in res)
-    assert kernels.launches["lm_step"] - before == 2 * 2
+    assert kernels.launches["lm_run"] - before["lm_run"] == 2
+    assert kernels.launches["lm_step"] == before["lm_step"]
 
 
 def test_device_lm_card_matches_cpu(cuda, scene):
     """Whole LMs: ``run_lm_items`` on the card (the kernels) against the
     plain versions on the CPU, over a table of three LMs at 4,097 points:
     the same iterations (within 1) and converged flags, poses within
-    1e-5; the card reads the state at most ceil(iterations / LM_CHUNK)
-    times. The CPU's sin and cos round apart from the card's, so the last
+    1e-5; the card reads the state once (one ``lm_run`` a table). The
+    CPU's sin and cos round apart from the card's, so the last
     evaluations' poses differ by up to 1e-5, and a point there may cross
     a validity bound, where its weights jump to 0: the last weights agree
     within 1e-4 at all but 0.5% of the points."""
@@ -1017,9 +1023,9 @@ def test_device_lm_card_matches_cpu(cuda, scene):
     kres = tr.run_lm_items(items, cfg)
     torch.cuda.synchronize()
     qres = tr.run_lm_items(cpu, cfg)
-    iters = max(r["iterations"] for r in kres)
-    assert kres[0]["host_reads"] <= -(-iters // tr.LM_CHUNK)
-    assert kernels.launches["lm_trial"] > before["lm_trial"]
+    assert kres[0]["host_reads"] == 1
+    assert kernels.launches["lm_run"] > before["lm_run"]
+    assert kernels.launches["lm_trial"] == before["lm_trial"]
     for a, b in zip(kres, qres):
         assert abs(a["iterations"] - b["iterations"]) <= 1
         assert a["converged"] == b["converged"]
@@ -1027,3 +1033,98 @@ def test_device_lm_card_matches_cpu(cuda, scene):
         for key in ("track_weights", "huber_weights"):
             off = (a[key].cpu() - b[key]).abs() > 1e-4
             assert off.float().mean() < 0.005, key
+
+
+def plain_iteration(run, cfg):
+    """One LM iteration of the plain versions (on the card here)."""
+    from emfusion_tpu_torch import tracking as tr
+    tr.lm_system_plain(run, cfg)
+    tr.lm_step_plain(run, cfg, 0)
+    tr.lm_trial_plain(run, cfg)
+    tr.lm_step_plain(run, cfg, 1)
+
+
+def hold_lm_run(k, q, cfg, iters):
+    """``iters`` iterations of ``lm_run`` on the card (one launch each)
+    against the plain iteration, in lockstep: the per-point values and
+    the weight maxima bit-equal, the sums equal once rounded to float32,
+    the records as ``assert_states_agree`` states; then the plain run
+    takes the kernel's state."""
+    from emfusion_tpu_torch import tracking as tr
+    for _ in range(iters):
+        launched("lm_run", lambda: tr.lm_run(k, cfg, 1))
+        plain_iteration(q, cfg)
+        for a, b in ((k.w, q.w), (k.hub, q.hub), (k.scratch, q.scratch),
+                     (k.wmax, q.wmax)):
+            assert torch.equal(a, b)
+        assert_sums_agree(k.sys, q.sys)
+        assert_sums_agree(k.trial, q.trial)
+        assert_states_agree(k, q)
+        q.si.copy_(k.si)
+
+
+@pytest.mark.parametrize("grid", [None, 1, 5])
+@pytest.mark.parametrize("n, S", [(4097, 1), (31, 17), (2500, 17)])
+def test_lm_run_matches_plain(cuda, scene, n, S, grid):
+    """``lm_run`` over S LMs of n points (every third a bf16 pair; with 17
+    items the first has 0 points) on the grid the wrapper computes
+    (min(spans, co-resident blocks)) and on grids of 1 and 5 blocks,
+    passed through the C entry's grid argument: eight iterations held
+    against the plain iteration, a launch each; then one launch of all
+    eight from the fresh state ends on the same bits (records, sums,
+    per-point values)."""
+    from emfusion_tpu_torch import tracking as tr
+    cfg = TrackConfig(max_iter=8)
+    items = lm_items(cuda, scene, n, S)
+    if S > 1:
+        empty = items[0].points[:, :0].contiguous()
+        items[0] = dataclasses.replace(items[0], points=empty,
+                                       assoc=items[0].assoc[:0])
+    k, q = tr.LMRun(items, cfg), tr.LMRun(items, cfg)
+    spans = sum(max(1, -(-m // 1024)) for m in k.n)
+    assert k.grid == min(spans, kernels.library(
+        "lm_run").emf_lm_run_blocks())
+    if grid is not None:
+        k.grid = grid
+    hold_lm_run(k, q, cfg, cfg.max_iter)
+    assert int(k.si[:, tr.SI_IT].max()) >= 2
+    whole = tr.LMRun(items, cfg)
+    whole.grid = k.grid
+    launched("lm_run", lambda: tr.lm_run(whole, cfg, cfg.max_iter))
+    for name in ("si", "sf", "sys", "trial", "w", "hub", "scratch", "wmax"):
+        assert torch.equal(getattr(whole, name), getattr(k, name)), name
+    if S > 1:
+        assert int(k.si[0, tr.SI_IT]) == 1 and int(k.si[0, tr.SI_CONV])
+
+
+def test_lm_run_stops_on_the_device(cuda, scene):
+    """A table whose LMs all converge at their first evaluation (no
+    association weight): one launch of 10 iterations leaves them at 1;
+    a table that runs into ``max_iter`` (3) stops there whatever the
+    launch asks; both as the plain loop ends them."""
+    from emfusion_tpu_torch import tracking as tr
+    items = lm_items(cuda, scene, 4097, 3)
+    still = [dataclasses.replace(it, assoc=torch.zeros_like(it.assoc))
+             for it in items]
+    for table, cfg, want in ((still, TrackConfig(max_iter=50), 1),
+                             (items, TrackConfig(max_iter=3), 3)):
+        k, q = tr.LMRun(table, cfg), tr.LMRun(table, cfg)
+        launched("lm_run", lambda: tr.lm_run(k, cfg, 10))
+        for _ in range(10):      # emf_lm_run's stop rule
+            if not bool(q.running(q.si, cfg).any()):
+                break
+            plain_iteration(q, cfg)
+        assert (k.si[:, tr.SI_IT] == want).all()
+        assert torch.equal(k.si, q.si)
+        assert torch.allclose(k.sf, q.sf, rtol=1e-5, atol=1e-6)
+
+
+def test_lm_run_refuses_a_grid_too_large(cuda, scene):
+    """A grid beyond the blocks the card holds at once is refused by the
+    C entry, and the wrapper raises (no fallback)."""
+    from emfusion_tpu_torch import tracking as tr
+    cfg = TrackConfig(max_iter=4)
+    k = tr.LMRun(lm_items(cuda, scene, 31, 1), cfg)
+    k.grid = kernels.library("lm_run").emf_lm_run_blocks() + 1
+    with pytest.raises(RuntimeError):
+        tr.lm_run(k, cfg, 1)
