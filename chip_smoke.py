@@ -97,15 +97,28 @@
    and K4 on the bf16 background, each at max abs error 0 with its bound
    recounted for bf16 bytes.
 9. Runs the CLI path: writes a 40-frame 640x480 TUM-format sequence of
-   the object path's scene with the port's PNG encoder (with ground
-   truth, calibration and ``.plk`` masks at frames 0 and 30), runs
-   ``apps.run_emfusion.main`` on the card over frames 0-19 with a
-   checkpoint, then ``--resume`` over frames 20-39, then
+   the object path's scene (with ground truth, calibration and ``.plk``
+   masks at frames 0 and 30), its PNGs with libpng's adaptive filters
+   (per row the filter type of least absolute sum, as cv2, the JAX native
+   writer and so real TUM files have them; the rgb frame the depth shaded
+   to grey with sensor noise and a black border), and fails unless rows
+   of all five filter types occur. Prints the decode ms a frame (rgb +
+   depth) of the numpy plain decoder on frame 0 and of the C unfilter
+   path over 10 frames (equal pixels), and the ``NativePrefetcher``'s
+   frames a second over the sequence with 1 and 4 worker threads, and
+   the same design on spawned processes with shared-memory slots (the
+   alternative measured against it, which lives only in this script).
+   Runs ``apps.run_emfusion.main`` on the card (its reader
+   decoding through the prefetcher) over frames 0-19 with a checkpoint,
+   then ``--resume --frame-meshes 10`` over frames 20-39, then
    ``apps.evaluate``; loads the final checkpoint and times the 512^3
-   sparse mesh extraction, ``write_results`` and a checkpoint save.
-   Prints the PNG decode ms/frame, the CLI's steady ms/frame, the
-   launches per frame, the ATE, the objects' recovery and the mesh;
-   fails on a camera ATE of 1 cm or more, a lost object, a recovery
+   sparse mesh extraction, ``write_results`` and a checkpoint save, and
+   fails unless the frame-40 ``--frame-meshes`` files (written by the
+   CLI's ``AsyncWriter`` thread) equal byte for byte those that
+   ``write_frame_meshes`` writes synchronously from that state. Prints
+   the CLI's steady ms/frame and run seconds (beside those of the single
+   reader thread on Up-only PNGs), the launches per frame, the ATE, the objects' recovery and the
+   mesh; fails on a camera ATE of 1 cm or more, a lost object, a recovery
    outside 0.35-2.0, a missing export directory, an empty mesh, or a
    background mesh whose median distance to the scene's surfaces is half
    a voxel or more. Its files live in ``chip_smoke_work/``, removed at
@@ -149,7 +162,12 @@
    per kind (calls, MB, ms), the refresh's GB/s, the all-reduces an LM
    iteration and each rank's peak memory. ``--only distributed`` runs
    this step alone, after a one-card run of the object path's first 32
-   frames as its reference.
+   frames as its reference; with two or more cards it first runs the
+   object path's first 2 frames and a table of its object LMs on
+   ``cuda:1`` while ``cuda:0`` stays current, and fails unless every
+   kernel ran there and poses, volumes and the LMs' results equal the
+   same run on ``cuda:0`` bit for bit (every launch runs on its
+   tensors' card).
 
 Kernel K6 (the projective warp) is not on either path: the port's
 fusion kernel makes its nearest-pixel pick per voxel. Step 2 holds it
@@ -209,6 +227,7 @@ OBJ_FRAMES = 40               # frames of the object path run
 ACCEL_FRAMES = 40             # frames of the accelerator path run
 CLI_FRAMES = 40               # frames of the CLI path's sequence
 CLI_SPLIT = 20                # the CLI path resumes from its checkpoint here
+CLI_MESH_EVERY = 10           # its second run's --frame-meshes
 PROFILE_FRAMES = 3            # frames of the profiled window
 GRID = (600, 896)             # K6's reference-plane grid at 640x480
 
@@ -291,6 +310,7 @@ ACCEL = dict(tracking_stride=3, estep_scale=2, motion_model="constvel",
              capture_backend="band")
 # the small card-vs-CPU object scene: 160x120, 2 cm background voxels,
 # 32^3 objects, masks every third frame, thresholds for its small masks
+SECOND_CARD_FRAMES = 2   # a spawn, then the objects tracked
 SMALL_OBJECTS = dict(globalVolumeDims=(128, 128, 128), globalVoxelSize=0.02,
                      volumePose=(0.0, 0.0, 1.28), objVolumeDims=(32, 32, 32),
                      maxTrackingIter=50, raycast_max_steps=256, max_objects=4,
@@ -2008,13 +2028,69 @@ EXPORT_TREE = ("output", "masks", "assoc_weights/bg/preTrack",
                "huber_weights/{oid}", "fg_probs/{oid}")
 
 
+def encode_png_adaptive(img):
+    """(H, W) uint16 or (H, W, 3) uint8 -> PNG bytes with libpng's
+    adaptive filter choice (what cv2 and the JAX native writer write, and
+    so real TUM and Co-Fusion files): per row, of None, Sub, Up, Average
+    and Paeth, the filtered bytes whose sum of absolute values, read as
+    signed bytes, is least (the first on a tie); deflate level 6.
+    Returns (the bytes, the rows' filter types)."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    if img.dtype == np.uint16 and img.ndim == 2:
+        depth, ctype, bpp = 16, 0, 2
+        x = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+    elif img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        depth, ctype, bpp = 8, 2, 3
+        x = img.reshape(h, 3 * w)
+    else:
+        raise ValueError(f"encode_png_adaptive: {img.dtype} {img.shape}")
+    x = x.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]                  # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                            # up
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]               # up-left
+    pr = a + b - c
+    pa, pb, pc = np.abs(pr - a), np.abs(pr - b), np.abs(pr - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    cand = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth]) & 255
+    cost = np.minimum(cand, 256 - cand).sum(axis=2)           # (5, h)
+    ftype = np.argmin(cost, axis=0)
+    rows = np.concatenate([ftype[:, None], cand[ftype, np.arange(h)]],
+                          1).astype(np.uint8)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                         0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b"")), ftype
+
+
+def grey_image(depth, rng):
+    """The rgb frame of the CLI path's sequence: the depth shaded to grey
+    with sensor noise (1.5 grey levels), the top 12 rows black (the
+    border an undistorted image has)."""
+    grey = 255 - depth * 60 + rng.normal(0, 1.5, depth.shape)
+    grey[:12] = 0
+    return np.stack([np.clip(np.rint(grey), 0, 255).astype(np.uint8)] * 3,
+                    -1)
+
+
 def write_tum_sequence(root, params, scene, n_frames, rng):
-    """The object path's scene as a TUM-format directory, written with the
-    port's PNG encoder: ``rgb/`` (the depth shaded to grey), ``depth/``
-    (x5000 uint16), ``associations.txt``, ``groundtruth.txt`` (``gt_pose``),
+    """The object path's scene as a TUM-format directory, its PNGs written
+    with libpng's adaptive filters (:func:`encode_png_adaptive`):
+    ``rgb/`` (:func:`grey_image`), ``depth/`` (x5000 uint16),
+    ``associations.txt``, ``groundtruth.txt`` (``gt_pose``),
     ``calibration.txt`` and ``masks/Mask%04d.plk`` on the mask frames.
-    Returns the frames' timestamps."""
-    from emfusion_tpu_torch.io.codecs import write_png
+    Returns the frames' timestamps and the count of rows of each filter
+    type (None, Sub, Up, Average, Paeth)."""
     from emfusion_tpu_torch.io.writers import _rot_to_quat
     from emfusion_tpu_torch.segmentation import (
         Detection, make_score_vector, save_detections,
@@ -2024,13 +2100,16 @@ def write_tum_sequence(root, params, scene, n_frames, rng):
     for sub in ("rgb", "depth", "masks"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     stamps, assoc, gt = [], [], []
+    filters = np.zeros(5, np.int64)
     for i, depth in enumerate(frames):
         ts = f"{1000 + i / 30:.6f}"
-        grey = np.clip(255 - depth * 60, 0, 255).astype(np.uint8)
-        write_png(os.path.join(root, "rgb", f"{ts}.png"),
-                  np.stack([grey] * 3, -1))
-        write_png(os.path.join(root, "depth", f"{ts}.png"),
-                  np.round(depth * 5000).astype(np.uint16))
+        for sub, img in (("rgb", grey_image(depth, rng)),
+                         ("depth", np.round(depth * 5000).astype(
+                             np.uint16))):
+            data, ftype = encode_png_adaptive(img)
+            filters += np.bincount(ftype, minlength=5)
+            with open(os.path.join(root, sub, f"{ts}.png"), "wb") as f:
+                f.write(data)
         T = gt_pose(i)
         q = _rot_to_quat(T[:3, :3])
         assoc.append(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png\n")
@@ -2047,7 +2126,144 @@ def write_tum_sequence(root, params, scene, n_frames, rng):
                                  f"{params.cy}\n"])):
         with open(os.path.join(root, name), "w") as f:
             f.writelines(lines)
-    return stamps
+    return stamps, filters
+
+
+def _decode_into_slots(jobs, size, scale, clamp, buf, capacity, todo,
+                       done):
+    """A decode process of :func:`process_prefetch`: frame indices from
+    ``todo`` (None ends it), each frame decoded into slot ``i % capacity``
+    of the shared ``buf``, then ``(i, None)`` or ``(i, error)`` on
+    ``done``."""
+    from emfusion_tpu_torch.native import decode_frame
+
+    h, w = size
+    slots = np.frombuffer(buf, np.uint8).reshape(capacity, -1)
+    while (i := todo.get()) is not None:
+        try:
+            rgb, depth = decode_frame(*jobs[i], scale, clamp, size)
+            slots[i % capacity, :h * w * 3] = rgb.reshape(-1)
+            slots[i % capacity, h * w * 3:].view(np.float32)[:] = \
+                depth.reshape(-1)
+            done.put((i, None))
+        except Exception as e:
+            done.put((i, f"{e}"))
+
+
+def process_prefetch(jobs, size, scale, clamp, n_workers, capacity=30):
+    """The prefetcher's design on spawned processes instead of threads,
+    the alternative that step 9 measures against it (threads won, so the
+    package has only them): frame ``i`` is sent once fewer than
+    ``capacity`` frames are out, decoded into shared-memory slot ``i %
+    capacity`` and copied out here. Yields (rgb, depth) in order; the
+    processes are ended when the generator is."""
+    import ctypes
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    h, w = size
+    buf = ctx.RawArray(ctypes.c_uint8, capacity * h * w * 7)
+    slots = np.frombuffer(buf, np.uint8).reshape(capacity, -1)
+    todo, done = ctx.Queue(), ctx.Queue()
+    procs = [ctx.Process(target=_decode_into_slots, daemon=True,
+                         args=(jobs, size, scale, clamp, buf, capacity,
+                               todo, done)) for _ in range(n_workers)]
+    for p in procs:
+        p.start()
+    for i in range(min(capacity, len(jobs))):
+        todo.put(i)
+    ready = {}
+    try:
+        for i in range(len(jobs)):
+            while i not in ready:
+                j, err = done.get(timeout=120)
+                ready[j] = err
+            if (err := ready.pop(i)) is not None:
+                raise RuntimeError(f"cli path: a decode process: {err}")
+            slot = slots[i % capacity]
+            yield (slot[:h * w * 3].reshape(h, w, 3).copy(),
+                   slot[h * w * 3:].view(np.float32).reshape(h, w).copy())
+            if i + capacity < len(jobs):
+                todo.put(i + capacity)
+    finally:
+        for p in procs:
+            p.terminate()
+            p.join()
+
+
+def decode_step(seq, report):
+    """Step 9's decode numbers on the adaptive-filtered sequence ``seq``:
+    ms a frame (rgb + depth) of the numpy plain decoder
+    (``codecs.decode_png_plain``) on frame 0 and of the C unfilter path
+    (``native.decode_frame``, one thread) over 10 frames, equal pixels
+    on frame 0; then the prefetcher (threads) and :func:`process_prefetch`
+    over every frame with 1 and 4 workers (capacity 30): frames a second
+    from its construction to the last frame, and after the first frame.
+    Returns the C path's ms a frame."""
+    from emfusion_tpu_torch.io import codecs
+    from emfusion_tpu_torch.io.readers import TUMReader
+    from emfusion_tpu_torch.native import NativePrefetcher, decode_frame
+
+    reader = TUMReader(seq)
+    reader.init()
+    reader.close()
+    paths = [reader._paths(i) for i in range(reader.num_frames)]
+    scale, clamp = reader.DEPTH_SCALE, reader.DEPTH_CLAMP
+    t0 = time.perf_counter()
+    plain = [codecs.decode_png_plain(open(p, "rb").read()) for p in paths[0]]
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    n_dec = min(10, len(paths))
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        rgb, depth = decode_frame(*paths[i], scale, clamp)
+        if i == 0:
+            same = np.array_equal(rgb, plain[0]) and np.array_equal(
+                depth, plain[1].astype(np.float32) * np.float32(scale))
+    c_ms = 1e3 * (time.perf_counter() - t0) / n_dec
+    if not same:
+        raise RuntimeError("cli path: the C unfilter and the plain decoder "
+                           "disagree on frame 0")
+
+    def thread_frames(n):
+        pf = NativePrefetcher([p[0] for p in paths], [p[1] for p in paths],
+                              n_workers=n, capacity=30, depth_scale=scale,
+                              depth_clamp=clamp)
+        try:
+            while (frame := pf.next()) is not None:
+                yield frame[:2]
+        finally:
+            pf.close()
+
+    rates = {}
+    for workers in ("threads", "processes"):
+        for n in (1, 4):
+            t0 = time.perf_counter()
+            frames = thread_frames(n) if workers == "threads" else \
+                process_prefetch(paths, rgb.shape[:2], scale, clamp, n)
+            got, first = 0, None
+            for rgb_i, depth_i in frames:
+                if got == 0 and not np.array_equal(rgb_i, plain[0]):
+                    raise RuntimeError(f"cli path: {workers} gave another "
+                                       f"frame 0")
+                got += 1
+                first = first or time.perf_counter()
+            end = time.perf_counter()
+            if got != len(paths):
+                raise RuntimeError(f"cli path: the prefetcher gave {got} of "
+                                   f"{len(paths)} frames")
+            rates[f"{workers}_{n}"] = dict(
+                fps=got / (end - t0), fps_after_first=(got - 1) / (
+                    end - first), first_frame_s=first - t0)
+    report["cli_path_decode"] = dict(plain_ms_per_frame=plain_ms,
+                                     c_ms_per_frame=c_ms, prefetcher=rates)
+    print(f"cli path: decode of an adaptive-filtered 640x480 rgb + depth "
+          f"pair: numpy plain {plain_ms:.3f} ms (frame 0), C unfilter "
+          f"{c_ms:.3f} ms/frame ({n_dec} frames, one thread)", flush=True)
+    print("cli path: prefetcher frames/s over the sequence (after the first "
+          "frame; first frame s): " + "; ".join(
+              f"{k} {r['fps']:.2f} ({r['fps_after_first']:.2f}; "
+              f"{r['first_frame_s']:.3f})" for k, r in rates.items()),
+          flush=True)
+    return c_ms
 
 
 def run_cli(module, argv):
@@ -2067,6 +2283,39 @@ def run_cli(module, argv):
     if rc != 0:
         raise RuntimeError(f"{module.__name__} {argv} exited {rc}")
     return out, secs
+
+
+def check_frame_meshes(pipe, run_dir, sync_dir):
+    """The ``--frame-meshes`` files the CLI's writer thread wrote at the
+    final frame against ``write_frame_meshes`` run synchronously on the
+    final checkpoint's state: the same names, byte for byte; and files at
+    every multiple of ``CLI_MESH_EVERY`` after the resume. Returns the
+    names and sizes checked."""
+    from emfusion_tpu_torch.io.writers import write_frame_meshes
+
+    t0 = time.perf_counter()
+    write_frame_meshes(pipe, sync_dir, pipe.frame)
+    sync_s = time.perf_counter() - t0
+    names = sorted(os.listdir(run_dir))
+    last = sorted(n for n in names if n.endswith(f"_{pipe.frame:04d}.ply"))
+    want = sorted(os.listdir(sync_dir))
+    same = [n for n in want if n in last and open(
+        os.path.join(run_dir, n), "rb").read() == open(
+            os.path.join(sync_dir, n), "rb").read()]
+    frames = sorted({int(n[-8:-4]) for n in names})
+    print(f"cli path: --frame-meshes files at frames {frames}; at frame "
+          f"{pipe.frame} {len(same)} of {len(want)} equal to the synchronous "
+          f"writer's byte for byte ({sync_s:.3f} s to write them on the "
+          f"frame loop)", flush=True)
+    if last != want or len(same) != len(want) or \
+            f"mesh_bg_{pipe.frame:04d}.ply" not in want or frames != list(range(CLI_SPLIT + CLI_MESH_EVERY,
+                                         CLI_FRAMES + 1, CLI_MESH_EVERY)):
+        raise RuntimeError(f"cli path: --frame-meshes files {last} differ "
+                           f"from the synchronous writer's {want} (equal: "
+                           f"{same}; frames {frames})")
+    return dict(frames=frames, files=want, sync_write_s=sync_s,
+                bytes={n: os.path.getsize(os.path.join(sync_dir, n))
+                       for n in want})
 
 
 def scene_distance(scene, pts, objects):
@@ -2100,7 +2349,6 @@ def cli_path(torch, params, scene, rng, report, config, then=None):
         load_checkpoint, save_checkpoint,
     )
     from emfusion_tpu_torch.eval.ate import load_trajectory
-    from emfusion_tpu_torch.io.readers import TUMReader
     from emfusion_tpu_torch.io.writers import (
         background_mesh, read_volume_bin, write_results,
     )
@@ -2112,19 +2360,17 @@ def cli_path(torch, params, scene, rng, report, config, then=None):
         seq, ck = os.path.join(work, "seq"), os.path.join(work, "ck.npz")
         out1, out2 = os.path.join(work, "out1"), os.path.join(work, "out2")
         t0 = time.perf_counter()
-        stamps = write_tum_sequence(seq, params, scene, CLI_FRAMES, rng)
+        stamps, filters = write_tum_sequence(seq, params, scene, CLI_FRAMES,
+                                             rng)
         write_s = time.perf_counter() - t0
-        reader = TUMReader(seq)
-        reader.init()
-        reader.close()
-        n_dec = min(10, CLI_FRAMES)
-        t0 = time.perf_counter()
-        for i in range(n_dec):
-            reader._read_frame(i)
-        decode_ms = 1e3 * (time.perf_counter() - t0) / n_dec
         print(f"cli path: {CLI_FRAMES}-frame TUM sequence written in "
-              f"{write_s:.3f} s; PNG decode (rgb + depth) {decode_ms:.3f} "
-              f"ms/frame", flush=True)
+              f"{write_s:.3f} s with libpng's adaptive filters: rows of "
+              f"None, Sub, Up, Average, Paeth {filters.tolist()}",
+              flush=True)
+        if not filters.all():
+            raise RuntimeError(f"cli path: a filter type is missing from the "
+                               f"sequence: {filters.tolist()}")
+        decode_ms = decode_step(seq, report)
 
         common = ["-t", seq, "-m", os.path.join(seq, "masks"), "-c",
                   config, "--checkpoint", ck,
@@ -2133,8 +2379,8 @@ def cli_path(torch, params, scene, rng, report, config, then=None):
         kernels.reset_launches()
         text1, run1_s = run_cli(run_emfusion, common + [
             "-e", out1, "--frames", str(CLI_SPLIT)])
-        text2, run2_s = run_cli(run_emfusion, common + ["-e", out2,
-                                                        "--resume"])
+        text2, run2_s = run_cli(run_emfusion, common + [
+            "-e", out2, "--resume", "--frame-meshes", str(CLI_MESH_EVERY)])
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
         steady = [float(line.split()[1]) for line in
@@ -2157,6 +2403,9 @@ def cli_path(torch, params, scene, rng, report, config, then=None):
         t0 = time.perf_counter()
         verts, norms, tris = background_mesh(pipe)
         mesh_s = time.perf_counter() - t0
+        frame_meshes = check_frame_meshes(pipe, os.path.join(out2,
+                                                             "frame_meshes"),
+                                          os.path.join(work, "sync"))
         t0 = time.perf_counter()
         write_results(pipe, os.path.join(work, "out3"), export_volumes=True)
         results_s = time.perf_counter() - t0
@@ -2205,7 +2454,8 @@ def cli_path(torch, params, scene, rng, report, config, then=None):
                         break
         report["cli_path"] = dict(
             frames=CLI_FRAMES, resumed_at=CLI_SPLIT,
-            sequence_write_s=write_s, png_decode_ms_per_frame=decode_ms,
+            sequence_write_s=write_s, png_filter_rows=filters.tolist(),
+            png_decode_ms_per_frame=decode_ms, frame_meshes=frame_meshes,
             run_s=[run1_s, run2_s], steady_ms_per_frame=steady,
             launches=launches,
             launches_per_frame={k: v / CLI_FRAMES
@@ -2217,8 +2467,11 @@ def cli_path(torch, params, scene, rng, report, config, then=None):
             mesh_median_scene_distance_m=med, object_mesh_vertices=obj_verts,
             write_results_s=results_s, missing_exports=missing)
         print(f"cli path: frames 0-{CLI_SPLIT - 1} {run1_s:.3f} s, resumed "
-              f"{CLI_SPLIT}-{CLI_FRAMES - 1} {run2_s:.3f} s; steady-state "
-              f"{steady} ms/frame; launches per frame " + ", ".join(
+              f"{CLI_SPLIT}-{CLI_FRAMES - 1} (with --frame-meshes "
+              f"{CLI_MESH_EVERY}) {run2_s:.3f} s; steady-state {steady} "
+              f"ms/frame (one reader thread on Up-only PNGs, H100 80GB "
+              f"HBM3 at 700 W: 55.876 / 52.215); "
+              f"launches per frame " + ", ".join(
                   f"{k} {v / CLI_FRAMES:.2f}" for k, v in launches.items()),
               flush=True)
         print(f"cli path: camera ATE rmse {ate['ate_rmse'] * 1e3:.3f} mm "
@@ -3166,6 +3419,89 @@ def main() -> int:
         shutil.rmtree(DIST_WORK, ignore_errors=True)
 
 
+def second_card_run(torch, params, frames, masks, dev):
+    """The object path's first frames on ``dev`` (a spawn at frame 0,
+    then the objects tracked), then the serial object LMs' table of the
+    next frame run alone (``tracking.run_lm_items``, one ``lm_run``).
+    Returns the poses, every state tensor on the host and the LMs'
+    results."""
+    from emfusion_tpu_torch import tracking
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    pipe = EMFusionPipeline(params, mask_provider(masks), device=dev)
+    for depth in frames[:-1]:
+        pipe.process_frame(None, depth)
+    s, o = pipe.state, pipe.state.objs
+    live = [int(k) for k in np.nonzero(pipe._h_active)[0]]
+    _, points = pipe.preprocess(frames[-1])
+    lms = tracking.run_lm_items(pipe.object_lm_items(points, live),
+                                pipe.track_cfg)
+    tensors = [s.bg_tsdf, s.bg_weights, s.bg_assoc, s.cam_pose, o.tsdf,
+               o.weights, o.fg_counts, o.assoc, o.pose]
+    return dict(live=live, poses=dict(pipe.poses),
+                obj_poses={i: dict(t) for i, t in pipe.obj_poses.items()},
+                tensors=[t.cpu() for t in tensors],
+                lms=[{k: (v.cpu() if torch.is_tensor(v) else v)
+                      for k, v in r.items()} for r in lms])
+
+
+def second_card(torch, params, frames, masks, report):
+    """Every launch on its tensors' card: the object path's first
+    ``SECOND_CARD_FRAMES`` frames and a table of its object LMs on
+    ``cuda:1`` while ``cuda:0`` stays the current card, against the
+    same on ``cuda:0``, bit for bit (poses, volumes, association images,
+    the LMs' poses, iterations and weights). Fails on any difference or
+    if a kernel of the path did not launch on ``cuda:1``; with one card,
+    says that it skipped."""
+    from emfusion_tpu_torch import kernels
+
+    if torch.cuda.device_count() < 2:
+        report["second_card"] = "skipped: one card"
+        print("second card: skipped (one card)", flush=True)
+        return
+    torch.cuda.set_device(0)
+    frames = frames[:SECOND_CARD_FRAMES + 1]
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    one = second_card_run(torch, params, frames, masks,
+                          torch.device("cuda", 1))
+    secs = time.perf_counter() - t0
+    ran = {k: kernels.launches[k] - before[k] for k in kernels.launches}
+    if torch.cuda.current_device() != 0:
+        raise RuntimeError("second card: the run changed the current card")
+    zero = second_card_run(torch, params, frames, masks,
+                           torch.device("cuda", 0))
+    diffs = [bits_differ(torch, a, b)
+             for a, b in zip(one["tensors"], zero["tensors"])]
+    poses = sum(int(not np.array_equal(q, zero["poses"][f]))
+                for f, q in one["poses"].items())
+    obj = sum(int(not np.array_equal(q, zero["obj_poses"][i][f]))
+              for i, t in one["obj_poses"].items() for f, q in t.items())
+    lms = sum(int(not (torch.equal(v, b[k]) if torch.is_tensor(v)
+                       else v == b[k]))
+              for a, b in zip(one["lms"], zero["lms"]) for k, v in a.items())
+    report["second_card"] = dict(
+        frames=SECOND_CARD_FRAMES, live=one["live"], seconds=secs,
+        launches_on_cuda1=ran, tensor_bits_differ=diffs,
+        camera_poses_differ=poses, object_poses_differ=obj,
+        lm_fields_differ=lms,
+        lm_iterations=[r["iterations"] for r in one["lms"]])
+    print(f"second card: {SECOND_CARD_FRAMES} object-path frames and "
+          f"{len(one['lms'])} object LMs on cuda:1 (current card 0), "
+          f"{secs:.3f} s; launches there " + ", ".join(
+              f"{k} {v}" for k, v in ran.items() if v) +
+          f"; against cuda:0: tensor elements differing {diffs}, camera "
+          f"poses {poses}, object poses {obj}, LM fields {lms}",
+          flush=True)
+    missing = [k for k in ("fusion", "sample", "raycast", "bilateral",
+                           "lm_run") if not ran[k]]
+    if missing or not one["live"] or one["live"] != zero["live"] or any(
+            diffs) or poses or obj or lms or len(one["poses"]) != len(
+                zero["poses"]):
+        raise RuntimeError(f"second card: cuda:1 differs from cuda:0 or a "
+                           f"kernel did not run there (missing {missing})")
+
+
 def life_reference(pipe, frames, masks):
     """Step 11's lifecycle reference from a one-card object path run:
     its first ``LIFE_FRAMES`` frames, their masks, camera poses and
@@ -3232,6 +3568,8 @@ def only_distributed(torch, args, params, scene, rng, report, stress_path,
     del pipe
     torch.cuda.empty_cache()
     lap("reference (one card)")
+    second_card(torch, params, frames, masks, report)
+    lap("second card")
     slab_launches, _ = distributed_step(torch, params,
                                         (stress_path, f0, spheres), life,
                                         report)

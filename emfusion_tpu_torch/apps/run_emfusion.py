@@ -37,6 +37,12 @@ is the one-card run's. (The JAX app builds its mesh whenever more than
 one device is visible; the port asks for the number of ranks.)
 ``--serve`` and ``--turntable`` run on one rank only.
 
+The reader decodes ahead on 4 worker threads (``native.
+NativePrefetcher``). ``--frame-meshes`` meshes on the frame loop and
+writes the files on one writer thread (``native.AsyncWriter``), held
+for the run: the CLI waits for it before ``write_results`` and at exit,
+and raises if a write failed.
+
 The frame size comes from the data; where it differs from the config's,
 the intrinsics are scaled with it (``config.fit_frame_size``) before a
 ``calibration.txt`` beside the data overrides them. The per-phase report
@@ -146,6 +152,7 @@ def _run(args, mesh=None) -> int:
     from emfusion_tpu_torch.io.readers import CoFusionReader, TUMReader
     from emfusion_tpu_torch.io.writers import write_frame_meshes, \
         write_results
+    from emfusion_tpu_torch.native import AsyncWriter
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
     from emfusion_tpu_torch.profiling import PhaseTimer
     from emfusion_tpu_torch.segmentation import ReplayMaskProvider
@@ -197,6 +204,7 @@ def _run(args, mesh=None) -> int:
         prof = profile(activities=acts)
         prof.__enter__()
 
+    writer = AsyncWriter() if args.exportdir and args.frame_meshes else None
     t_start = time.time()
     n = 0
     frame_times = []
@@ -219,7 +227,7 @@ def _run(args, mesh=None) -> int:
             if args.frame_meshes and pipe.frame % args.frame_meshes == 0:
                 write_frame_meshes(
                     pipe, os.path.join(args.exportdir, "frame_meshes"),
-                    pipe.frame)
+                    pipe.frame, writer=writer)
         n += 1
         if (args.checkpoint and args.checkpoint_every
                 and pipe.frame % args.checkpoint_every == 0):
@@ -246,6 +254,7 @@ def _run(args, mesh=None) -> int:
             do_frame(pending, None)
     finally:
         reader.close()
+        failed = writer.close() if writer is not None else 0
         if viewer is not None:
             viewer.close()
         if prof is not None:
@@ -255,6 +264,9 @@ def _run(args, mesh=None) -> int:
                 args.profile, "trace.json" if mesh is None
                 else f"trace.rank{mesh.rank}.json"))
 
+    if failed:
+        raise RuntimeError(f"--frame-meshes: {failed} file writes failed "
+                           f"({writer.last_error})")
     elapsed = time.time() - t_start
     say(f"processed {n} frames in {elapsed:.1f}s "
           f"({n / max(elapsed, 1e-9):.2f} fps)")

@@ -1082,26 +1082,31 @@ extern "C" int emf_lm_step(int n, int phase, const EmfLmBufs* B,
   return (int)cudaGetLastError();
 }
 
-// The blocks of emf_lm_run that the current device holds at once (its
-// occupancy times its SMs), read once a device; 0 if a query fails.
-extern "C" int emf_lm_run_blocks() {
+// The blocks of emf_lm_run that device `dev` holds at once (its
+// occupancy times its SMs), read once a device; 0 if a query fails. The
+// occupancy query reads the current device, so it runs with `dev` made
+// current and the caller's device restored.
+extern "C" int emf_lm_run_blocks(int dev) {
   static int cap[64];  // by device ordinal; 0: not read yet
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (dev < 0 || dev >= 64) return 0;
   if (!cap[dev]) {
-    int per_sm = 0, sms = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, emf_lm_run_kernel, EMF_LM_BLOCK, 0) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
+    int prev = 0, per_sm = 0, sms = 0;
+    if (cudaGetDevice(&prev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
       return 0;
+    const bool ok =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, emf_lm_run_kernel, EMF_LM_BLOCK, 0) == cudaSuccess &&
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+            cudaSuccess;
+    if (cudaSetDevice(prev) != cudaSuccess || !ok) return 0;
     cap[dev] = per_sm * sms;
   }
   return cap[dev];
 }
 
 // `iters` LM iterations of the table in one cooperative launch of `grid`
-// blocks (1 .. emf_lm_run_blocks(); the host passes min(spans, that)).
+// blocks (1 .. emf_lm_run_blocks(dev); the host passes min(spans, that))
+// on the current device, which the caller has made the tables' device.
 // Returns a cudaError_t: a grid the device cannot hold at once is refused.
 extern "C" int emf_lm_run(const EmfLmItem* items, int n, int iters,
                           const EmfLmBufs* B, const EmfLmCfg* C, int grid,
@@ -1111,7 +1116,10 @@ extern "C" int emf_lm_run(const EmfLmItem* items, int n, int iters,
   const int e = emf_lm_table(items, n, T, spans);
   if (e) return e;
   if (iters < 1 || grid < 1) return (int)cudaErrorInvalidValue;
-  if (grid > emf_lm_run_blocks())
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return (int)got;
+  if (grid > emf_lm_run_blocks(dev))
     return (int)cudaErrorCooperativeLaunchTooLarge;
   EmfLmBufs b = *B;
   EmfLmCfg c = *C;

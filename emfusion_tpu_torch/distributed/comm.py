@@ -154,7 +154,7 @@ class _Timed:
     def __enter__(self):
         if self.g.device.type == "cuda":
             self.s = torch.cuda.Event(enable_timing=True)
-            self.s.record()
+            self.s.record(torch.cuda.current_stream(self.g.device))
         else:
             self.t0 = time.perf_counter()
         return self
@@ -164,7 +164,7 @@ class _Timed:
             return False
         if self.g.device.type == "cuda":
             e = torch.cuda.Event(enable_timing=True)
-            e.record()
+            e.record(torch.cuda.current_stream(self.g.device))
             self.g.stats.add(self.kind, self.nbytes, self.s, e)
         else:
             self.g.stats.add(self.kind, self.nbytes,

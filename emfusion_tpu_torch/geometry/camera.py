@@ -108,10 +108,10 @@ def bilateral_filter(depth: torch.Tensor, kernel_size: int = 7,
     depth = depth.contiguous()
     out = torch.empty_like(depth)
     spatial = _spatial_table(int(kernel_size), float(sigma_spatial))
-    kernels.check_cuda("bilateral_filter", depth, out)
+    dev = kernels.check_cuda("bilateral_filter", depth, out)
     inv2sd = 1.0 / (2.0 * sigma_depth * sigma_depth)
     kernels.launch("bilateral", depth.data_ptr(), out.data_ptr(),
-                   spatial.data_ptr(), H, W, r, inv2sd)
+                   spatial.data_ptr(), H, W, r, inv2sd, device=dev)
     return out
 
 

@@ -91,7 +91,7 @@ def _launch_capture(jobs) -> None:
     (Z, Y, X) volumes of float32 or bf16 with a cache of
     :func:`cache_dtype`, float32 (3, N) points, contiguous, on one CUDA
     device; anything else raises."""
-    table = []
+    table, dev = [], None
     for tsdf, wts, pts, rot, trans, vs, cache, anchor in jobs:
         dt = kernels.volume_dtype_code("capture_neighborhoods", tsdf, wts)
         if tsdf.dim() != 3 or wts.shape != tsdf.shape or \
@@ -101,8 +101,8 @@ def _launch_capture(jobs) -> None:
                              "two (Z, Y, X) volumes (tsdf, weights) of one "
                              "dtype, a cache of that dtype and float32 "
                              "(3, N) points")
-        kernels.check_cuda("capture_neighborhoods", tsdf, wts, pts, cache,
-                           anchor, allow_bf16=True)
+        dev = kernels.check_cuda("capture_neighborhoods", tsdf, wts, pts,
+                                 cache, anchor, allow_bf16=True, device=dev)
         N = pts.shape[1]
         if N == 0:
             continue
@@ -111,7 +111,7 @@ def _launch_capture(jobs) -> None:
             tsdf.data_ptr(), wts.data_ptr(), pts.data_ptr(),
             cache.data_ptr(), anchor.data_ptr(), N, Z, Y, X, dt,
             kernels.pose_array(rot, trans), float(vs)))
-    kernels.launch_table("capture", table)
+    kernels.launch_table("capture", table, device=dev)
 
 
 def capture_neighborhoods(vols, points_cam: torch.Tensor, rel_rot,

@@ -222,8 +222,9 @@ def sample_items(items: Sequence[SampleItem]) -> Samples:
             raise ValueError("sample_items: float32 (3, N) points with "
                              "contiguous rows")
         kernels.check_cuda("sample_items", it.vol, *(
-            [] if it.counts is None else [it.counts]), allow_bf16=True)
-        if pts.device != dev or it.vol.device != dev:
+            [] if it.counts is None else [it.counts]), allow_bf16=True,
+            device=dev)
+        if pts.device != dev:
             raise ValueError("sample_items: all tensors must be on one "
                              "CUDA device")
         flat.append(pts)
@@ -248,7 +249,7 @@ def sample_items(items: Sequence[SampleItem]) -> Samples:
             0 if fg is None else fg.data_ptr(), pts.stride(0), n, Z, Y, X,
             code, kernels.pose_array(it.rot, it.trans), float(it.voxel_size),
             float(it.margin)))
-    kernels.launch_table("sample", table)
+    kernels.launch_table("sample", table, device=dev)
     return results
 
 

@@ -7,17 +7,25 @@ machine it runs on has neither ``cv2``, ``imageio`` nor PIL. So it carries
 its own codecs, on ``zlib`` and numpy:
 
   * PNG decode: 8-bit gray, gray + alpha, RGB and RGBA, 16-bit gray and
-    RGB, non-interlaced, every filter type. An image whose rows use only
-    None, Sub and Up is reconstructed row by row, each row (and each run
-    of Up rows) one vector operation; one with Average or Paeth rows is
-    reconstructed along its anti-diagonals, each one vector operation
-    over the rows (every filter reads only the left, upper and upper-left
-    bytes).
+    RGB, non-interlaced, every filter type: ``zlib`` inflates, and the
+    rows are reconstructed by a C loop (``io/unfilter.c``, built at first
+    use by :mod:`~emfusion_tpu_torch.io.clib`; :func:`decode_png`).
+    :func:`decode_png_plain` is its numpy twin, which the tests hold it
+    to: an image whose rows use only None, Sub and Up row by row, each
+    row (and each run of Up rows) one vector operation; one with Average
+    or Paeth rows (as libpng's adaptive filters write) along its
+    anti-diagonals, each one vector operation over the rows (every
+    filter reads only the left, upper and upper-left bytes) -- a Python
+    loop over ~1,100 anti-diagonals at 640x480.
   * PNG encode: 8-bit gray, RGB and RGBA and 16-bit gray, every row
     Up-filtered (a difference with the row above: one vector operation).
   * OpenEXR decode (the Co-Fusion depth, ``native/src/exr.cc``): single-
     part scanline files, NONE, ZIPS and ZIP compression, HALF, FLOAT and
-    UINT channels, increasing line order.
+    UINT channels, increasing line order; ZIP blocks un-predicted by the
+    same C library (:func:`_zip_reconstruct` is the numpy twin).
+  * OpenEXR encode (the native writer's ``write_exr``): one float channel
+    ``Z``, NONE or ZIP, FLOAT or HALF, the header and blocks of
+    ``native/src/exr.cc``'s writer.
   * JPEG encode (the live viewer's MJPEG stream, which the JAX viewer
     encodes with PIL at quality 85): baseline, 8-bit gray or YCbCr 4:4:4,
     the IJG quality scaling of the Annex K tables, one 8x8 DCT matrix
@@ -26,7 +34,8 @@ its own codecs, on ``zlib`` and numpy:
 
 :func:`read_png` and :func:`read_exr` always take this module's decoders,
 on every machine; ``tests/test_torch_io.py`` holds the PNG decoder to
-``cv2``'s pixels and the EXR decoder to the native runtime's.
+``cv2``'s pixels and the EXR decoder to the JAX native runtime's, and
+``tests/test_torch_native.py`` the C loops to their numpy twins.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ import zlib
 from typing import Optional
 
 import numpy as np
+
+from emfusion_tpu_torch.io import clib
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels
@@ -97,8 +108,19 @@ def _unfilter_wavefront(ftype, filt, bpp):
     return rec[1:, 1:].astype(np.uint8).reshape(h, stride)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) or (H, W, C) uint8 / uint16 (RGB order)."""
+def unfilter_plain(ftype: np.ndarray, filt: np.ndarray,
+                   bpp: int) -> np.ndarray:
+    """The numpy twin of the C unfilter: (h,) filter types and (h,
+    stride) filtered bytes -> the image bytes."""
+    if ftype.max(initial=0) > 4:
+        raise ValueError("PNG: bad filter type")
+    if ftype.max(initial=0) <= 2:
+        return _unfilter_rows(ftype, filt, bpp)
+    return _unfilter_wavefront(ftype, filt, bpp)
+
+
+def _png_rows(data: bytes):
+    """PNG bytes -> (the inflated rows, h, w, bit depth, channels)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, idat, hdr = 8, [], None
@@ -118,21 +140,36 @@ def decode_png(data: bytes) -> np.ndarray:
     if ctype not in _PNG_CHANNELS or depth not in (8, 16) or interlace:
         raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
                          f"{ctype}, interlace {interlace}")
-    ch = _PNG_CHANNELS[ctype]
-    bpp = ch * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = raw[:h * (w * bpp + 1)].reshape(h, w * bpp + 1)
-    ftype, filt = rows[:, 0], rows[:, 1:]
-    if ftype.max(initial=0) > 4:
-        raise ValueError("PNG: bad filter type")
-    if ftype.max(initial=0) <= 2:
-        px = _unfilter_rows(ftype, filt, bpp)
-    else:
-        px = _unfilter_wavefront(ftype, filt, bpp)
+    return raw, h, w, depth, _PNG_CHANNELS[ctype]
+
+
+def _png_pixels(px: np.ndarray, h: int, w: int, depth: int, ch: int):
     if depth == 16:
         px = px.view(">u2").astype(np.uint16)
     px = px.reshape(h, w, ch)
     return px[..., 0] if ch == 1 else px
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) or (H, W, C) uint8 / uint16 (RGB order); the
+    rows reconstructed by the C loop (:func:`clib.unfilter_png`)."""
+    raw, h, w, depth, ch = _png_rows(data)
+    bpp = ch * depth // 8
+    return _png_pixels(clib.unfilter_png(raw, h, w * bpp, bpp), h, w, depth,
+                       ch)
+
+
+def decode_png_plain(data: bytes) -> np.ndarray:
+    """:func:`decode_png` with the rows reconstructed by numpy
+    (:func:`unfilter_plain`): the tests' reference."""
+    raw, h, w, depth, ch = _png_rows(data)
+    bpp = ch * depth // 8
+    if raw.size < h * (w * bpp + 1):
+        raise ValueError("PNG: short image data")
+    rows = raw[:h * (w * bpp + 1)].reshape(h, w * bpp + 1)
+    return _png_pixels(unfilter_plain(rows[:, 0], rows[:, 1:], bpp), h, w,
+                       depth, ch)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -374,7 +411,8 @@ def _exr_lines(compression: int) -> int:
 
 def _zip_reconstruct(d: np.ndarray) -> np.ndarray:
     """Undo EXR's ZIP predictor (bytes as deltas + 128) and its split of
-    the even and odd bytes into two halves."""
+    the even and odd bytes into two halves: the numpy twin of the C
+    ``emf_exr_unpredict`` that :func:`decode_exr` calls."""
     d = d.astype(np.int64)
     d[1:] -= 128
     d = (np.cumsum(d) & 255).astype(np.uint8)
@@ -437,7 +475,7 @@ def decode_exr(data: bytes) -> np.ndarray:
         if comp == _EXR_NONE or size >= raw_size:
             raw = packed[:raw_size]
         else:
-            raw = _zip_reconstruct(np.frombuffer(
+            raw = clib.exr_unpredict(np.frombuffer(
                 zlib.decompress(packed.tobytes()), np.uint8))
         p = 0
         for line in range(n):
@@ -457,3 +495,70 @@ def read_exr(path: str) -> Optional[np.ndarray]:
             return decode_exr(f.read())
     except FileNotFoundError:
         return None
+
+
+def _half_bits(img: np.ndarray) -> np.ndarray:
+    """float32 -> IEEE half bits as the native writer converts them
+    (``exr.cc``'s ``float_to_half``): the mantissa truncated, a result
+    below the normal range flushed to zero (signed), anything beyond it
+    (NaN too) to infinity."""
+    bits = img.view(np.uint32)
+    sign = (bits >> 16) & 0x8000
+    exp = ((bits >> 23) & 0xFF).astype(np.int32) - 112
+    man = (bits & 0x7FFFFF) >> 13
+    half = np.where(exp <= 0, sign, np.where(
+        exp >= 31, sign | 0x7C00,
+        sign | (np.clip(exp, 0, 31).astype(np.uint32) << 10) | man))
+    return half.astype("<u2")
+
+
+def encode_exr(img: np.ndarray, compression: int = _EXR_ZIP,
+               as_half: bool = False) -> bytes:
+    """(H, W) float32 -> a scanline OpenEXR file with one channel ``Z``,
+    NONE (0) or ZIP (3, 16 lines a block, deflate level 6) compression,
+    FLOAT or HALF samples: the header, block order and payload choice of
+    the native writer (``native/src/exr.cc``)."""
+    if compression not in (_EXR_NONE, _EXR_ZIP):
+        raise ValueError(f"encode_exr: compression {compression} (NONE 0 "
+                         f"or ZIP 3)")
+    img = np.ascontiguousarray(img, np.float32)
+    if img.ndim != 2:
+        raise ValueError(f"encode_exr: an (H, W) image, got {img.shape}")
+    H, W = img.shape
+
+    def attr(name, kind, body):
+        return (name.encode() + b"\0" + kind.encode() + b"\0"
+                + struct.pack("<i", len(body)) + body)
+
+    box = struct.pack("<4i", 0, 0, W - 1, H - 1)
+    head = (struct.pack("<II", EXR_MAGIC, 2)
+            + attr("channels", "chlist", b"Z\0" + struct.pack(
+                "<iiii", 1 if as_half else 2, 0, 1, 1) + b"\0")
+            + attr("compression", "compression", bytes([compression]))
+            + attr("dataWindow", "box2i", box)
+            + attr("displayWindow", "box2i", box)
+            + attr("lineOrder", "lineOrder", b"\0")
+            + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+            + attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0))
+            + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+            + b"\0")
+    pix = _half_bits(img) if as_half else img.astype("<f4")
+    lines = _exr_lines(compression)
+    nblocks = -(-H // lines)
+    blocks, offsets = [], []
+    pos = len(head) + 8 * nblocks
+    for y0 in range(0, H, lines):
+        raw = pix[y0:y0 + lines].tobytes()
+        payload = raw
+        if compression == _EXR_ZIP:
+            d = np.frombuffer(raw, np.uint8)
+            d = np.concatenate([d[0::2], d[1::2]]).astype(np.int64)
+            d[1:] = (d[1:] - d[:-1] + 128) & 255
+            packed = zlib.compress(d.astype(np.uint8).tobytes(), 6)
+            if len(packed) < len(raw):
+                payload = packed
+        blk = struct.pack("<ii", y0, len(payload)) + payload
+        offsets.append(pos)
+        pos += len(blk)
+        blocks.append(blk)
+    return head + np.asarray(offsets, "<u8").tobytes() + b"".join(blocks)

@@ -24,7 +24,10 @@ rounding and window anchors would otherwise move at boundaries).
 ``launches_by_shape`` the same launches per kernel and volume shape (for
 the kernels that take volumes: a launch counts once under each shape it
 touched, so the background's and an object's are apart);
-:func:`launch` is the only place that adds to them.
+:func:`launch` is the only place that adds to them. A launch runs
+under the card that holds its tensors and on that card's current
+stream, whatever card is current: :func:`check_cuda` checks that the
+tensors share one card and returns it, and the wrapper hands it on.
 
 K1 (fusion), K2 (sample) and K3 (capture) take a work table: a host
 array of :class:`FuseArgs` / :class:`SampleArgs` / :class:`CaptureArgs`,
@@ -37,7 +40,7 @@ state and buffers of :class:`LmBufsArgs` and the constants of
 :class:`LmCfgArgs` (``tracking.LMRun`` builds them). ``lm_run`` is one
 cooperative launch (``cudaLaunchCooperativeKernel``) for up to
 ``max_iter`` LM iterations of the whole table, its grid at most the blocks the card holds
-at once (``emf_lm_run_blocks``); the split kernels, which the pixel-
+at once (:func:`lm_run_blocks`); the split kernels, which the pixel-
 sharded LM launches, count per phase: ``lm_system`` and ``lm_step`` two
 launches an iteration, ``lm_trial`` one.
 """
@@ -50,6 +53,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from collections import Counter
 
@@ -83,6 +87,12 @@ KERNELS = {
     "lm_trial": ("lm.cu", "emf_lm_trial", [_P, _I, _P, _P]),
     "lm_step": ("lm.cu", "emf_lm_step", [_I, _I, _P, _P]),
 }
+
+# a source's C helpers besides its kernels' entries and ``emf_max_items``
+# (which takes nothing): source stem -> {entry: argument types}; each
+# returns an int
+HELPERS = {"lm": {"emf_lm_run_blocks": [_I], "emf_lm_spans": [_I]}}
+
 
 class FuseArgs(ctypes.Structure):
     """One volume of a K1 launch (``EmfFuseItem`` in ``csrc/fusion.cu``)."""
@@ -160,13 +170,48 @@ def _source(name: str) -> str:
     return os.path.splitext(KERNELS[name][0])[0]
 
 
-def _library_path(src: str) -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in [os.path.join(CSRC, f"{src}.cu")] + sorted(
-            glob.glob(os.path.join(CSRC, "*.cuh"))):
+def library_path(stem: str, sources, flags) -> str:
+    """Where the shared library ``stem``, built from ``sources`` with
+    ``flags``, lives: under ``build/``, its name carrying a hash of both,
+    so an edit rebuilds."""
+    h = hashlib.sha1(" ".join(flags).encode())
+    for path in sources:
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"{src}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def compile_shared(jobs) -> dict:
+    """Compile each ``(stem, command, so)`` of ``jobs`` (``command``: the
+    compiler, its flags and the source) into the shared library ``so``,
+    one process each, all started together. Each lands under a temporary
+    name and is renamed into place, so no process loads half a file.
+    Returns each stem's compiler output; raises with the output of those
+    that failed."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for stem, cmd, so in jobs:
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        procs.append((stem, so, tmp, subprocess.Popen(
+            [*cmd, "-o", tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    logs, failed = {}, []
+    for stem, so, tmp, proc in procs:
+        out, _ = proc.communicate()
+        logs[stem] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {stem} ---\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError(f"{os.path.basename(jobs[0][1][0])} failed:\n"
+                           + "\n".join(failed))
+    return logs
+
+
+def _library_path(src: str) -> str:
+    return library_path(src, [os.path.join(CSRC, f"{src}.cu")] + sorted(
+        glob.glob(os.path.join(CSRC, "*.cuh"))), NVCC_FLAGS)
 
 
 def build(names=None) -> float:
@@ -181,25 +226,10 @@ def build(names=None) -> float:
     t0 = time.perf_counter()
     if not todo:
         return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    procs = []
-    for name, so in todo:
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        procs.append((name, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for name, so, tmp, proc in procs:
-        out, _ = proc.communicate()
-        build_log[name] = out
-        if proc.returncode != 0:
-            failed.append(f"--- {name} ---\n{out}")
-        else:
-            os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    build_log.update(compile_shared(
+        [(src, [nvcc, *NVCC_FLAGS, os.path.join(CSRC, f"{src}.cu")], so)
+         for src, so in todo]))
     return time.perf_counter() - t0
 
 
@@ -213,8 +243,20 @@ def library(name: str) -> ctypes.CDLL:
         so = _library_path(src)
         if not os.path.exists(so):
             build([name])
-        lib = _libs[src] = ctypes.CDLL(so)
+        lib = ctypes.CDLL(so)
+        for entry, argtypes in HELPERS.get(src, {}).items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, _I
+        _libs[src] = lib
     return lib
+
+
+def lm_run_blocks(device: torch.device) -> int:
+    """The blocks of ``lm_run`` that ``device`` holds at once, the most
+    its cooperative grid may have (``emf_lm_run_blocks``)."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return library("lm_run").emf_lm_run_blocks(index)
 
 
 def _fn(name: str):
@@ -227,13 +269,16 @@ def _fn(name: str):
     return fn
 
 
-def launch(name: str, *args, shapes=()) -> None:
-    """Launch kernel ``name`` on PyTorch's current stream and count it,
-    once under each distinct volume shape in ``shapes`` too (the shapes of
-    the volumes the launch touched). Pointers are passed as
+def launch(name: str, *args, device: torch.device, shapes=()) -> None:
+    """Launch kernel ``name`` on ``device``, the card that holds its
+    tensors (:func:`check_cuda` returns it), under that card and on its
+    current PyTorch stream, whatever card is current; count it, once
+    under each distinct volume shape in ``shapes`` too (the shapes of the
+    volumes the launch touched). Pointers are passed as
     ``tensor.data_ptr()``; raises if the launch was refused."""
     fn = _fn(name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch "
                            f"(cudaError {err})")
@@ -242,34 +287,38 @@ def launch(name: str, *args, shapes=()) -> None:
         launches_by_shape[(name, shape)] += 1
 
 
-def launch_table(name: str, table, *args) -> None:
+def launch_table(name: str, table, *args, device: torch.device) -> None:
     """Launch work-table kernel ``name`` (K1, K2 or K3) over ``table``, a
-    list of its ctypes items, followed by ``args``: one launch for as many
-    items as the kernel's source takes (``emf_max_items``), each counted
-    under the shapes of its items' volumes."""
+    list of its ctypes items, followed by ``args``, on ``device``: one
+    launch for as many items as the kernel's source takes
+    (``emf_max_items``), each counted under the shapes of its items'
+    volumes."""
     cap = library(name).emf_max_items()
     for i0 in range(0, len(table), cap):
         part = table[i0:i0 + cap]
         arr = (type(part[0]) * len(part))(*part)
         launch(name, ctypes.addressof(arr), len(part), *args,
-               shapes=[(p.Z, p.Y, p.X) for p in part])
+               device=device, shapes=[(p.Z, p.Y, p.X) for p in part])
 
 
-def check_cuda(name: str, *tensors: torch.Tensor,
-               allow_bf16: bool = False) -> None:
+def check_cuda(name: str, *tensors: torch.Tensor, allow_bf16: bool = False,
+               device=None) -> torch.device:
     """A kernel takes contiguous float32 (or int32/bool outputs) tensors
-    on one CUDA device, and bf16 ones where ``allow_bf16`` (volumes whose
-    dtype :func:`volume_dtype_code` checked); anything else raises."""
-    dev = tensors[0].device
+    on one CUDA device (``device`` where given, else the first tensor's),
+    and bf16 ones where ``allow_bf16`` (volumes whose dtype
+    :func:`volume_dtype_code` checked); anything else raises. Returns the
+    device, on which the kernel launches (:func:`launch`)."""
+    dev = tensors[0].device if device is None else torch.device(device)
     for t in tensors:
         if t.device != dev or not t.is_cuda:
             raise ValueError(f"{name}: all tensors must be on one CUDA "
-                             f"device, got {t.device}")
+                             f"device ({dev}), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.dtype not in (torch.float32, torch.int32, torch.bool) and not (
                 allow_bf16 and t.dtype == torch.bfloat16):
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
+    return dev
 
 
 def volume_dtype_code(name: str, *vols: torch.Tensor) -> int:

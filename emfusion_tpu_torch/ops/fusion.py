@@ -250,7 +250,7 @@ def integrate_tsdf_batched(items: Sequence[FusionItem],
                                  it.z0, it.Z)
         return
     H, W = depth.shape
-    kernels.check_cuda("integrate_tsdf", depth)
+    dev = kernels.check_cuda("integrate_tsdf", depth)
     fx, fy, cx, cy = intrinsics(intr)
     table = []
     for it in items:
@@ -282,7 +282,7 @@ def integrate_tsdf_batched(items: Sequence[FusionItem],
             float(it.truncdist), float(it.max_weight), carve, int(has_cap),
             int(has_margin), cap, margin))
     kernels.launch_table("fusion", table, depth.data_ptr(), H, W, fx, fy,
-                         cx, cy)
+                         cx, cy, device=dev)
 
 
 def integrate_tsdf(tsdf: torch.Tensor, weights: torch.Tensor,

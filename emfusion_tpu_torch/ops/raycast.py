@@ -267,14 +267,14 @@ def raycast_volume(tsdf_vol: torch.Tensor, weights_vol: torch.Tensor,
     weights_vol = weights_vol.contiguous()
     bf16 = kernels.volume_dtype_code("raycast_volume", tsdf_vol,
                                      weights_vol)
-    kernels.check_cuda("raycast_volume", tsdf_vol, weights_vol, rl, verts,
-                       norms, mask, allow_bf16=True)
+    dev = kernels.check_cuda("raycast_volume", tsdf_vol, weights_vol, rl,
+                             verts, norms, mask, allow_bf16=True)
     fx, fy, cx, cy = intrinsics(intr)
     kernels.launch("raycast", tsdf_vol.data_ptr(), weights_vol.data_ptr(),
                    rl.data_ptr(), verts.data_ptr(), norms.data_ptr(),
                    mask.data_ptr(), Z, Y, X, height, width,
                    *kernels.pose_args(rel_rot_co, rel_trans_co),
                    fx, fy, cx, cy, float(voxel_size), float(truncdist),
-                   int(max_steps), bf16, shapes=[(Z, Y, X)])
+                   int(max_steps), bf16, device=dev, shapes=[(Z, Y, X)])
     return {"raylengths": rl, "vertices": verts, "normals": norms,
             "mask": mask}

@@ -87,10 +87,10 @@ def warp_homography(img: torch.Tensor, M, nS: int, nL: int, plane=None,
     H, W = img.shape
     img = img.to(torch.float32).contiguous()
     out = torch.empty((nS, nL), dtype=torch.float32, device=img.device)
-    kernels.check_cuda("warp_homography", img, out)
+    dev = kernels.check_cuda("warp_homography", img, out)
     kernels.launch("warp", img.data_ptr(), out.data_ptr(), H, W, nS, nL,
                    *_homography_args(M, plane), int(plane is not None),
-                   int(round_half), int(mask_oob))
+                   int(round_half), int(mask_oob), device=dev)
     return out
 
 

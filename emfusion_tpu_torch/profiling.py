@@ -56,14 +56,15 @@ class PhaseTimer:
         """Time the block; it also shows as a range named ``name`` in a
         ``torch.profiler`` trace."""
         if self.events:
+            stream = torch.cuda.current_stream(self.device)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            start.record(stream)
             try:
                 with torch.profiler.record_function(name):
                     yield
             finally:
-                end.record()
+                end.record(stream)
                 self.counts[name] += 1
                 self._pending.append((name, start, end))
                 if len(self._pending) >= 4096:

@@ -679,7 +679,7 @@ class LMRun:
         S = len(self.items)
         lib = kernels.library("lm_run")
         spans = sum(lib.emf_lm_spans(n) for n in self.n)
-        resident = lib.emf_lm_run_blocks()
+        resident = kernels.lm_run_blocks(self.dev)
         if resident < 1:
             raise RuntimeError("lm_run: the device's occupancy query failed")
         self.grid = min(spans, resident)
@@ -690,7 +690,7 @@ class LMRun:
         for it, n, p0 in zip(self.items, self.n, self.p0):
             code = kernels.volume_dtype_code("lm_run", it.tsdf, it.weights)
             kernels.check_cuda("lm_run", it.tsdf, it.weights, it.assoc,
-                               allow_bf16=True)
+                               allow_bf16=True, device=self.dev)
             pts = it.points
             if (it.tsdf.dim() != 3 or it.weights.shape != it.tsdf.shape
                     or pts.dtype != torch.float32 or pts.shape[0] != 3
@@ -733,7 +733,7 @@ class LMRun:
             return self.si.clone(), self.sf.clone()
         self.host_si.copy_(self.si, non_blocking=True)
         self.host_sf.copy_(self.sf, non_blocking=True)
-        self.event.record()
+        self.event.record(torch.cuda.current_stream(self.dev))
         self.event.synchronize()
         return self.host_si.clone(), self.host_sf.clone()
 
@@ -1068,7 +1068,8 @@ def lm_system(run: LMRun, cfg: TrackConfig, group=None) -> None:
     for phase, (buf, op) in enumerate(((run.wmax, "max"), (run.sys, "sum"))):
         kernels.launch("lm_system", ctypes.addressof(run.table), S, phase,
                        ctypes.addressof(run.bufs),
-                       ctypes.addressof(run.cfg_args), shapes=run.shapes)
+                       ctypes.addressof(run.cfg_args), device=run.dev,
+                       shapes=run.shapes)
         if group is not None:
             comm.all_reduce(group, buf, op)
 
@@ -1081,7 +1082,8 @@ def lm_trial(run: LMRun, cfg: TrackConfig, group=None) -> None:
         return lm_trial_plain(run, cfg, group)
     kernels.launch("lm_trial", ctypes.addressof(run.table), len(run.items),
                    ctypes.addressof(run.bufs),
-                   ctypes.addressof(run.cfg_args), shapes=run.shapes)
+                   ctypes.addressof(run.cfg_args), device=run.dev,
+                   shapes=run.shapes)
     if group is not None:
         comm.all_reduce(group, run.trial)
 
@@ -1094,7 +1096,8 @@ def lm_step(run: LMRun, cfg: TrackConfig, phase: int) -> None:
         return lm_step_plain(run, cfg, phase)
     kernels.launch("lm_step", len(run.items), phase,
                    ctypes.addressof(run.bufs),
-                   ctypes.addressof(run.cfg_args), shapes=run.shapes)
+                   ctypes.addressof(run.cfg_args), device=run.dev,
+                   shapes=run.shapes)
 
 
 def lm_iteration(run: LMRun, cfg: TrackConfig, group=None) -> None:
@@ -1120,7 +1123,7 @@ def lm_run(run: LMRun, cfg: TrackConfig, iters: int) -> None:
         return
     kernels.launch("lm_run", ctypes.addressof(run.table), len(run.items),
                    iters, ctypes.addressof(run.bufs),
-                   ctypes.addressof(run.cfg_args), run.grid,
+                   ctypes.addressof(run.cfg_args), run.grid, device=run.dev,
                    shapes=run.shapes)
 
 

@@ -31,6 +31,7 @@ does not need and a GPU machine may not have.)
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1082,8 +1083,7 @@ def test_lm_run_matches_plain(cuda, scene, n, S, grid):
                                        assoc=items[0].assoc[:0])
     k, q = tr.LMRun(items, cfg), tr.LMRun(items, cfg)
     spans = sum(max(1, -(-m // 1024)) for m in k.n)
-    assert k.grid == min(spans, kernels.library(
-        "lm_run").emf_lm_run_blocks())
+    assert k.grid == min(spans, kernels.lm_run_blocks(k.dev))
     if grid is not None:
         k.grid = grid
     hold_lm_run(k, q, cfg, cfg.max_iter)
@@ -1125,6 +1125,136 @@ def test_lm_run_refuses_a_grid_too_large(cuda, scene):
     from emfusion_tpu_torch import tracking as tr
     cfg = TrackConfig(max_iter=4)
     k = tr.LMRun(lm_items(cuda, scene, 31, 1), cfg)
-    k.grid = kernels.library("lm_run").emf_lm_run_blocks() + 1
+    k.grid = kernels.lm_run_blocks(k.dev) + 1
     with pytest.raises(RuntimeError):
         tr.lm_run(k, cfg, 1)
+
+
+# ---------------------------------------------------------------------
+# every launch on its tensors' card (not on the current card)
+def second_card_run(dev, n_frames=3):
+    """The object path on ``dev`` at a small size: a sphere moving 1 cm a
+    frame, its mask handed out on frame 0 (a spawn), then tracked; then
+    the serial object LMs' table of the next frame run alone. Returns
+    the camera and object poses, every state tensor on the host and the
+    LMs' results."""
+    from emfusion_tpu_torch import tracking as tr
+    from emfusion_tpu_torch.segmentation import (
+        CallableMaskProvider, Detection, make_score_vector,
+    )
+    sc = SyntheticScene(H=H, W=W, f=0.8 * W, floor_y=0.6)
+    shots = [sc.render(obj_to_cam(i)[0], OBJ_CENTRE + [0.01 * i, 0, 0])
+             for i in range(n_frames + 1)]
+    params = Params(frameSize=(W, H), fx=0.8 * W, fy=0.8 * W,
+                    cx=W / 2 - 0.5, cy=H / 2 - 0.5,
+                    globalVolumeDims=(64, 64, 64), globalVoxelSize=0.04,
+                    volumePose=(0.0, 0.0, 1.3), objVolumeDims=(32, 32, 32),
+                    maxTrackingIter=20, raycast_max_steps=256,
+                    max_objects=4, maskRCNNFrames=n_frames + 1,
+                    visibilityThresh=16, mask_min_pixels=30, boundary=2)
+
+    def detect(rgb, frame):
+        return [Detection(mask=shots[0][1], scores=make_score_vector(3, 0.9))
+                ] if frame == 0 else []
+    pipe = EMFusionPipeline(params, CallableMaskProvider(detect), device=dev)
+    for d, _ in shots[:n_frames]:
+        pipe.process_frame(None, d)
+    s, o = pipe.state, pipe.state.objs
+    live = [int(k) for k in np.nonzero(pipe._h_active)[0]]
+    _, points = pipe.preprocess(torch.as_tensor(shots[n_frames][0]))
+    lms = tr.run_lm_items(pipe.object_lm_items(points, live), pipe.track_cfg)
+    tensors = [s.bg_tsdf, s.bg_weights, s.bg_assoc, s.cam_pose, o.tsdf,
+               o.weights, o.fg_counts, o.assoc, o.pose]
+    return dict(live=live, poses=dict(pipe.poses),
+                obj_poses={i: dict(t) for i, t in pipe.obj_poses.items()},
+                tensors=[t.cpu() for t in tensors],
+                lms=[{k: (v.cpu() if torch.is_tensor(v) else v)
+                      for k, v in r.items()} for r in lms])
+
+
+def assert_same_run(a, b):
+    """Two :func:`second_card_run` results, bit for bit."""
+    assert a["live"] == b["live"] and a["live"]
+    for key in ("poses", "obj_poses"):
+        assert a[key].keys() == b[key].keys()
+    for f in a["poses"]:
+        np.testing.assert_array_equal(a["poses"][f], b["poses"][f])
+    for i in a["obj_poses"]:
+        for f, q in a["obj_poses"][i].items():
+            np.testing.assert_array_equal(q, b["obj_poses"][i][f])
+    for x, y in zip(a["tensors"], b["tensors"]):
+        assert torch.equal(x, y)
+    for x, y in zip(a["lms"], b["lms"]):
+        assert x.keys() == y.keys()
+        for k in x:
+            assert (torch.equal(x[k], y[k]) if torch.is_tensor(x[k])
+                    else x[k] == y[k]), k
+
+
+def test_second_card_matches_the_first(cuda):
+    """The object path (a spawn, then the object tracked) and a table of
+    the serial object LMs on ``cuda:1``, while ``cuda:0`` stays the
+    current card, bit-equal to the same on ``cuda:0``: every kernel and
+    ``lm_run`` launch on the card of its tensors (skips with one card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    torch.cuda.set_device(0)
+    before = dict(kernels.launches)
+    one = second_card_run(torch.device("cuda", 1))
+    assert torch.cuda.current_device() == 0
+    for name in ("fusion", "sample", "raycast", "bilateral", "lm_run"):
+        assert kernels.launches[name] > before[name], name
+    assert_same_run(one, second_card_run(torch.device("cuda", 0)))
+    with pytest.raises(ValueError):
+        kernels.check_cuda("test", torch.zeros(3, device="cuda:1"),
+                           device=torch.device("cuda", 0))
+
+
+def test_prefetcher_feeds_the_cli(cuda, tmp_path, monkeypatch):
+    """``apps.run_emfusion`` on the card over an 8-frame 64x48 TUM
+    sequence: every frame comes through the reader's
+    ``NativePrefetcher`` (4 decode workers), in order, the frames run
+    the kernels, and ``--frame-meshes 4`` lands its files through the
+    run's ``AsyncWriter``."""
+    from emfusion_tpu_torch.apps import run_emfusion
+    from emfusion_tpu_torch.io import codecs, readers
+    h, w, n = 48, 64, 8
+    sc = SyntheticScene(H=h, W=w, f=0.8 * w, floor_y=0.6)
+    seq = tmp_path / "seq"
+    for sub in ("rgb", "depth"):
+        (seq / sub).mkdir(parents=True)
+    assoc = []
+    for i in range(n):
+        d, _ = sc.render(obj_to_cam(i)[0], OBJ_CENTRE)
+        ts = f"{1000 + i / 30:.6f}"
+        grey = np.clip(255 - d * 60, 0, 255).astype(np.uint8)
+        codecs.write_png(str(seq / "rgb" / f"{ts}.png"),
+                         np.stack([grey] * 3, -1))
+        codecs.write_png(str(seq / "depth" / f"{ts}.png"),
+                         np.round(d * 5000).astype(np.uint16))
+        assoc.append(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png\n")
+    (seq / "associations.txt").write_text("".join(assoc))
+    (seq / "cfg.cfg").write_text(
+        f"[Params]\nframeSize = {w} {h}\nglobalVolumeDims = 64 64 64\n"
+        "globalVoxelSize = 0.04\nvolumePose = 0.0 0.0 1.3\n"
+        f"[Params.intr]\nfx = {0.8 * w}\nfy = {0.8 * w}\n"
+        f"cx = {w / 2 - 0.5}\ncy = {h / 2 - 0.5}\n")
+    seen = []
+
+    class Counting(readers.NativePrefetcher):
+        def next(self):
+            out = super().next()
+            if out is not None:
+                seen.append(out[2])
+            return out
+    monkeypatch.setattr(readers, "NativePrefetcher", Counting)
+    before = dict(kernels.launches)
+    out = tmp_path / "out"
+    assert run_emfusion.main(["-t", str(seq), "-e", str(out), "-c",
+                              str(seq / "cfg.cfg"),
+                              "--frame-meshes", "4"]) == 0
+    assert seen == list(range(n))
+    assert kernels.launches["fusion"] - before["fusion"] == n
+    assert len((out / "poses-cam.txt").read_text().splitlines()) == n
+    assert sorted(os.listdir(out / "frame_meshes")) == [
+        "mesh_bg_0004.ply", "mesh_bg_0008.ply"]

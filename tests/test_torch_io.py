@@ -162,7 +162,11 @@ def test_exr_decode_matches_native(compression, as_half, tmp_path):
         if as_half else d)
 
 
-def write_tum(root, n=5, h=24, w=32):
+def write_tum(root, n=5, h=24, w=32, libpng=False):
+    """A TUM sequence of random images written by ``cv2``; with
+    ``libpng``, of smooth images (Paeth and Average rows among libpng's
+    adaptive choices) written by the JAX native runtime's libpng
+    writer."""
     rng = np.random.RandomState(3)
     os.makedirs(os.path.join(root, "rgb"))
     os.makedirs(os.path.join(root, "depth"))
@@ -170,10 +174,22 @@ def write_tum(root, n=5, h=24, w=32):
     for i in range(n):
         ts = f"{1305031102.175304 + i * 0.0333:.6f}"
         dts = f"{1305031102.160407 + i * 0.0333:.6f}"
-        cv2.imwrite(os.path.join(root, "rgb", f"{ts}.png"),
-                    rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
-        cv2.imwrite(os.path.join(root, "depth", f"{dts}.png"),
-                    rng.randint(0, 30000, (h, w)).astype(np.uint16))
+        rgb_f = os.path.join(root, "rgb", f"{ts}.png")
+        depth_f = os.path.join(root, "depth", f"{dts}.png")
+        if libpng:
+            yy, xx = np.mgrid[0:h, 0:w]
+            native.write_png_rgb(rgb_f, np.stack(
+                [xx * 7 + i, yy * 9, (xx + yy) * 4], -1).astype(np.uint8)
+                + rng.randint(0, 3, (h, w, 3)).astype(np.uint8))
+            native.write_png_gray16(depth_f, (5000 + 40 * xx + 30 * yy + i
+                                              + rng.randint(0, 5, (h, w))
+                                              ).astype(np.uint16))
+            assert 4 in png_filters(open(rgb_f, "rb").read(), h)
+        else:
+            cv2.imwrite(rgb_f,
+                        rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+            cv2.imwrite(depth_f,
+                        rng.randint(0, 30000, (h, w)).astype(np.uint16))
         # TUM's associate.py writes either order
         lines.append(f"{ts} rgb/{ts}.png {dts} depth/{dts}.png\n" if i % 2
                      else f"{dts} depth/{dts}.png {ts} rgb/{ts}.png\n")
@@ -202,19 +218,23 @@ def frames_of(reader):
         reader.close()
 
 
-@pytest.mark.parametrize("kind", ["tum", "cofusion"])
+@pytest.mark.parametrize("kind", ["tum", "tum_libpng", "cofusion"])
 def test_readers_match_jax(kind, tmp_path):
     """``make_reader`` picks the same reader; every frame's RGB, depth
     (TUM: x 1/5000; Co-Fusion: > 100 m cleared), index and timestamp
     equal the JAX reader's, and so do the frame rate and the
-    Co-Fusion start index."""
+    Co-Fusion start index; a TUM sequence written by libpng's adaptive
+    filters (the JAX native writer) too."""
     root = str(tmp_path / kind)
-    (write_tum if kind == "tum" else write_cofusion)(root)
+    if kind == "cofusion":
+        write_cofusion(root)
+    else:
+        write_tum(root, libpng=kind == "tum_libpng")
     port = readers.make_reader(root)
     ref = jax_readers.make_reader(root)
     assert type(port).__name__ == type(ref).__name__
     a, b = frames_of(port), frames_of(ref)
-    assert len(a) == len(b) == (5 if kind == "tum" else 4)
+    assert len(a) == len(b) == (4 if kind == "cofusion" else 5)
     assert port.frame_rate == ref.frame_rate
     for fa, fb in zip(a, b):
         assert (fa.index, fa.timestamp) == (fb.index, fb.timestamp)
