@@ -78,15 +78,25 @@
    ``capture_backend="band"``: one batched LM over both objects' top 4096
    points, and the camera LM with the capture sampler, which the
    configuration's ``auto`` sampler resolves to, as the JAX package's
-   ``auto`` picks on a chip). Prints its phases, LM iterations (camera
-   and batched), device reads per batched LM iteration, peak memory and
-   launches; fails as the object path does, and also if a frame launched
-   K3 at the object shape more than twice (once per LM stage, every slot
-   in one launch) or the batched LM read the device more than twice an
-   iteration. Holds K3 over
-   that path's final two-slot table (2 x 4096 points), over the camera's
-   stride-3 points, and over a full pool (16 x 4096, the pool of step 7);
-   profiles three frames of the path (``chiprun_out/accel_profile_ops.txt``).
+   ``auto`` picks on a chip). The batched LM runs each of its two
+   fixed-cache stages as one K3 launch and one ``lm_run`` over the
+   slots' window caches (cache items), then one read. Prints its phases,
+   ``track_objects`` beside the batched LM's time as a host loop on the
+   same card model (``HOST_LOOP_TRACK_OBJECTS_MS``), LM iterations
+   (camera and batched), device reads per batched LM call, peak memory
+   and launches; fails as the object path does (``lm_run`` must have run
+   at the object shape), and also if a frame launched K3 or ``lm_run``
+   at the object shape more than twice (once per LM stage, every slot in
+   one launch) or a batched LM call read the device more than twice.
+   Holds K3 over that path's final two-slot table (2 x 4096 points),
+   over the camera's stride-3 points, and over a full pool (16 x 4096,
+   the pool of step 7), and ``lm_run`` over the cache items of a first
+   stage's table of the two slots (``lm_run_cache``), of the full pool
+   (``lm_run_cache_pool``) and of the two slots with their volumes cast
+   to bf16 (``lm_run_cache_bf16``, a bf16 cache; no path runs one yet),
+   as ``hold_lm_run`` holds the gather tables (no split kernels: they
+   take gather items only); profiles three frames of the path
+   (``chiprun_out/accel_profile_ops.txt``).
 8b. Runs the same 40 frames and masks again with ``volume_dtype="bfloat16"``
    (the JAX package's accelerator storage: the background pair in bf16)
    and prints its e2e ms a frame, peak memory, ATE, recovery, launches
@@ -189,7 +199,9 @@ K1 rows also carry ``bound_all_ms``, the bound if every voxel were read
 and written), the ``lm_*`` rows: the LM kernels at the background's
 shape, over the object path's two-slot table (``*_objects``) and a full
 pool (``*_pool``): ``lm_run`` with the main path's launches (the
-object path's at the object shape), the split kernels with the launches
+object path's at the object shape; the ``lm_run_cache*`` rows the
+accelerator path's at the object shape, 0 for the bf16 cache), the split
+kernels with the launches
 of rank 0's pixel-sharded LM in step 11 (the only path that runs them; 0
 at the object shape), its ``bound_ms`` this run's per-iteration bound:
 ``lm_system``'s over the LMs that evaluate plus ``lm_trial``'s over
@@ -274,6 +286,17 @@ def split_reads(iterations):
 LM_ROWS = [(f"{k}{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
             "emfusion_tpu/tracking.py:242", k)
            for suffix in ("", "_objects", "_pool") for k in LM_KERNELS]
+# lm_run over cache items (the batched object LM's fixed-cache stages: the
+# JAX package's _lm_fixed_cache while_loop body, tracking.py:394-498): at
+# the accelerator path's stage table of both objects, a full pool's, and
+# the objects' table with bf16 volumes (a bf16 cache)
+LM_CACHE_ROWS = [(f"lm_run_cache{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
+                  "emfusion_tpu/tracking.py:394", LM_RUN)
+                 for suffix in ("", "_pool", "_bf16")]
+# track_objects ms a call of the accelerator path's batched object LM as
+# the host loop it replaced (each pass read the card twice), on one NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md, section 5): float32, bf16 backgrounds
+HOST_LOOP_TRACK_OBJECTS_MS = {"float32": 156.079, "bf16": 214.039}
 # K6 (warp) is not on the main path: the fusion kernel makes its pick;
 # K3 (capture) is on the paths whose LMs run the capture sampler (the
 # main path's capture run, the accelerator path), not on the exact paths,
@@ -843,8 +866,10 @@ def lm_system_bound(torch, items, run, only=None):
     the Huber weight), per point whose Huber and integration weights are
     not 0, 3 more (its track weight), and per point whose track weight
     is not 0, 72 more (J and the 28 terms, each float64 addition counted
-    as one)."""
+    as one). A table of cache items: :func:`lm_cache_system_bound`."""
     from emfusion_tpu_torch.tracking import SF_R, SF_T
+    if run.cached:
+        return lm_cache_system_bound(torch, items, run, only)
     nbytes = ops = 0
     for k, it in enumerate(items):
         if only is not None and k not in only:
@@ -871,8 +896,11 @@ def lm_trial_bound(torch, items, run):
     are valid at the trial pose, once; a sum written. Float32
     operations: 1 a point (the weight's test), 34 a point whose weight is
     not 0 (the transform 18, the grid coordinates 6, the validity 10) and
-    27 more a sampled one (the trilerp and the term)."""
+    27 more a sampled one (the trilerp and the term). A table of cache
+    items: :func:`lm_cache_trial_bound`."""
     from emfusion_tpu_torch.tracking import SF_RN, SF_TN, SI_TRIAL
+    if run.cached:
+        return lm_cache_trial_bound(torch, items, run)
     nbytes = ops = 0
     for k, it in enumerate(items):
         if not int(run.si[k, SI_TRIAL]):
@@ -888,6 +916,101 @@ def lm_trial_bound(torch, items, run):
         nbytes += (4 * n + 12 * nw + it.tsdf.element_size() * distinct(
             torch, c8) + 8)
         ops += n + 34 * nw + 27 * int(use.sum())
+    return bound(nbytes, ops)
+
+
+def cache_needs(torch, it, R, t):
+    """Per point of cache item ``it`` at the pose (R, t), what
+    ``lm_system``'s cache phase needs: (the window values of channel 0
+    that carry a nonzero tent product in a sample the point's validity
+    rules keep: ψ and the gradient's base, and each shifted sample; the
+    values of channel 1 of the margin-1 weight; the points a validity
+    rule admits, which read their anchors; the points with a valid ψ),
+    the first two counted over all points."""
+    from emfusion_tpu_torch import tracking as tr
+    Z, Y, X = it.tsdf.shape
+    (vx, vy, vz), pz, (lx, ly, lz), win = tr._cache_grid(it, R, t)
+
+    def ok(ex, ey, ez, m):
+        return ((pz > 0) & (vx + ex >= 0) & (vy + ey >= 0) & (vz + ez >= 0)
+                & (vx + ex + m < X) & (vy + ey + m < Y) & (vz + ez + m < Z))
+
+    in1 = ok(0, 0, 0, 1)
+    vsx, vsy, vsz = ok(1, 0, 0, 2), ok(0, 1, 0, 2), ok(0, 0, 1, 2)
+    valid1 = in1 & win
+
+    def taps(v):
+        return torch.stack(tr._tents(v)) != 0          # (6, N)
+
+    tx, ty, tz = taps(lx), taps(ly), taps(lz)
+    tx1, ty1, tz1 = taps(lx + 1.0), taps(ly + 1.0), taps(lz + 1.0)
+
+    def cube(a, b, c):                                  # (z, y, x, N)
+        return a[:, None, None] & b[None, :, None] & c[None, None, :]
+
+    base = cube(tz, ty, tx) & valid1
+    need = (base | (cube(tz, ty, tx1) & vsx) | (cube(tz, ty1, tx) & vsy)
+            | (cube(tz1, ty, tx) & vsz))
+    return (int(need.sum()), int(base.sum()),
+            int((in1 | vsx | vsy | vsz).sum()), valid1)
+
+
+def lm_cache_system_bound(torch, items, run, only=None):
+    """:func:`lm_system_bound` for a table of cache items, charging only
+    what the function needs: per point its 12 bytes of coordinates read
+    and its track and Huber weights written, the 4 bytes of its
+    association weight where its Huber and integration weights are not 0,
+    its 12 bytes of anchors where a validity rule admits it, the window
+    values :func:`cache_needs` counts (4 bytes each, 2 in a bf16 cache),
+    and the sums. Float32 operations: per point 56 (as the gather's), per
+    admitted point 255 more (the window test 9, 18 tents of 3 operations,
+    the x sums 90, the y sums 45, the z sums 20, the gradient 6, the
+    weight's tent sum 21, the Huber weight 4, the clamp 1, the rest
+    conversions), 3 per point whose factors are not 0 and 72 per point
+    whose track weight is not 0."""
+    from emfusion_tpu_torch.tracking import SF_R, SF_T
+    nbytes = ops = 0
+    for k, it in enumerate(items):
+        if only is not None and k not in only:
+            continue
+        taps, wtaps, admitted, _ = cache_needs(
+            torch, it, run.sf[k, SF_R:SF_R + 9].reshape(3, 3),
+            run.sf[k, SF_T:SF_T + 3])
+        sl = run.point_slice(k)
+        factors = int(((run.hub[sl] != 0) & (run.scratch[4, sl] != 0))
+                      .sum())
+        terms = int((run.w[sl] != 0).sum())
+        n = it.points.shape[1]
+        nbytes += (20 * n + 4 * factors + 12 * admitted
+                   + it.cache.element_size() * (taps + wtaps) + 8 * 29)
+        ops += 56 * n + 255 * admitted + 3 * factors + 72 * terms
+    return bound(nbytes, ops)
+
+
+def lm_cache_trial_bound(torch, items, run):
+    """:func:`lm_trial_bound` for a table of cache items: per point the 4
+    bytes of its track weight; per point whose weight is not 0 its 12
+    bytes of coordinates; per such point valid at the trial pose (inside
+    its window) its 12 bytes of anchors and the values of channel 0 with
+    a nonzero tent product; a sum written. Float32 operations: 1 a point,
+    34 a weighted point, 43 more a sampled one (the window test 9, 6
+    tents of 3 operations, the tent sum 14, the term 2)."""
+    from emfusion_tpu_torch.tracking import SF_RN, SF_TN, SI_TRIAL
+    nbytes = ops = 0
+    for k, it in enumerate(items):
+        if not int(run.si[k, SI_TRIAL]):
+            continue
+        R = run.sf[k, SF_RN:SF_RN + 9].reshape(3, 3)
+        t = run.sf[k, SF_TN:SF_TN + 3]
+        weighted = run.w[run.point_slice(k)] != 0
+        sub = dataclasses.replace(it, points=it.points[:, weighted],
+                                  anchor=it.anchor[:, weighted],
+                                  cache=it.cache[..., weighted])
+        _, wtaps, _, valid1 = cache_needs(torch, sub, R, t)
+        n, nw = it.points.shape[1], int(weighted.sum())
+        nbytes += (4 * n + 12 * nw + 12 * int(valid1.sum())
+                   + it.cache.element_size() * wtaps + 8)
+        ops += n + 34 * nw + 43 * int(valid1.sum())
     return bound(nbytes, ops)
 
 
@@ -1016,8 +1139,10 @@ def hold_lm_run(torch, items, cfg, reps=20):
         for _ in range(iters):
             tr.lm_iteration(k, cfg)
 
-    split = graph_ms(torch, split_run, 1)
-    split_gap = max_err(k.sf[:, :tr.SF_X], chain["sf"][:, :tr.SF_X])
+    split = split_gap = None      # the split kernels take gather items only
+    if not k.cached:
+        split = graph_ms(torch, split_run, 1) / max(iters, 1)
+        split_gap = max_err(k.sf[:, :tr.SF_X], chain["sf"][:, :tr.SF_X])
     k.si[:, tr.SI_CONV] = 1
     stopped = launch_ms(cfg.max_iter, fresh=False)
     by = max(spent, key=spent.get)
@@ -1029,7 +1154,7 @@ def hold_lm_run(torch, items, cfg, reps=20):
         whole_equal=whole_equal, whole_gap=whole_gap,
         bound=(sum(spent.values()) / n, by), bound_run=sum(spent.values()),
         bound_first=first, ms=whole / n, launch_ms=one, run_ms=whole,
-        run_iterations=iters, split_ms=split / n, split_pose_gap=split_gap,
+        run_iterations=iters, split_ms=split, split_pose_gap=split_gap,
         stopped_ms=stopped, grid=k.grid, spans=k.part.shape[0],
         plain_ms=time_ms(torch, lambda: (restore(q), plain_iteration(
             tr, q, cfg)), 2, warmup=1), library_ms=None)
@@ -1147,10 +1272,13 @@ def print_row(name, r):
     if "stopped_ms" in r:
         extra = f", once every LM has stopped {r['stopped_ms']:.4f} ms"
     if "run_ms" in r:
+        split = ("cache items: no split kernels" if r["split_ms"] is None
+                 else f"the split kernels {r['split_ms']:.4f} ms an "
+                 f"iteration over the same, pose gap "
+                 f"{r['split_pose_gap']:.3e}")
         extra += (f"; ms an iteration of a whole LM ({r['run_ms']:.4f} ms "
-                  f"over {r['run_iterations']} iterations; the split "
-                  f"kernels {r['split_ms']:.4f} ms an iteration over the "
-                  f"same, pose gap {r['split_pose_gap']:.3e}), the run's "
+                  f"over {r['run_iterations']} iterations; {split}), the "
+                  f"run's "
                   f"bound {r['bound_run']:.5f} ms (its first iteration "
                   f"{r['bound_first']:.5f}), one launch equal to the "
                   f"chain: {r['whole_equal']}, plain run alone "
@@ -1807,19 +1935,21 @@ def object_path(torch, params, scene, n_frames, rng, report):
 def check_objects(name, pipe, launches, obj_launches, rec, ate):
     """Fails if a kernel of the path never ran (or K1 and K2 not once per
     fusion and per E-step), if K1, K2 and K4 (and K3 where the LMs
-    capture, ``lm_run`` where they run on the device) never ran at the
-    object shape, if a split LM kernel ran on an exact path, if an object
-    is lost, if an
+    capture, ``lm_run`` where they run on the device: the gather
+    sampler's, and the batched object LM's stages) never ran at the
+    object shape, if a split LM kernel ran, if an object is lost, if an
     object's x-motion recovers less than 0.35 or more than 2.0 of the
     truth (the JAX gate's band), or if the camera ATE reaches a voxel."""
     capture = pipe.sampler == "capture" or pipe.object_lm == "batched"
-    check_launches(name, launches, CAPTURE_PATH_KERNELS if capture
-                   else PATH_KERNELS, pipe.timer,
-                   forbidden=() if capture else LM_SPLIT_KERNELS)
+    on_card = pipe.sampler == "gather" or pipe.object_lm == "batched"
+    check_launches(name, launches, (
+        CAPTURE_PATH_KERNELS if capture else HOST_LOOP_KERNELS)
+        + ([LM_RUN] if on_card else []), pipe.timer,
+        forbidden=LM_SPLIT_KERNELS)
     check_launches(f"{name} at the object shape", obj_launches,
                    [row[3] for row in OBJECT_ROWS
                     if capture or row[3] != "capture"]
-                   + ([] if capture else [LM_RUN]))
+                   + ([LM_RUN] if on_card else []))
     if len(rec) != len(MOVERS) or \
             sorted(r["mover"] for r in rec.values()) != list(
                 range(len(MOVERS))):
@@ -1837,10 +1967,12 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     ``masks`` under the JAX package's accelerator tracking configuration
     (``ACCEL``), its volumes stored in ``volume_dtype``. Fails as the
     object path does (:func:`check_objects`), and also if a frame
-    launched K3 at the object shape more than twice (once per batched LM
-    stage) or the batched LM read the device more than twice per pass of
-    its loop. Returns the path's launches (all of them, and K3's at the
-    camera's and at the objects' shape), and the pipeline."""
+    launched K3 or ``lm_run`` at the object shape more than twice (once
+    per batched LM stage) or a call of the batched LM read the device
+    more than twice (once a stage). Prints ``track_objects`` beside the
+    host loop's time (``HOST_LOOP_TRACK_OBJECTS_MS``). Returns the path's
+    launches (all of them, K3's at the camera's and at the objects'
+    shape, ``lm_run``'s at the objects'), and the pipeline."""
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
     n_frames = len(frames)
@@ -1859,11 +1991,12 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     bg_shape = tuple(pipe.state.bg_tsdf.shape)
     obj_launches = {k: by_shape.get((k, obj_shape), 0) for k in launches}
     k3_obj = [f["by_shape"].get(("capture", obj_shape), 0) for f in per_frame]
+    lm_obj = [f["by_shape"].get((LM_RUN, obj_shape), 0) for f in per_frame]
     lms = [f["batched_lm"] for f in per_frame if f["batched_lm"]]
     if len(lms) != n_frames - 1:
         raise RuntimeError(f"{name}: the batched object LM ran in "
                            f"{len(lms)} of {n_frames - 1} frames")
-    reads = [lm["host_reads"] / lm["loop_iterations"] for lm in lms]
+    reads = [lm["host_reads"] for lm in lms]
     cam_it = float(np.mean([it[0] for it in lm_iters]))
     obj_it = [n for it in lm_iters for n in it[1:]]
     loop_it = [lm["loop_iterations"] for lm in lms]
@@ -1876,13 +2009,16 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
         phase_calls=dict(pipe.timer.counts), max_memory_allocated=peak,
         launches=launches, object_shape_launches=obj_launches,
         k3_object_shape_launches_per_frame=k3_obj,
+        lm_run_object_shape_launches_per_frame=lm_obj,
         k3_camera_shape_launches=by_shape.get(("capture", bg_shape), 0),
         ate=ate, camera_lm_iterations_mean=cam_it,
         object_lm_iterations_mean=float(np.mean(obj_it)),
         batched_lm_loop_iterations_mean=float(np.mean(loop_it)),
         batched_lm_points=[lm["points"] for lm in lms],
-        host_reads_per_batched_iteration_mean=float(np.mean(reads)),
-        host_reads_per_batched_iteration_max=float(max(reads)),
+        host_reads_per_batched_call_mean=float(np.mean(reads)),
+        host_reads_per_batched_call_max=int(max(reads)),
+        track_objects_host_loop_ms=HOST_LOOP_TRACK_OBJECTS_MS[
+            "bf16" if volume_dtype == "bfloat16" else "float32"],
         lm_iterations=lm_iters, lm=lm_counts,
         live_objects=pipe.active_object_ids, recovery=rec)
     print(f"{name}: {n_frames} frames {params.width}x{params.height} "
@@ -1895,12 +2031,18 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     print(f"{name} launches per frame: " + ", ".join(
         f"{k} {v / n_frames:.2f}" for k, v in launches.items())
         + f"; K3 at the object shape {list(obj_shape)} per frame: max "
-        f"{max(k3_obj)}, total {sum(k3_obj)}", flush=True)
+        f"{max(k3_obj)}, total {sum(k3_obj)}; lm_run there: max "
+        f"{max(lm_obj)}, total {sum(lm_obj)}", flush=True)
     print(f"{name} LM iterations per call: camera {cam_it:.1f}, "
-          f"batched loop {np.mean(loop_it):.1f} (per object "
+          f"batched stages {np.mean(loop_it):.1f} (per object "
           f"{np.mean(obj_it):.1f}, {lms[-1]['points']} points a slot); "
-          f"device reads per batched iteration mean {np.mean(reads):.3f}, "
-          f"max {max(reads):.3f}", flush=True)
+          f"device reads per batched call mean {np.mean(reads):.3f}, "
+          f"max {max(reads)}", flush=True)
+    print(f"{name}: track_objects {phases['track_objects']:.3f} ms a call "
+          f"(the batched LM as a host loop: "
+          f"{report[key]['track_objects_host_loop_ms']:.3f} ms on an H100 "
+          f"80GB HBM3 at 700 W), track_camera "
+          f"{phases['track_camera']:.3f} ms", flush=True)
     print_lm_summary(name, lm_counts)
     print(f"{name}: peak memory {peak / 2**30:.3f} GiB; live objects "
           f"{pipe.active_object_ids}; camera ATE rmse "
@@ -1908,23 +2050,47 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
               f"object {oid} {r['recovery']:.3f}"
               for oid, r in rec.items()), flush=True)
     check_objects(name, pipe, launches, obj_launches, rec, ate)
-    if max(k3_obj) > 2:
-        raise RuntimeError(f"{name}: K3 launched {max(k3_obj)} times "
-                           "at the object shape in a frame (at most 2)")
+    for what, per in (("K3", k3_obj), (LM_RUN, lm_obj)):
+        if max(per) > 2:
+            raise RuntimeError(f"{name}: {what} launched {max(per)} times "
+                               "at the object shape in a frame (at most 2)")
     if max(reads) > 2:
-        raise RuntimeError(f"{name}: the batched LM read the device "
-                           f"{max(reads)} times an iteration (at most 2)")
+        raise RuntimeError(f"{name}: a batched LM call read the device "
+                           f"{max(reads)} times (at most 2)")
     bg_launches = {k: by_shape.get((k, bg_shape), 0) for k in launches}
     return dict(camera=report[key]["k3_camera_shape_launches"],
-                objects=obj_launches["capture"], all=launches,
+                objects=obj_launches["capture"],
+                lm_objects=obj_launches[LM_RUN], all=launches,
                 background=bg_launches), pipe
+
+
+def stage_table(torch, pipe, points, slots, dtype=None):
+    """The batched object LM's first-stage table of ``slots``, as
+    ``tracking.track_volumes_batched`` builds it (one K3 launch): cache
+    items over :meth:`EMFusionPipeline.batched_lm_inputs`, the slots'
+    volumes cast to ``dtype`` where given (a cache of that type), and the
+    stage's LM constants (``max(max_iter // 2, 1)`` iterations)."""
+    from emfusion_tpu_torch.tracking import stage_items
+    tsdfs, wts, vs, pts, asc, rel, _, _ = pipe.batched_lm_inputs(points,
+                                                                 slots)
+    if dtype is not None:
+        tsdfs = [v.to(dtype) for v in tsdfs]
+        wts = [v.to(dtype) for v in wts]
+    cfg = pipe.track_cfg
+    cfg = dataclasses.replace(cfg, max_iter=max(cfg.max_iter // 2, 1))
+    vs = torch.as_tensor(vs, dtype=torch.float32).cpu()
+    return stage_items(tsdfs, wts, vs, pts, asc, rel[:, :3, :3],
+                       rel[:, :3, 3], range(len(slots))), cfg
 
 
 def accel_kernel_phases(torch, pipe, depth_raw):
     """K3 against its plain version on the accelerator path's final
     state: the camera's capture of its stride-3 points at the constant-
     velocity start, and a batched LM stage's table of the live slots
-    (:meth:`EMFusionPipeline.batched_lm_inputs`). Returns the rows."""
+    (:meth:`EMFusionPipeline.batched_lm_inputs`); ``lm_run`` over that
+    stage's cache items (:func:`hold_lm_run`), from float32 volumes
+    (``lm_run_cache``) and from the slots' volumes cast to bf16
+    (``lm_run_cache_bf16``, a bf16 cache). Returns the rows."""
     from emfusion_tpu_torch.geometry.se3 import pose_inverse, reorthonormalize
 
     s = pipe.state
@@ -1935,13 +2101,18 @@ def accel_kernel_phases(torch, pipe, depth_raw):
     live = [int(j) for j in np.nonzero(pipe._h_active)[0]]
     tsdfs, wts, vs, pts, _, rel_o, _, _ = pipe.batched_lm_inputs(points,
                                                                  live)
-    return {
+    rows = {
         "capture_camera_accel": hold_capture(
             torch, (s.bg_tsdf, s.bg_weights),
             points[:, ::k, ::k].reshape(3, -1), rel[:3, :3], rel[:3, 3],
             pipe.voxel),
         "capture_objects_accel": hold_capture_batched(torch, tsdfs, wts, pts,
                                                       rel_o, vs)}
+    for name, dtype in (("lm_run_cache", None),
+                        ("lm_run_cache_bf16", torch.bfloat16)):
+        rows[name] = hold_lm_run(torch, *stage_table(torch, pipe, points,
+                                                     live, dtype))
+    return rows
 
 
 def bf16_kernel_phases(torch, pipe, depth_raw):
@@ -1991,8 +2162,13 @@ def compare_accel(report):
         ("camera ATE mm", a["ate"]["rmse"] * 1e3, b["ate"]["rmse"] * 1e3),
         ("camera LM iterations a call", a["camera_lm_iterations_mean"],
          b["camera_lm_iterations_mean"]),
-        ("batched LM passes a frame", a["batched_lm_loop_iterations_mean"],
-         b["batched_lm_loop_iterations_mean"])]
+        ("batched LM stage iterations a frame",
+         a["batched_lm_loop_iterations_mean"],
+         b["batched_lm_loop_iterations_mean"]),
+        ("batched LM reads a call", a["host_reads_per_batched_call_mean"],
+         b["host_reads_per_batched_call_mean"]),
+        ("track_objects ms a call", a["phase_ms_per_call"]["track_objects"],
+         b["phase_ms_per_call"]["track_objects"])]
     for who in ("camera", "objects"):
         for what in ("recaptures_total", "dropped_points_total"):
             lines.append((f"{who} {what}", a["lm"][who][what],
@@ -2012,12 +2188,17 @@ def compare_accel(report):
 
 def accel_pool_phase(torch, pipe, depth_raw):
     """K3 over a batched LM stage's table at a full pool (:func:`fill_pool`,
-    which replaces ``pipe``'s pool): 16 slots of their top 4096 points."""
+    which replaces ``pipe``'s pool): 16 slots of their top 4096 points;
+    and ``lm_run`` over that stage's cache items. Returns the two rows."""
     fill_pool(torch, pipe)
     _, points = pipe.preprocess(depth_raw)
+    slots = list(range(pipe.K))
     tsdfs, wts, vs, pts, _, rel_o, _, _ = pipe.batched_lm_inputs(
-        points, list(range(pipe.K)))
-    return hold_capture_batched(torch, tsdfs, wts, pts, rel_o, vs)
+        points, slots)
+    return {"capture_pool_accel": hold_capture_batched(
+                torch, tsdfs, wts, pts, rel_o, vs),
+            "lm_run_cache_pool": hold_lm_run(
+                torch, *stage_table(torch, pipe, points, slots))}
 
 
 # the export tree of tests/test_pipeline.py::test_export_tree
@@ -3706,7 +3887,7 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
                                     report)
     acc_rows = accel_kernel_phases(torch, pipe, more[0])
     profile_frames(torch, pipe, more[1:], report, "accel_profile")
-    acc_rows["capture_pool_accel"] = accel_pool_phase(torch, pipe, more[0])
+    acc_rows.update(accel_pool_phase(torch, pipe, more[0]))
     del pipe
     torch.cuda.empty_cache()
     for name, r in acc_rows.items():
@@ -3755,6 +3936,10 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
                         capture_camera_accel=acc_launches["camera"],
                         capture_objects_accel=acc_launches["objects"],
                         capture_pool_accel=acc_launches["objects"],
+                        lm_run_cache=acc_launches["lm_objects"],
+                        lm_run_cache_pool=acc_launches["lm_objects"],
+                        # no path's objects keep bf16 volumes
+                        lm_run_cache_bf16=0,
                         fusion_bf16=bf_launches["all"]["fusion"],
                         sample_bf16=bf_launches["all"]["sample"],
                         capture_camera_bf16=bf_launches["camera"],
@@ -3767,7 +3952,8 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     table = [table_row(name, src, replaces, rows[name], row_launches[name])
              for name, src, replaces, kernel in (
                  KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS + ACCEL_ROWS
-                 + BF16_ROWS + VIEW_ROWS + SLAB_ROWS + LM_ROWS)]
+                 + BF16_ROWS + VIEW_ROWS + SLAB_ROWS + LM_ROWS
+                 + LM_CACHE_ROWS)]
     return finish(torch, report, rows, table, card, t0)
 
 

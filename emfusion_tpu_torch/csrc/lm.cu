@@ -87,7 +87,37 @@
 // _run_lm_split), which all-reduces the weight maxima, the sums and the
 // trial errors across ranks between the phases: there an item's last
 // block to finish (an integer ticket, no float atomics) sums the item's
-// partials with the same tree.
+// partials with the same tree. They take gather items only and
+// refuse a table with a cache item.
+//
+// Cache items (the batched object LM's fixed-cache stages, tracking.
+// track_volumes_batched; the JAX package's _lm_fixed_cache while_loop
+// body, emfusion_tpu/tracking.py:394-498, under vmap): an item may carry
+// its points' 6^3 windows of tsdf and weight, captured by K3 (capture.cu)
+// at the stage's start pose, as a (2, 6, 6, 6, cs) cache (float, or bf16
+// bits, widened exactly) with (3, cs) int32 anchors, points minor. Its
+// phases (a) and (d) then read the cache where a gather item reads the
+// volume: geometry/capture.sample_system_from_cache and
+// sample_value_from_cache, ψ at margin 1 and the finite-difference
+// gradient at margin 2 with the per-shift validity rules, the margin-1
+// weight from channel 1, and the window test (local coordinates in
+// [0, 4] on each axis; a point that drifted out drops out of ψ, the
+// weight and the trial), each sample the separable tent sum over the
+// window, x first, then y, then z. The kernel sums only the taps that can
+// have a nonzero tent: on an axis with local coordinate l those are
+// floor(l), floor(l) + 1 and, for the +1-shifted tents of the gradient,
+// floor(l) + 2; a tap outside the window counts as 0. The others' tents
+// are exactly 0, so each product it leaves out is a zero, and the taps it
+// keeps are summed in the plain version's left-to-right order: it ends on
+// the plain version's bits (tracking.lm_system_plain, lm_trial_plain,
+// which sum all six taps), up to the sign of a zero. A table holds
+// cache items only or gather items only: the run kernel is a template on
+// the item kind (emf_lm_run_kernel<true> and <false>), so the gather
+// table's code is what it was. A cache item reads per point its anchor
+// (12 bytes) and at most 27 tsdf taps and 8 weight taps of its cache for
+// the system and 8 tsdf taps for the trial; neighbouring points share a
+// load only where they share a tap, since each point's taps lie in its
+// own column of the point-minor cache.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -116,14 +146,18 @@ enum { SF_R = 0, SF_T = 9, SF_RN = 12, SF_TN = 21, SF_X = 24, SF_MU = 30,
 
 // One LM of a launch. Mirrored by kernels.LmItemArgs.
 struct EmfLmItem {
-  const void* tsdf;    // (Z, Y, X), float or emf_bf16
+  const void* tsdf;    // (Z, Y, X), float or emf_bf16 (gather items)
   const void* wts;     // (Z, Y, X), the same type
   const float* pts;    // (3, n) camera points, rows `stride` floats apart
   const float* assoc;  // (n) association weights
+  const void* cache;   // cache items: (2, 6, 6, 6, cs), float or emf_bf16
+  const int* anchor;   // cache items: (3, cs) int32 window anchors
   int stride, n, Z, Y, X;
-  int bf16;            // 1: tsdf and weights are bf16
+  int bf16;            // 1: the volumes (gather) or the cache are bf16
   float vs;
   int p0;              // the item's first point in the packed buffers
+  int cs;              // cache items: the point stride of cache and anchor
+  int cached;          // 1: a cache item, 0: a gather item
 };
 
 // The state and the packed per-point buffers. Mirrored by
@@ -416,12 +450,193 @@ __device__ __forceinline__ float emf_lm_psi(const EmfLmItem& it,
 }
 
 // ---------------------------------------------------------------------
+// Cache items: the samplers of geometry/capture.py on an item's windows.
+#define EMF_WIN 6
+#define EMF_WIN_HI 4.0f   // WIN - 2: the window test's upper bound
+
+// tent(v - d) = max(0, 1 - |v - d|), the weight of window tap d
+__device__ __forceinline__ float emf_tent(float v, int d) {
+  return fmaxf(1.0f - fabsf(v - (float)d), 0.0f);
+}
+
+// The first tap that can carry a nonzero tent of v or of v + 1: floor(v),
+// v clipped to [-4, 8] first (beyond it no candidate tap lies in the
+// window, so the clip only keeps the floor in an int).
+__device__ __forceinline__ int emf_tap0(float v) {
+  return (int)floorf(fminf(fmaxf(v, -4.0f), 8.0f));
+}
+
+// The window's value at tap (z, y, x) of a (6, 6, 6, cs) channel, 0
+// outside the window.
+template <typename T>
+__device__ __forceinline__ float emf_tap(const T* ch, size_t cs, size_t i,
+                                         int z, int y, int x) {
+  const bool in = (unsigned)z < EMF_WIN && (unsigned)y < EMF_WIN &&
+                  (unsigned)x < EMF_WIN;
+  return in ? emf_ld(ch + (size_t)((z * EMF_WIN + y) * EMF_WIN + x) * cs + i)
+            : 0.0f;
+}
+
+// The 2x2x2 tent sum of a channel from taps (fz, fy, fx) with the tents
+// t*[0..1]: x, then y, then z (sample_value_from_cache's order). Every
+// tap lies in the window: the caller's point passed the window test.
+template <typename T>
+__device__ __forceinline__ float emf_win8(const T* ch, size_t cs, size_t i,
+                                          int fz, int fy, int fx,
+                                          const float* tx, const float* ty,
+                                          const float* tz) {
+  float cy[2];
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    float cx[2];
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy)
+      cx[dy] = emf_tap(ch, cs, i, fz + dz, fy + dy, fx) * tx[0] +
+               emf_tap(ch, cs, i, fz + dz, fy + dy, fx + 1) * tx[1];
+    cy[dz] = cx[0] * ty[0] + cx[1] * ty[1];
+  }
+  return cy[0] * tz[0] + cy[1] * tz[1];
+}
+
+// The local window coordinates of point i at grid coordinates (vx, vy,
+// vz), and the window test.
+__device__ __forceinline__ bool emf_local(const EmfLmItem& it, int i,
+                                          float vx, float vy, float vz,
+                                          float& lx, float& ly, float& lz) {
+  const size_t cs = (size_t)it.cs;
+  lx = vx - (float)__ldg(it.anchor + i);
+  ly = vy - (float)__ldg(it.anchor + cs + i);
+  lz = vz - (float)__ldg(it.anchor + 2 * cs + i);
+  return lx >= 0.0f && lx <= EMF_WIN_HI && ly >= 0.0f && ly <= EMF_WIN_HI &&
+         lz >= 0.0f && lz <= EMF_WIN_HI;
+}
+
+// emf_lm_point for point i of a cache item: sample_system_from_cache's ψ
+// and gradient, the margin-1 weight of sample_value_from_cache (channel
+// 1), clamped, and the Huber weight. The validity rules are the gather's,
+// with the window test on ψ (valid1), the gradient's base (valid2) and
+// the weight; the shifted samples keep the gather's rules alone, as the
+// plain version does.
+template <typename T>
+__device__ __forceinline__ EmfLmPoint emf_lm_point_cache(
+    const EmfLmItem& it, const EmfPose& P, float px, float py, float pz,
+    int i, const EmfLmCfg& C) {
+  float wx, wy, wz;
+  emf_apply(P, px, py, pz, wx, wy, wz);
+  const float fX = (float)it.X, fY = (float)it.Y, fZ = (float)it.Z;
+  const float vx = wx / it.vs + 0.5f * (float)(it.X - 1);
+  const float vy = wy / it.vs + 0.5f * (float)(it.Y - 1);
+  const float vz = wz / it.vs + 0.5f * (float)(it.Z - 1);
+  const bool front = pz > 0.0f;
+  const bool ahead = front && vx >= 0.0f && vy >= 0.0f && vz >= 0.0f;
+  const bool in1 = ahead && vx + 1.0f < fX && vy + 1.0f < fY && vz + 1.0f < fZ;
+  const bool in2 = ahead && vx + 2.0f < fX && vy + 2.0f < fY && vz + 2.0f < fZ;
+  const bool vsx = front && vx + 1.0f >= 0.0f && vy >= 0.0f && vz >= 0.0f &&
+                   (vx + 1.0f) + 2.0f < fX && vy + 2.0f < fY &&
+                   vz + 2.0f < fZ;
+  const bool vsy = front && vx >= 0.0f && vy + 1.0f >= 0.0f && vz >= 0.0f &&
+                   vx + 2.0f < fX && (vy + 1.0f) + 2.0f < fY &&
+                   vz + 2.0f < fZ;
+  const bool vsz = front && vx >= 0.0f && vy >= 0.0f && vz + 1.0f >= 0.0f &&
+                   vx + 2.0f < fX && vy + 2.0f < fY &&
+                   (vz + 1.0f) + 2.0f < fZ;
+  EmfLmPoint r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (!(in1 || vsx || vsy || vsz)) return r;  // every output is 0
+  float lx, ly, lz;
+  const bool win = emf_local(it, i, vx, vy, vz, lx, ly, lz);
+  const bool valid1 = in1 && win, valid2 = in2 && win;
+  const int fx = emf_tap0(lx), fy = emf_tap0(ly), fz = emf_tap0(lz);
+  const float lx1 = lx + 1.0f, ly1 = ly + 1.0f, lz1 = lz + 1.0f;
+  float tx[3], tx1[3], ty[3], ty1[3], tz[3], tz1[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    tx[d] = emf_tent(lx, fx + d);
+    tx1[d] = emf_tent(lx1, fx + d);
+    ty[d] = emf_tent(ly, fy + d);
+    ty1[d] = emf_tent(ly1, fy + d);
+    tz[d] = emf_tent(lz, fz + d);
+    tz1[d] = emf_tent(lz1, fz + d);
+  }
+  const size_t cs = (size_t)it.cs;
+  const T* ch = static_cast<const T*>(it.cache);
+  float c[3][3][3];
+#pragma unroll
+  for (int dz = 0; dz < 3; ++dz)
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        c[dz][dy][dx] = emf_tap(ch, cs, (size_t)i, fz + dz, fy + dy, fx + dx);
+  // x, then y, then z: cx (tents tx), cx1 (tx1); cy = cx . ty, cy1 = cx .
+  // ty1, cyx1 = cx1 . ty; then the four samples along z
+  float cy[3], cy1[3], cyx1[3];
+#pragma unroll
+  for (int dz = 0; dz < 3; ++dz) {
+    float cx[3], cx1[3];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      cx[dy] = c[dz][dy][0] * tx[0] + c[dz][dy][1] * tx[1] +
+               c[dz][dy][2] * tx[2];
+      cx1[dy] = c[dz][dy][0] * tx1[0] + c[dz][dy][1] * tx1[1] +
+                c[dz][dy][2] * tx1[2];
+    }
+    cy[dz] = cx[0] * ty[0] + cx[1] * ty[1] + cx[2] * ty[2];
+    cy1[dz] = cx[0] * ty1[0] + cx[1] * ty1[1] + cx[2] * ty1[2];
+    cyx1[dz] = cx1[0] * ty[0] + cx1[1] * ty[1] + cx1[2] * ty[2];
+  }
+  const float base_val = cy[0] * tz[0] + cy[1] * tz[1] + cy[2] * tz[2];
+  const float sx =
+      vsx ? cyx1[0] * tz[0] + cyx1[1] * tz[1] + cyx1[2] * tz[2] : 0.0f;
+  const float sy = vsy ? cy1[0] * tz[0] + cy1[1] * tz[1] + cy1[2] * tz[2] : 0.0f;
+  const float sz = vsz ? cy[0] * tz1[0] + cy[1] * tz1[1] + cy[2] * tz1[2] : 0.0f;
+  r.psi = valid1 ? base_val : 0.0f;
+  const float base = valid2 ? base_val : 0.0f;
+  r.gx = (sx - base) / it.vs;
+  r.gy = (sy - base) / it.vs;
+  r.gz = (sz - base) / it.vs;
+  if (valid1)  // the window test puts floor(l) in [0, 4]: 8 taps inside
+    r.intw = fminf(emf_win8(ch + (size_t)EMF_WIN * EMF_WIN * EMF_WIN * cs,
+                            cs, (size_t)i, fz, fy, fx, tx, ty, tz),
+                   C.max_w);
+  const float a = fabsf(r.psi);
+  r.hub = a > 0.0f ? fminf(C.huber / fmaxf(a, 1e-30f), 1.0f) : 0.0f;
+  return r;
+}
+
+// emf_lm_psi for point i of a cache item: sample_value_from_cache at
+// margin 1 (channel 0), 0 outside the window.
+template <typename T>
+__device__ __forceinline__ float emf_lm_psi_cache(const EmfLmItem& it,
+                                                  const EmfPose& P, float px,
+                                                  float py, float pz, int i) {
+  float wx, wy, wz;
+  emf_apply(P, px, py, pz, wx, wy, wz);
+  const float vx = wx / it.vs + 0.5f * (float)(it.X - 1);
+  const float vy = wy / it.vs + 0.5f * (float)(it.Y - 1);
+  const float vz = wz / it.vs + 0.5f * (float)(it.Z - 1);
+  const bool valid = pz > 0.0f && vx >= 0.0f && vy >= 0.0f && vz >= 0.0f &&
+                     vx + 1.0f < (float)it.X && vy + 1.0f < (float)it.Y &&
+                     vz + 1.0f < (float)it.Z;
+  if (!valid) return 0.0f;
+  float lx, ly, lz;
+  if (!emf_local(it, i, vx, vy, vz, lx, ly, lz)) return 0.0f;
+  const int fx = (int)floorf(lx), fy = (int)floorf(ly), fz = (int)floorf(lz);
+  const float tx[2] = {emf_tent(lx, fx), emf_tent(lx, fx + 1)};
+  const float ty[2] = {emf_tent(ly, fy), emf_tent(ly, fy + 1)};
+  const float tz[2] = {emf_tent(lz, fz), emf_tent(lz, fz + 1)};
+  return emf_win8(static_cast<const T*>(it.cache), (size_t)it.cs, (size_t)i,
+                  fz, fy, fx, tx, ty, tz);
+}
+
+// ---------------------------------------------------------------------
 // A span's work in each phase, for the block that holds span s (the
 // item's span bl). Every thread of the block calls these; each ends with
 // a barrier of the block, so the next span may reuse its shared memory.
 
 // (a) the per-point values into scratch and hub, the span's max(0, intw)
 // into its partials. A thread loads its points' coordinates together.
+// CACHE: the items are cache items (emf_lm_point_cache).
+template <bool CACHE>
 __device__ void emf_lm_gather_span(const EmfLmItem& it, const EmfPose& P,
                                    const EmfLmBufs& B, const EmfLmCfg& C,
                                    int s, int bl) {
@@ -440,9 +655,15 @@ __device__ void emf_lm_gather_span(const EmfLmItem& it, const EmfPose& P,
   for (int j = 0; j < EMF_LM_PPT; ++j) {
     const int i = i0 + j * EMF_LM_BLOCK;
     if (i >= it.n) break;
-    const EmfLmPoint r =
-        it.bf16 ? emf_lm_point<emf_bf16>(it, P, px[j], py[j], pz[j], C)
-                : emf_lm_point<float>(it, P, px[j], py[j], pz[j], C);
+    EmfLmPoint r;
+    if constexpr (CACHE)
+      r = it.bf16 ? emf_lm_point_cache<emf_bf16>(it, P, px[j], py[j], pz[j],
+                                                 i, C)
+                  : emf_lm_point_cache<float>(it, P, px[j], py[j], pz[j], i,
+                                              C);
+    else
+      r = it.bf16 ? emf_lm_point<emf_bf16>(it, P, px[j], py[j], pz[j], C)
+                  : emf_lm_point<float>(it, P, px[j], py[j], pz[j], C);
     const size_t o = (size_t)it.p0 + i;
     B.hub[o] = r.hub;
     B.scratch[o] = r.psi;
@@ -544,7 +765,8 @@ __device__ void emf_lm_terms_span(const EmfLmItem& it, const EmfPose& P,
 // (d) the span's sum of w psi^2 at the trial pose Pn. A thread loads its
 // points' weights, then the coordinates of those weighted, then samples
 // them; a point of weight 0 adds nothing (its term is exactly 0, psi is
-// finite).
+// finite). CACHE: the items are cache items (emf_lm_psi_cache).
+template <bool CACHE>
 __device__ void emf_lm_trial_span(const EmfLmItem& it, const EmfPose& Pn,
                                   const EmfLmBufs& B, int s, int bl) {
   const size_t st = (size_t)it.stride;
@@ -567,9 +789,15 @@ __device__ void emf_lm_trial_span(const EmfLmItem& it, const EmfPose& Pn,
 #pragma unroll
   for (int j = 0; j < EMF_LM_PPT; ++j) {
     if (w[j] == 0.0f) continue;
-    const float psi =
-        it.bf16 ? emf_lm_psi<emf_bf16>(it, Pn, px[j], py[j], pz[j])
-                : emf_lm_psi<float>(it, Pn, px[j], py[j], pz[j]);
+    float psi;
+    if constexpr (CACHE)
+      psi = it.bf16 ? emf_lm_psi_cache<emf_bf16>(it, Pn, px[j], py[j], pz[j],
+                                                 i0 + j * EMF_LM_BLOCK)
+                    : emf_lm_psi_cache<float>(it, Pn, px[j], py[j], pz[j],
+                                              i0 + j * EMF_LM_BLOCK);
+    else
+      psi = it.bf16 ? emf_lm_psi<emf_bf16>(it, Pn, px[j], py[j], pz[j])
+                    : emf_lm_psi<float>(it, Pn, px[j], py[j], pz[j]);
     acc += (double)(w[j] * psi * psi);
   }
   __shared__ double sh[EMF_LM_WARPS];
@@ -595,8 +823,8 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK)
   const int k = emf_lm_item(T, blockIdx.x, s0);
   if (!emf_lm_evals(B, C, k)) return;
   const int nb = T.span_end[k] - s0;
-  emf_lm_gather_span(T.items[k], emf_lm_pose(B, k, SF_R), B, C, blockIdx.x,
-                     blockIdx.x - s0);
+  emf_lm_gather_span<false>(T.items[k], emf_lm_pose(B, k, SF_R), B, C,
+                            blockIdx.x, blockIdx.x - s0);
   if (emf_lm_last(B.count + k, nb) && threadIdx.x < 32) {
     const double v = emf_lm_rows<true>(B.part, s0, nb, EMF_LM_P_MAX);
     if (threadIdx.x == 0) {
@@ -630,8 +858,8 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK)
   const int k = emf_lm_item(T, blockIdx.x, s0);
   if (!emf_lm_si(B, k, SI_TRIAL)) return;
   const int nb = T.span_end[k] - s0;
-  emf_lm_trial_span(T.items[k], emf_lm_pose(B, k, SF_RN), B, blockIdx.x,
-                    blockIdx.x - s0);
+  emf_lm_trial_span<false>(T.items[k], emf_lm_pose(B, k, SF_RN), B,
+                           blockIdx.x, blockIdx.x - s0);
   if (emf_lm_last(B.count + k, nb) && threadIdx.x < 32) {
     const double v = emf_lm_rows<false>(B.part, s0, nb, EMF_LM_P_TRIAL);
     if (threadIdx.x == 0) {
@@ -936,6 +1164,9 @@ __device__ __forceinline__ bool emf_lm_lead(const EmfLmTable& T, int k) {
   return (k ? T.span_end[k - 1] : 0) % gridDim.x == blockIdx.x;
 }
 
+// CACHE: a table of cache items; the two instantiations differ in phases
+// (a) and (d) only.
+template <bool CACHE>
 __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
     emf_lm_run_kernel(const __grid_constant__ EmfLmTable T,
                       const EmfLmBufs B, const EmfLmCfg C, int iters) {
@@ -953,7 +1184,7 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
       const int k = emf_lm_item(T, s, s0);
       const EmfPose P = emf_lm_pose(B, k, SF_R);
       if (emf_lm_evals(B, C, k))
-        emf_lm_gather_span(T.items[k], P, B, C, s, s - s0);
+        emf_lm_gather_span<CACHE>(T.items[k], P, B, C, s, s - s0);
     }
     grid.sync();
     // (b) every item's weight maximum (a warp an item), then the terms
@@ -995,7 +1226,7 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
       const int k = emf_lm_item(T, s, s0);
       const EmfPose P = emf_lm_pose(B, k, SF_RN);
       if (emf_lm_si(B, k, SI_TRIAL))
-        emf_lm_trial_span(T.items[k], P, B, s, s - s0);
+        emf_lm_trial_span<CACHE>(T.items[k], P, B, s, s - s0);
     }
     grid.sync();
     // (e) decide, in each item's lead block
@@ -1024,15 +1255,19 @@ extern "C" int emf_lm_spans(int n) {
   return n > EMF_LM_SPAN ? (n + EMF_LM_SPAN - 1) / EMF_LM_SPAN : 1;
 }
 
-// The launch's table and span count (emf_lm_spans an item).
+// The launch's table and span count (emf_lm_spans an item); `cache`
+// says whether its items are cache items. A table of both kinds is
+// refused.
 static int emf_lm_table(const EmfLmItem* items, int n, EmfLmTable& T,
-                        long long& spans) {
+                        long long& spans, bool& cache) {
   if (n < 1 || n > EMF_MAX_ITEMS) return (int)cudaErrorInvalidValue;
   T.n = n;
   spans = 0;
+  cache = items[0].cached != 0;
   for (int k = 0; k < EMF_MAX_ITEMS; ++k) {
     if (k < n) {
-      if (items[k].n < 0) return (int)cudaErrorInvalidValue;
+      if (items[k].n < 0 || (items[k].cached != 0) != cache)
+        return (int)cudaErrorInvalidValue;
       T.items[k] = items[k];
       spans += emf_lm_spans(items[k].n);
     } else {
@@ -1044,14 +1279,16 @@ static int emf_lm_table(const EmfLmItem* items, int n, EmfLmTable& T,
 }
 
 // phase 0: the per-point values and wmax; 1: w and the sums. Returns a
-// cudaError_t.
+// cudaError_t; a table of cache items is refused.
 extern "C" int emf_lm_system(const EmfLmItem* items, int n, int phase,
                              const EmfLmBufs* B, const EmfLmCfg* C,
                              void* stream) {
   EmfLmTable T;
   long long spans;
-  const int e = emf_lm_table(items, n, T, spans);
+  bool cache;
+  const int e = emf_lm_table(items, n, T, spans, cache);
   if (e) return e;
+  if (cache) return (int)cudaErrorInvalidValue;
   if (phase == 0)
     emf_lm_gather_kernel<<<(unsigned)spans, EMF_LM_BLOCK, 0,
                            (cudaStream_t)stream>>>(T, *B, *C);
@@ -1066,8 +1303,10 @@ extern "C" int emf_lm_trial(const EmfLmItem* items, int n,
                             void* stream) {
   EmfLmTable T;
   long long spans;
-  const int e = emf_lm_table(items, n, T, spans);
+  bool cache;
+  const int e = emf_lm_table(items, n, T, spans, cache);
   if (e) return e;
+  if (cache) return (int)cudaErrorInvalidValue;
   emf_lm_trial_kernel<<<(unsigned)spans, EMF_LM_BLOCK, 0,
                         (cudaStream_t)stream>>>(T, *B, *C);
   return (int)cudaGetLastError();
@@ -1083,29 +1322,35 @@ extern "C" int emf_lm_step(int n, int phase, const EmfLmBufs* B,
 }
 
 // The blocks of emf_lm_run that device `dev` holds at once (its
-// occupancy times its SMs), read once a device; 0 if a query fails. The
-// occupancy query reads the current device, so it runs with `dev` made
-// current and the caller's device restored.
-extern "C" int emf_lm_run_blocks(int dev) {
-  static int cap[64];  // by device ordinal; 0: not read yet
+// occupancy times its SMs) for a table of gather items (cache 0) or of
+// cache items (cache 1), read once a device and kind; 0 if a query fails.
+// The occupancy query reads the current device, so it runs with `dev`
+// made current and the caller's device restored.
+extern "C" int emf_lm_run_blocks(int dev, int cache) {
+  static int cap[64][2];  // by device ordinal and kind; 0: not read yet
   if (dev < 0 || dev >= 64) return 0;
-  if (!cap[dev]) {
+  const int kind = cache ? 1 : 0;
+  if (!cap[dev][kind]) {
     int prev = 0, per_sm = 0, sms = 0;
     if (cudaGetDevice(&prev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
       return 0;
     const bool ok =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, emf_lm_run_kernel, EMF_LM_BLOCK, 0) == cudaSuccess &&
+        (kind ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &per_sm, emf_lm_run_kernel<true>, EMF_LM_BLOCK, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &per_sm, emf_lm_run_kernel<false>, EMF_LM_BLOCK, 0)) ==
+            cudaSuccess &&
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
             cudaSuccess;
     if (cudaSetDevice(prev) != cudaSuccess || !ok) return 0;
-    cap[dev] = per_sm * sms;
+    cap[dev][kind] = per_sm * sms;
   }
-  return cap[dev];
+  return cap[dev][kind];
 }
 
 // `iters` LM iterations of the table in one cooperative launch of `grid`
-// blocks (1 .. emf_lm_run_blocks(dev); the host passes min(spans, that))
+// blocks (1 .. emf_lm_run_blocks(dev, cache); the host passes min(spans,
+// that)) of the instantiation for the table's kind of item
 // on the current device, which the caller has made the tables' device.
 // Returns a cudaError_t: a grid the device cannot hold at once is refused.
 extern "C" int emf_lm_run(const EmfLmItem* items, int n, int iters,
@@ -1113,18 +1358,21 @@ extern "C" int emf_lm_run(const EmfLmItem* items, int n, int iters,
                           void* stream) {
   EmfLmTable T;
   long long spans;
-  const int e = emf_lm_table(items, n, T, spans);
+  bool cache;
+  const int e = emf_lm_table(items, n, T, spans, cache);
   if (e) return e;
   if (iters < 1 || grid < 1) return (int)cudaErrorInvalidValue;
   int dev = 0;
   const cudaError_t got = cudaGetDevice(&dev);
   if (got != cudaSuccess) return (int)got;
-  if (grid > emf_lm_run_blocks(dev))
+  if (grid > emf_lm_run_blocks(dev, cache))
     return (int)cudaErrorCooperativeLaunchTooLarge;
   EmfLmBufs b = *B;
   EmfLmCfg c = *C;
   void* args[] = {&T, &b, &c, &iters};
+  const void* fn = cache ? (const void*)emf_lm_run_kernel<true>
+                         : (const void*)emf_lm_run_kernel<false>;
   return (int)cudaLaunchCooperativeKernel(
-      (const void*)emf_lm_run_kernel, dim3((unsigned)grid),
-      dim3(EMF_LM_BLOCK), args, 0, (cudaStream_t)stream);
+      fn, dim3((unsigned)grid), dim3(EMF_LM_BLOCK), args, 0,
+      (cudaStream_t)stream);
 }

@@ -39,10 +39,12 @@ take one launch per that many). The device-resident LM's kernels
 state and buffers of :class:`LmBufsArgs` and the constants of
 :class:`LmCfgArgs` (``tracking.LMRun`` builds them). ``lm_run`` is one
 cooperative launch (``cudaLaunchCooperativeKernel``) for up to
-``max_iter`` LM iterations of the whole table, its grid at most the blocks the card holds
-at once (:func:`lm_run_blocks`); the split kernels, which the pixel-
-sharded LM launches, count per phase: ``lm_system`` and ``lm_step`` two
-launches an iteration, ``lm_trial`` one.
+``max_iter`` LM iterations of the whole table (of gather items, or of
+cache items that read K3's windows: the batched object LM's stages),
+its grid at most the blocks the card holds at once
+(:func:`lm_run_blocks`); the split kernels, which the pixel-sharded LM
+launches, count per phase: ``lm_system`` and ``lm_step`` two launches
+an iteration, ``lm_trial`` one.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ KERNELS = {
 # a source's C helpers besides its kernels' entries and ``emf_max_items``
 # (which takes nothing): source stem -> {entry: argument types}; each
 # returns an int
-HELPERS = {"lm": {"emf_lm_run_blocks": [_I], "emf_lm_spans": [_I]}}
+HELPERS = {"lm": {"emf_lm_run_blocks": [_I, _I], "emf_lm_spans": [_I]}}
 
 
 class FuseArgs(ctypes.Structure):
@@ -123,10 +125,14 @@ class CaptureArgs(ctypes.Structure):
 
 
 class LmItemArgs(ctypes.Structure):
-    """One LM of an ``lm.cu`` launch (``EmfLmItem``)."""
+    """One LM of an ``lm.cu`` launch (``EmfLmItem``): a gather item, or
+    with ``cached`` 1 a cache item that reads ``cache`` and ``anchor``
+    (``bf16`` then the cache's type, ``cs`` its point stride)."""
     _fields_ = [("tsdf", _P), ("wts", _P), ("pts", _P), ("assoc", _P),
+                ("cache", _P), ("anchor", _P),
                 ("stride", _I), ("n", _I), ("Z", _I), ("Y", _I), ("X", _I),
-                ("bf16", _I), ("vs", _F), ("p0", _I)]
+                ("bf16", _I), ("vs", _F), ("p0", _I), ("cs", _I),
+                ("cached", _I)]
 
 
 class LmBufsArgs(ctypes.Structure):
@@ -251,12 +257,13 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def lm_run_blocks(device: torch.device) -> int:
+def lm_run_blocks(device: torch.device, cache: bool = False) -> int:
     """The blocks of ``lm_run`` that ``device`` holds at once, the most
-    its cooperative grid may have (``emf_lm_run_blocks``)."""
+    its cooperative grid may have (``emf_lm_run_blocks``), for a table of
+    gather items or, with ``cache``, of cache items."""
     dev = torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    return library("lm_run").emf_lm_run_blocks(index)
+    return library("lm_run").emf_lm_run_blocks(index, int(cache))
 
 
 def _fn(name: str):

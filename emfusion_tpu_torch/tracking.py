@@ -53,11 +53,12 @@ decisions and ends on the same pose bits.
 :func:`track_volumes_batched` runs the same LM for S object slots at once,
 against caches that stay fixed within each of its two stages (one K3
 launch for all slots before each stage), whatever ``sampler`` says, as in
-the JAX package: every device computation of an iteration is one set of
-batched tensor ops over the slot axis, and the device is read once for
-all slots' systems and once for all slots' trial errors.
+the JAX package: each stage is one table of cache items (:class:`LMItem`
+with its window cache) run by :func:`lm_run`, whose phases read the
+windows in place of the volume, and one read of the state after it.
 
-The device-resident LM (the gather sampler): :func:`run_lm_items` runs a
+The device-resident LM (the gather sampler, and the batched object LM's
+cache items): :func:`run_lm_items` runs a
 table of independent LMs (the camera's, or every serial object LM of a
 frame: :func:`track_volumes_gather`, the counterpart of the JAX
 pipeline's ``lax.scan`` over the slots) on a state record per LM
@@ -90,19 +91,20 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from emfusion_tpu_torch import kernels
 from emfusion_tpu_torch.distributed import comm
 from emfusion_tpu_torch.geometry.capture import (
-    capture_neighborhoods, capture_neighborhoods_batched, drift_counts,
-    drift_within,
-    out_of_window_count, sample_system_from_cache, sample_value_from_cache,
+    WIN, capture_neighborhoods, capture_neighborhoods_batched, drift_counts,
+    drift_within, out_of_window_count, sample_system_from_cache,
+    sample_value_from_cache,
 )
 from emfusion_tpu_torch.geometry.sampling import (
     sample_system_at_points, sample_volume_at_points_plain, scalar,
+    transform_to_grid,
 )
 from emfusion_tpu_torch.geometry.se3 import se3_exp, se3_log
 
@@ -370,142 +372,26 @@ def _track_volume_host(tsdf, weights, voxel_size, points, assoc,
     return _pose_mat(R, t), stats
 
 
-def _system(cache, anchor, points, assoc, Rd, td, vs, shape,
-            cfg: TrackConfig):
-    """The LM system of S slots at their poses, on the device: residuals
-    from the fixed caches, Jacobian rows, combined weights, and the (S, 6,
-    6) normal equations. Returns (w, huber (S, M), A, b, err)."""
-    psi, g3 = sample_system_from_cache(cache[:, 0], anchor, points, Rd, td,
-                                       vs, shape)
-    intw = sample_value_from_cache(cache[:, 1:2], anchor, points, Rd, td,
-                                   vs, shape, margin=1)[:, 0]
-    p = Rd @ points + td[..., None]
-    J = torch.cat([g3, torch.linalg.cross(p, g3, dim=-2)], dim=-2)
-    abs_psi = torch.abs(psi)
-    huber = torch.where(
-        abs_psi > 0,
-        torch.clamp(cfg.huber_thresh / torch.clamp(abs_psi, min=1e-30),
-                    max=1.0), 0.0)
-    intw = torch.clamp(intw, max=cfg.max_tsdf_weight)
-    wmax = torch.amax(intw, dim=-1, keepdim=True)
-    intw = torch.where(wmax > 0, intw / wmax, 0.0)
-    w = huber * intw * assoc
-    Jw = J * w[:, None, :]
-    A = Jw @ J.transpose(-1, -2)
-    b = (Jw @ psi[..., None])[..., 0]
-    err = torch.sum(w * psi * psi, dim=-1)
-    return w, huber, A, b, err
-
-
-@dataclasses.dataclass
-class _Stage:
-    """One fixed-cache LM stage of S slots: poses, flags and counts on
-    the host, the last gradient evaluation's weights on the device."""
-    R: torch.Tensor           # (S, 3, 3)
-    t: torch.Tensor           # (S, 3)
-    converged: torch.Tensor   # (S,) bool
-    it: torch.Tensor          # (S,) int64
-    w: torch.Tensor           # (S, M)
-    hub: torch.Tensor         # (S, M)
-    reads: int                # device -> host reads
-    loops: int                # passes of the batched loop
-
-
-def _lm_fixed_cache(cache, anchor, points, assoc, R, t, vs, shape,
-                    cfg: TrackConfig, active, max_iter: int) -> _Stage:
-    """The LM of ``tracking.py:394-498`` of the JAX package for S slots
-    against fixed caches (S, 2, 6, 6, 6, M): no re-capture inside, so
-    points that drift out of their windows drop out through the window
-    mask. Every slot starts afresh (``mu`` 0, ``nu`` ``nu_init``, a first
-    iteration, a gradient to evaluate; converged where not ``active``)
-    and iterates until it converges or reaches ``max_iter``, as the JAX
-    loop under ``vmap`` does: the loop runs while any slot runs, and a
-    slot that has stopped keeps its state exactly. Per pass the device is
-    read once for the systems of the slots that evaluate a gradient and
-    once for the trial errors of the slots that take a step; the 6x6
-    solves and the accept / reject logic run on the host in float32."""
-    f32 = torch.float32
-    dev = points.device
-    S = points.shape[0]
-    R, t = R.clone(), t.clone()
-    vs_d = vs.to(dev)
-    eye = torch.eye(6, dtype=f32)
-    mu = torch.zeros(S, dtype=f32)
-    nu = torch.full((S,), cfg.nu_init, dtype=f32)
-    first = torch.ones(S, dtype=torch.bool)
-    eval_grad = torch.ones(S, dtype=torch.bool)
-    converged = ~active
-    A = eye.repeat(S, 1, 1)
-    b = torch.zeros((S, 6), dtype=f32)
-    err = torch.zeros(S, dtype=f32)
-    it = torch.zeros(S, dtype=torch.int64)
-    w = torch.zeros(points[:, 0].shape, dtype=f32, device=dev)
-    hub = torch.zeros_like(w)
-    reads = loops = 0
-    while True:
-        run = (it < max_iter) & ~converged
-        if not bool(run.any()):
-            break
-        loops += 1
-        ev = run & eval_grad
-        if bool(ev.any()):
-            w_e, hub_e, A_e, b_e, err_e = _system(
-                cache, anchor, points, assoc, R.to(dev), t.to(dev), vs_d,
-                shape, cfg)
-            host = torch.cat([A_e.reshape(S, 36), b_e, err_e[:, None]],
-                             dim=1).cpu()
-            reads += 1
-            ev_d = ev.to(dev)[:, None]
-            w = torch.where(ev_d, w_e, w)
-            hub = torch.where(ev_d, hub_e, hub)
-            A = torch.where(ev[:, None, None], host[:, :36].reshape(S, 6, 6),
-                            A)
-            b = torch.where(ev[:, None], host[:, 36:42], b)
-            err = torch.where(ev, host[:, 42], err)
-            converged = converged | (
-                ev & (torch.amax(torch.abs(b), dim=-1) < cfg.eps1))
-        ii = torch.nonzero(run & ~converged).flatten()
-        if len(ii):
-            Ai, bi, Ri, ti = A[ii], b[ii], R[ii], t[ii]
-            mu0 = torch.where(first[ii], cfg.tau * torch.amax(
-                torch.diagonal(Ai, dim1=-2, dim2=-1), dim=-1), mu[ii])
-            x = torch.linalg.solve(Ai + mu0[:, None, None] * eye, bi)
-            rel_vec = se3_log(_pose_mat(Ri, ti))
-            step_conv = torch.linalg.norm(x, dim=-1) < cfg.eps2 * (
-                torch.linalg.norm(rel_vec, dim=-1) + cfg.eps2)
-            dT = se3_exp(-x)
-            R_new = dT[:, :3, :3] @ Ri
-            t_new = (dT[:, :3, :3] @ ti[..., None])[..., 0] + dT[:, :3, 3]
-            trial = ~step_conv
-            err_new = err[ii]
-            if bool(trial.any()):
-                R_try, t_try = R.clone(), t.clone()
-                R_try[ii], t_try[ii] = R_new, t_new
-                psi = sample_value_from_cache(
-                    cache[:, 0:1], anchor, points, R_try.to(dev),
-                    t_try.to(dev), vs_d, shape, margin=1)[:, 0]
-                err_new = torch.sum(w * psi * psi, dim=-1).cpu()[ii]
-                reads += 1
-            gain = 0.5 * torch.sum(x * (mu0[:, None] * x + bi), dim=-1)
-            rho = (err[ii] - err_new) / torch.where(
-                torch.abs(gain) > 1e-30, gain, 1e-30)
-            accept = rho > 0
-            step = trial & accept
-            R[ii] = torch.where(step[:, None, None], R_new, Ri)
-            t[ii] = torch.where(step[:, None], t_new, ti)
-            mu_acc = mu0 * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
-                                       min=1.0 / 3.0)
-            mu[ii] = torch.where(trial, torch.where(accept, mu_acc,
-                                                    mu0 * nu[ii]), mu0)
-            nu[ii] = torch.where(trial, torch.where(
-                accept, torch.tensor(cfg.nu_init, dtype=f32),
-                nu[ii] * cfg.nu_init), nu[ii])
-            first[ii] = False
-            eval_grad[ii] = torch.where(trial, accept, eval_grad[ii])
-            converged[ii] = converged[ii] | step_conv
-        it = it + run.to(torch.int64)
-    return _Stage(R=R, t=t, converged=converged, it=it, w=w, hub=hub,
-                  reads=reads, loops=loops)
+def stage_items(tsdfs, weights, voxel_sizes, points: torch.Tensor,
+                assoc: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                slots: Sequence[int]) -> List["LMItem"]:
+    """The cache items of a fixed-cache stage of the batched object LM:
+    one capture of the windows of every slot of ``slots`` at its pose
+    ``(R[k], t[k])`` (host float32; on the card one K3 launch), and per
+    slot an :class:`LMItem` over its volumes, voxel size, ``points[k]``
+    (3, M) and ``assoc[k]`` (M,), starting from that pose, with its
+    (2, 6, 6, 6, M) cache and (3, M) anchors."""
+    sel = list(slots)
+    idx = torch.tensor(sel, dtype=torch.long)
+    pts = points[idx.to(points.device)].contiguous()
+    asc = assoc[idx.to(assoc.device)].contiguous()
+    cache, anchor = capture_neighborhoods_batched(
+        [tsdfs[k] for k in sel], [weights[k] for k in sel], pts, R[idx],
+        t[idx], voxel_sizes[idx])
+    return [LMItem(tsdfs[k], weights[k], float(voxel_sizes[k]), pts[j],
+                   asc[j], _pose_mat(R[k], t[k]), cache=cache[j],
+                   anchor=anchor[j])
+            for j, k in enumerate(sel)]
 
 
 def track_volumes_batched(tsdfs, weights, voxel_sizes, points: torch.Tensor,
@@ -514,11 +400,20 @@ def track_volumes_batched(tsdfs, weights, voxel_sizes, points: torch.Tensor,
     """The batched object LM (``tracking.py:501-571`` of the JAX package):
     S slots tracked together in two fixed-cache stages,
 
-      1. one capture of every slot's windows at its initial pose (one K3
-         launch), then the LM for ``max(max_iter // 2, 1)`` iterations;
+      1. one capture of the active slots' windows at their initial poses
+         (one K3 launch), then the LM of those slots (one table of cache
+         items, :func:`stage_items`) for ``max(max_iter // 2, 1)``
+         iterations (one :func:`lm_run`), and one read of the state;
       2. for the slots that are active and not converged, a capture at
-         their stage-1 poses (one K3 launch) and a fresh LM for the rest of
-         ``max_iter``.
+         their stage-1 poses (one K3 launch) and a fresh LM of them for
+         the rest of ``max_iter`` (one :func:`lm_run`), and one read.
+
+    No re-capture runs inside a stage (the JAX package's
+    ``_lm_fixed_cache``, ``tracking.py:394-498``): points that drift out
+    of their windows drop out through the window test. On a CUDA device
+    each stage is one cooperative launch of ``lm.cu``'s ``emf_lm_run``
+    over cache items; on the CPU the plain iteration. Each LM starts
+    afresh at a stage (``mu`` 0, ``nu`` ``nu_init``, a first iteration).
 
     Args: ``tsdfs``/``weights`` S (Z, Y, X) volumes of one shape on the
     compute device (a sequence or a stacked tensor), ``voxel_sizes`` (S,),
@@ -533,55 +428,64 @@ def track_volumes_batched(tsdfs, weights, voxel_sizes, points: torch.Tensor,
     stage's windows at its final pose (computed once per slot, and not
     read here: a caller that reads it pays that read);
     ``track_weights`` and ``huber_weights`` (S, M) of each slot's last
-    gradient evaluation on the device; and ``host_reads`` and
-    ``loop_iterations``, the device reads and the passes of the batched
-    loops over both stages.
-    An inactive slot keeps its pose, with 0 iterations and zero weights,
-    and counts as converged (as in the JAX package)."""
+    gradient evaluation on the device; ``host_reads``, the reads of the
+    device (one a stage's table: at most 2 while the slots fit one table,
+    ``lm.cu``'s ``emf_max_items()``; 0 without an active slot), and
+    ``loop_iterations``, the iterations the stages' tables ran (each its
+    longest LM's), summed.
+    An inactive slot stays out of the tables: it keeps its pose, with 0
+    iterations and zero weights, and counts as converged (as the JAX
+    package's ``converged = ~active`` start gives)."""
     f32 = torch.float32
+    dev = points.device
     shape = tuple(tsdfs[0].shape)
     vs = torch.as_tensor(voxel_sizes, dtype=f32).cpu()
     rel = torch.as_tensor(rel_poses, dtype=f32).cpu()
     active = torch.as_tensor(active, dtype=torch.bool).cpu()
-    R0, t0 = rel[:, :3, :3], rel[:, :3, 3]
+    S, M = points.shape[0], points.shape[2]
+    R, t = rel[:, :3, :3].clone(), rel[:, :3, 3].clone()
+    it = torch.zeros(S, dtype=torch.int64)
+    converged = ~active
+    recaps = torch.zeros(S, dtype=torch.int64)
+    w = torch.zeros((S, M), dtype=f32, device=dev)
+    hub = torch.zeros_like(w)
+    dropped = torch.zeros(S, dtype=torch.int64, device=dev)
+    reads = loops = 0
     half = max(cfg.max_iter // 2, 1)
-    cache, anchor = capture_neighborhoods_batched(tsdfs, weights, points, R0,
-                                                  t0, vs)
-    s1 = _lm_fixed_cache(cache, anchor, points, assoc, R0, t0, vs, shape,
-                         cfg, active, half)
-    del cache
-    dev = points.device
-    R, t, w, hub, it, converged = s1.R, s1.t, s1.w, s1.hub, s1.it, \
-        s1.converged
-    reads, loops = s1.reads, s1.loops
-    dropped = torch.zeros(len(active), dtype=torch.int64, device=dev)
-    final = torch.nonzero(active & s1.converged).flatten()
-    if len(final):
-        idx = final.to(dev)
-        dropped[idx] = out_of_window_count(
-            anchor[idx], points[idx], R[final].to(dev), t[final].to(dev),
-            vs[final].to(dev), shape)
-    recaps = torch.zeros_like(it)
-    again = torch.nonzero(active & ~s1.converged).flatten()
-    if len(again):
-        sel = again.tolist()
-        idx = again.to(dev)
-        cache, anchor = capture_neighborhoods_batched(
-            [tsdfs[k] for k in sel], [weights[k] for k in sel], points[idx],
-            R[again], t[again], vs[again])
-        s2 = _lm_fixed_cache(cache, anchor, points[idx], assoc[idx],
-                             R[again], t[again], vs[again], shape, cfg,
-                             torch.ones(len(sel), dtype=torch.bool),
-                             cfg.max_iter - half)
-        R[again], t[again] = s2.R, s2.t
-        it[again] += s2.it
-        converged[again] = s2.converged
-        recaps[again] = 1
-        w[idx], hub[idx] = s2.w, s2.hub
-        reads, loops = reads + s2.reads, loops + s2.loops
-        dropped[idx] = out_of_window_count(anchor, points[idx],
-                                           s2.R.to(dev), s2.t.to(dev),
-                                           vs[again].to(dev), shape)
+    cap = (kernels.library("lm_run").emf_max_items() if dev.type == "cuda"
+           else LM_MAX_ITEMS)
+    todo = torch.nonzero(active).flatten()
+    for stage, budget in enumerate((half, cfg.max_iter - half)):
+        if not len(todo):
+            break
+        stage_cfg = dataclasses.replace(cfg, max_iter=budget)
+        tables = []      # as many slots a table as a launch takes
+        for part in torch.split(todo, cap):
+            items = stage_items(tsdfs, weights, vs, points, assoc, R, t,
+                                part.tolist())
+            tables.append((part, items, LMRun(items, stage_cfg)))
+            lm_run(tables[-1][2], stage_cfg, budget)
+        for part, items, run in tables:
+            si, sf = run.read()
+            reads += run.reads
+            loops += int(si[:, SI_IT].max())
+            R[part] = sf[:, SF_R:SF_R + 9].reshape(-1, 3, 3)
+            t[part] = sf[:, SF_T:SF_T + 3]
+            it[part] += si[:, SI_IT].to(torch.int64)
+            converged[part] = si[:, SI_CONV] != 0
+            recaps[part] = stage
+            idx = part.to(dev)
+            w[idx] = run.w.view(len(items), M)
+            hub[idx] = run.hub.view(len(items), M)
+            # a slot's last stage: its points outside the windows at its
+            # final pose
+            out = out_of_window_count(
+                torch.stack([x.anchor for x in items]),
+                torch.stack([x.points for x in items]), R[part].to(dev),
+                t[part].to(dev), vs[part].to(dev), shape)
+            last = converged[part] | (stage == 1)
+            dropped[part[last].to(dev)] = out[last.to(dev)]
+        todo = todo[~converged[todo]]
     stats = {"iterations": it, "converged": converged, "recaptures": recaps,
              "dropped_points": dropped,
              "track_weights": w, "huber_weights": hub,
@@ -609,13 +513,21 @@ class LMItem:
     """One LM of a table: its (Z, Y, X) volumes (float32, or a bf16 pair),
     voxel size, (3, N) camera points and (N,) association weights on the
     compute device, and its (4, 4) initial camera-to-volume transform
-    (host float32; the caller re-orthonormalises it)."""
+    (host float32; the caller re-orthonormalises it).
+
+    A cache item also has its points' windows, captured by K3 at the
+    start pose (``geometry.capture``): ``cache`` (2, 6, 6, 6, N), float32
+    or bf16, and ``anchor`` (3, N) int32. Its LM reads them, not the
+    volumes (which give the shape), as the batched object LM's fixed-
+    cache stages do; a gather item has neither. A table holds one kind."""
     tsdf: torch.Tensor
     weights: torch.Tensor
     voxel_size: float
     points: torch.Tensor
     assoc: torch.Tensor
     rel_pose: torch.Tensor
+    cache: Optional[torch.Tensor] = None
+    anchor: Optional[torch.Tensor] = None
 
 
 def _upload(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -643,6 +555,11 @@ class LMRun:
         f32 = torch.float32
         self.items = list(items)
         S = len(self.items)
+        kinds = {it.cache is not None for it in self.items}
+        if len(kinds) != 1:
+            raise ValueError("an LM table holds cache items only or gather "
+                             "items only")
+        self.cached = kinds.pop()
         self.dev = self.items[0].points.device
         self.n = [int(it.points.shape[1]) for it in self.items]
         self.p0 = [sum(self.n[:k]) for k in range(S)]
@@ -679,7 +596,7 @@ class LMRun:
         S = len(self.items)
         lib = kernels.library("lm_run")
         spans = sum(lib.emf_lm_spans(n) for n in self.n)
-        resident = kernels.lm_run_blocks(self.dev)
+        resident = kernels.lm_run_blocks(self.dev, self.cached)
         if resident < 1:
             raise RuntimeError("lm_run: the device's occupancy query failed")
         self.grid = min(spans, resident)
@@ -691,6 +608,17 @@ class LMRun:
             code = kernels.volume_dtype_code("lm_run", it.tsdf, it.weights)
             kernels.check_cuda("lm_run", it.tsdf, it.weights, it.assoc,
                                allow_bf16=True, device=self.dev)
+            cache = anchor = None
+            if self.cached:
+                code = kernels.volume_dtype_code("lm_run", it.cache)
+                kernels.check_cuda("lm_run", it.cache, it.anchor,
+                                   allow_bf16=True, device=self.dev)
+                if (it.cache.shape != (2, WIN, WIN, WIN, n)
+                        or it.anchor.shape != (3, n)
+                        or it.anchor.dtype != torch.int32):
+                    raise ValueError("lm_run: a cache item takes a (2, 6, 6, "
+                                     "6, N) cache and (3, N) int32 anchors")
+                cache, anchor = it.cache.data_ptr(), it.anchor.data_ptr()
             pts = it.points
             if (it.tsdf.dim() != 3 or it.weights.shape != it.tsdf.shape
                     or pts.dtype != torch.float32 or pts.shape[0] != 3
@@ -706,8 +634,8 @@ class LMRun:
             Z, Y, X = it.tsdf.shape
             args.append(kernels.LmItemArgs(
                 it.tsdf.data_ptr(), it.weights.data_ptr(), pts.data_ptr(),
-                it.assoc.data_ptr(), pts.stride(0), n, Z, Y, X, code,
-                float(it.voxel_size), p0))
+                it.assoc.data_ptr(), cache, anchor, pts.stride(0), n, Z, Y,
+                X, code, float(it.voxel_size), p0, n, int(self.cached)))
         self.table = (kernels.LmItemArgs * S)(*args)
         self.bufs = kernels.LmBufsArgs(
             self.si.data_ptr(), self.sf.data_ptr(), self.sys.data_ptr(),
@@ -767,6 +695,96 @@ def _rigid(R, t, pts):
             for i in range(3)]
 
 
+def _lsum(terms):
+    """The terms summed left to right."""
+    s = terms[0]
+    for x in terms[1:]:
+        s = s + x
+    return s
+
+
+def _tents(v: torch.Tensor) -> List[torch.Tensor]:
+    """``tent(v - d) = max(0, 1 - |v - d|)``, the weight of window tap
+    ``d``, for d = 0 .. WIN - 1."""
+    return [torch.clamp(1.0 - torch.abs(v - float(d)), min=0.0)
+            for d in range(WIN)]
+
+
+def _cache_grid(it: LMItem, R, t):
+    """A cache item's points at the pose: their grid coordinates (vx, vy,
+    vz), camera z, local window coordinates (lx, ly, lz) and the window
+    test (``geometry.capture._window_ok``)."""
+    vx, vy, vz, pz = transform_to_grid(it.points, R, t, it.voxel_size,
+                                       tuple(it.tsdf.shape))
+    a = it.anchor.to(torch.float32)
+    lx, ly, lz = vx - a[0], vy - a[1], vz - a[2]
+    hi = WIN - 2.0
+    win = ((lx >= 0) & (lx <= hi) & (ly >= 0) & (ly <= hi) & (lz >= 0)
+           & (lz <= hi))
+    return (vx, vy, vz), pz, (lx, ly, lz), win
+
+
+def _cache_system(it: LMItem, R, t, cfg: TrackConfig):
+    """Per point of a cache item at the pose: ψ and its gradient
+    (``geometry.capture.sample_system_from_cache``) and the clamped
+    margin-1 weight (``sample_value_from_cache`` of channel 1), each tent
+    sum over the window spelled out left to right, x, then y, then z (the
+    kernel's order; ``torch.sum``'s order on the CPU is not fixed)."""
+    Z, Y, X = it.tsdf.shape
+    (vx, vy, vz), pz, (lx, ly, lz), win = _cache_grid(it, R, t)
+    c = it.cache.to(torch.float32)
+    tx, ty, tz = _tents(lx), _tents(ly), _tents(lz)
+    tx1, ty1, tz1 = _tents(lx + 1.0), _tents(ly + 1.0), _tents(lz + 1.0)
+    cx = _lsum([c[0, :, :, d] * tx[d] for d in range(WIN)])    # (z, y, N)
+    cx1 = _lsum([c[0, :, :, d] * tx1[d] for d in range(WIN)])
+    cy = _lsum([cx[:, d] * ty[d] for d in range(WIN)])         # (z, N)
+    cy1 = _lsum([cx[:, d] * ty1[d] for d in range(WIN)])
+    cyx1 = _lsum([cx1[:, d] * ty[d] for d in range(WIN)])
+    base_val = _lsum([cy[d] * tz[d] for d in range(WIN)])
+    sx = _lsum([cyx1[d] * tz[d] for d in range(WIN)])
+    sy = _lsum([cy1[d] * tz[d] for d in range(WIN)])
+    sz = _lsum([cy[d] * tz1[d] for d in range(WIN)])
+    front = pz > 0
+    ahead = front & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0) & win
+    valid1 = ahead & (vx + 1.0 < X) & (vy + 1.0 < Y) & (vz + 1.0 < Z)
+    valid2 = ahead & (vx + 2.0 < X) & (vy + 2.0 < Y) & (vz + 2.0 < Z)
+
+    def shifted(ex, ey, ez):
+        return (front & (vx + ex >= 0.0) & (vy + ey >= 0.0)
+                & (vz + ez >= 0.0) & (vx + ex + 2.0 < X)
+                & (vy + ey + 2.0 < Y) & (vz + ez + 2.0 < Z))
+
+    psi = torch.where(valid1, base_val, 0.0)
+    base = torch.where(valid2, base_val, 0.0)
+    vs = scalar(it.voxel_size, psi)
+    g3 = [(torch.where(shifted(*e), s_, 0.0) - base) / vs
+          for s_, e in ((sx, (1.0, 0.0, 0.0)), (sy, (0.0, 1.0, 0.0)),
+                        (sz, (0.0, 0.0, 1.0)))]
+    intw = torch.where(valid1, _window_value(c[1], tx, ty, tz), 0.0)
+    return psi, g3, torch.clamp(intw, max=cfg.max_tsdf_weight)
+
+
+def _window_value(ch, tx, ty, tz):
+    """The tent sum of a (6, 6, 6, N) window channel: x, then y, then z,
+    each left to right."""
+    cx = _lsum([ch[:, :, d] * tx[d] for d in range(WIN)])
+    cy = _lsum([cx[:, d] * ty[d] for d in range(WIN)])
+    return _lsum([cy[d] * tz[d] for d in range(WIN)])
+
+
+def _cache_psi(it: LMItem, R, t):
+    """ψ at margin 1 of a cache item's points at the pose
+    (``sample_value_from_cache`` of channel 0, the tent sums left to
+    right)."""
+    Z, Y, X = it.tsdf.shape
+    (vx, vy, vz), pz, (lx, ly, lz), win = _cache_grid(it, R, t)
+    valid = ((pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0)
+             & (vx + 1.0 < X) & (vy + 1.0 < Y) & (vz + 1.0 < Z) & win)
+    psi = _window_value(it.cache[0].to(torch.float32), _tents(lx),
+                        _tents(ly), _tents(lz))
+    return torch.where(valid, psi, 0.0)
+
+
 def lm_system_plain(run: LMRun, cfg: TrackConfig, group=None) -> None:
     """Plain version of ``lm_system`` (``eval_system`` and
     ``build_normal_eqs``, ``tracking.py:183-240`` of the JAX package) for
@@ -774,7 +792,8 @@ def lm_system_plain(run: LMRun, cfg: TrackConfig, group=None) -> None:
     gradient (:func:`sample_system_at_points`), the margin-1 integration
     weight clamped to ``max_tsdf_weight`` and the Huber weight (``x/0 =
     0``), stored in ``scratch`` and ``hub``, and ``wmax`` =
-    ``max(0, max intw)`` (all-reduced with MAX over a ``group``); then
+    ``max(0, max intw)`` (all-reduced with MAX over a ``group``), from
+    the item's window cache for a cache item (:func:`_cache_system`); then
     ``w = huber * (intw / wmax) * assoc`` (0 where ``wmax`` is 0) into
     ``w``, ``J = [g3, p x g3]``, and the float32 terms ``J_a w J_c`` (a <=
     c), ``J_a w psi`` and ``w psi^2`` summed in float64 into ``sys``
@@ -786,11 +805,14 @@ def lm_system_plain(run: LMRun, cfg: TrackConfig, group=None) -> None:
             run.wmax[k] = 0.0
             continue
         R, t = _pose_of(run, k, SF_R)
-        psi, g3 = sample_system_at_points(it.tsdf, it.points, R, t,
-                                          it.voxel_size)
-        intw = torch.clamp(sample_volume_at_points_plain(
-            it.weights, it.points, R, t, it.voxel_size, margin=1),
-            max=cfg.max_tsdf_weight)
+        if it.cache is not None:
+            psi, g3, intw = _cache_system(it, R, t, cfg)
+        else:
+            psi, g3 = sample_system_at_points(it.tsdf, it.points, R, t,
+                                              it.voxel_size)
+            intw = torch.clamp(sample_volume_at_points_plain(
+                it.weights, it.points, R, t, it.voxel_size, margin=1),
+                max=cfg.max_tsdf_weight)
         a = torch.abs(psi)
         hub = torch.where(a > 0, torch.clamp(
             scalar(cfg.huber_thresh, a) / torch.clamp(a, min=1e-30),
@@ -824,13 +846,17 @@ def lm_trial_plain(run: LMRun, cfg: TrackConfig, group=None) -> None:
     """Plain version of ``lm_trial`` (the trial error, ``tracking.py:
     272-287`` of the JAX package): for the LMs with a trial step, ``sum(w
     psi^2)`` in float64 into ``trial``, ψ sampled at margin 1 at the trial
-    pose, ``w`` of the last evaluation (all-reduced with SUM over a
+    pose (from the window cache for a cache item, :func:`_cache_psi`),
+    ``w`` of the last evaluation (all-reduced with SUM over a
     ``group``)."""
     for k in _items_with(run, cfg, SI_TRIAL):
         it, sl = run.items[k], run.point_slice(k)
         Rn, tn = _pose_of(run, k, SF_RN)
-        psi = sample_volume_at_points_plain(it.tsdf, it.points, Rn, tn,
-                                            it.voxel_size, margin=1)
+        if it.cache is not None:
+            psi = _cache_psi(it, Rn, tn)
+        else:
+            psi = sample_volume_at_points_plain(it.tsdf, it.points, Rn, tn,
+                                                it.voxel_size, margin=1)
         run.trial[k] = (run.w[sl] * psi * psi).double().sum()
     if group is not None:
         comm.all_reduce(group, run.trial)
@@ -1058,12 +1084,20 @@ def lm_step_plain(run: LMRun, cfg: TrackConfig, phase: int) -> None:
                                  si[:, SI_EVAL])
 
 
+def _split_only_gathers(run: LMRun, name: str) -> None:
+    if run.cached:
+        raise ValueError(f"{name}: the split kernels take gather items "
+                         "only; a table of cache items runs in lm_run")
+
+
 def lm_system(run: LMRun, cfg: TrackConfig, group=None) -> None:
     """The LM system of every LM of ``run`` that runs and evaluates a
     gradient: on a CUDA device ``lm.cu``'s two phases (and the group's
-    all-reduces between them), else :func:`lm_system_plain`."""
+    all-reduces between them; gather items only), else
+    :func:`lm_system_plain`."""
     if not run.cuda:
         return lm_system_plain(run, cfg, group)
+    _split_only_gathers(run, "lm_system")
     S = len(run.items)
     for phase, (buf, op) in enumerate(((run.wmax, "max"), (run.sys, "sum"))):
         kernels.launch("lm_system", ctypes.addressof(run.table), S, phase,
@@ -1076,10 +1110,11 @@ def lm_system(run: LMRun, cfg: TrackConfig, group=None) -> None:
 
 def lm_trial(run: LMRun, cfg: TrackConfig, group=None) -> None:
     """The trial error of every LM of ``run`` with a trial step: on a CUDA
-    device ``lm.cu``'s ``emf_lm_trial`` (and the group's all-reduce), else
-    :func:`lm_trial_plain`."""
+    device ``lm.cu``'s ``emf_lm_trial`` (and the group's all-reduce; gather
+    items only), else :func:`lm_trial_plain`."""
     if not run.cuda:
         return lm_trial_plain(run, cfg, group)
+    _split_only_gathers(run, "lm_trial")
     kernels.launch("lm_trial", ctypes.addressof(run.table), len(run.items),
                    ctypes.addressof(run.bufs),
                    ctypes.addressof(run.cfg_args), device=run.dev,

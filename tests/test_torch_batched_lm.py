@@ -142,7 +142,7 @@ def test_track_volumes_batched_matches_jax(carried):
     iterates differ in the last bits: final translations within 0.01
     object voxel and rotations within 1e-4 rad, the same converged flags
     and re-captures, iterations within 3, the last weights within 1e-5.
-    The batched loop reads the device at most twice a pass."""
+    The call reads the device at most twice (once a stage)."""
     c = object_case(carried)
     S, vs = 3, c["vs"]
     rels = np.stack([c["rel"]] * S).astype(np.float32)
@@ -182,7 +182,7 @@ def test_track_volumes_batched_matches_jax(carried):
     assert st["dropped_points"].shape == (S,)
     assert st["dropped_points"][2] == 0 and st["dropped_points"].min() >= 0
     assert (st["huber_weights"][:2] != 0).sum(dim=1).min() > 300
-    assert st["host_reads"] <= 2 * st["loop_iterations"]
+    assert st["host_reads"] <= 2
     assert st["loop_iterations"] == it[1]     # stage 1's 15, then slot 1
 
 
@@ -241,6 +241,6 @@ def test_pipeline_batched_object_step_matches_jax(carried, budget):
     assert 150 < np.count_nonzero(np.asarray(hw)[0]) <= budget
     lm = pipe.last_batched_lm
     assert lm["points"] == budget and lm["slots"] == 1
-    assert lm["host_reads"] <= 2 * lm["loop_iterations"]
+    assert lm["host_reads"] <= 2
     stats = pipe.last_obj_track_stats[oid]
     assert stats["iterations"] > 0 and stats["recaptures"] in (0, 1)
