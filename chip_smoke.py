@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--only distributed]
 
+(``chip_smoke.py --serve-rank OUT AT ARGV...`` is a rank of step 9c
+under ``torchrun``.)
+
 1. Builds the port's CUDA kernels from ``emfusion_tpu_torch/csrc``.
 2. Fuses an analytic scene, with depth noise drawn from ``--seed``
    (default 0), at the reference's published size
@@ -96,7 +99,15 @@
    to bf16 (``lm_run_cache_bf16``, a bf16 cache; no path runs one yet),
    as ``hold_lm_run`` holds the gather tables (no split kernels: they
    take gather items only); profiles three frames of the path
-   (``chiprun_out/accel_profile_ops.txt``).
+   (``chiprun_out/accel_profile_ops.txt``). Then holds fault F2's guard:
+   ``lm_run`` over a table of two cache items on a 16^3 slope whose
+   first undamped step carries the first item's 24 points 7 voxels out
+   of their windows (the JAX package's fixed-cache LM accepts that step,
+   its error being an empty sum) and the second's 1.5 voxels, one launch
+   of one iteration against the plain iteration: the records bit for
+   bit, the first item's trial counted with no weighted point in its
+   windows and rejected, its pose kept, the second's accepted; then the
+   table held to its stop as ``hold_lm_run`` holds it.
 8b. Runs the same 40 frames and masks again with ``volume_dtype="bfloat16"``
    (the JAX package's accelerator storage: the background pair in bf16)
    and prints its e2e ms a frame, peak memory, ATE, recovery, launches
@@ -143,6 +154,19 @@
    parsed), 12 turntable views timed, ``encode_jpeg`` of a 640x480 frame
    timed, and K4 held at an orbit pose from outside the volume
    (``raycast_orbit``, with the K4 launches of this step).
+9c. The sharded viewer: a 6-frame 160x120 TUM sequence of the object
+   path's scene (128^3, 32^3 objects) through ``apps.run_emfusion
+   --serve --turntable 3``, on this card alone and on 2 gloo ranks
+   sharing it (``--nprocs``'s rank body, ``distributed.mesh.launch``),
+   each run's service step wrapped (:class:`ServeProbe`): at the last
+   frame but one a ``/view.png`` alone, at the last every endpoint that
+   a sharded run answers (``/frame.png``, ``/status``, ``/view.png``,
+   ``/mesh.bin``, ``/mesh.ply``), then a request after the last step;
+   fails unless every answer and turntable PNG is byte-equal to the
+   one-card run's, the late request is answered on one card and refused
+   with a 503 by the ranks, and every rank exits 0. Prints the service
+   step's ms with nothing queued, the view's round trip and the
+   turntable's ms a view, sharded beside one card.
 10. Runs a small scene through the pipeline on the card and on the CPU
    (plain versions) and compares the camera poses; then a small object
    scene, comparing the live objects and the camera and object poses.
@@ -177,7 +201,10 @@
    ``cuda:1`` while ``cuda:0`` stays current, and fails unless every
    kernel ran there and poses, volumes and the LMs' results equal the
    same run on ``cuda:0`` bit for bit (every launch runs on its
-   tensors' card).
+   tensors' card); after step 11 it runs step 9c at full width (640x480,
+   512^3, ``configs/default.cfg``) on 4 ranks: under ``torchrun`` (the
+   CLI's own entry) with NCCL on 4 cards, or as 4 gloo ranks sharing one
+   card.
 
 Kernel K6 (the projective warp) is not on either path: the port's
 fusion kernel makes its nearest-pixel pick per voxel. Step 2 holds it
@@ -350,6 +377,43 @@ LIFE_FRAMES = 32
 DIST_TIMEOUT_S = 420.0
 LM_POSE_TOL = 1e-4            # the pixel-sharded LM against one rank
 DIST_WORK = os.path.join(HERE, "chip_smoke_dist")
+# fault F2's scene (tests/test_torch_lm_escape.py): a 16^3 slope at 1 cm,
+# 24 points on the plane x = 10.5 voxels; the LM's undamped first step
+# (tau 1e-6) moves them to the slope's zero crossing, ESCAPE_ZEROS[0]: 7
+# voxels, out of every window and into free space; ESCAPE_ZEROS[1]: 1.5
+ESCAPE_RES, ESCAPE_VS, ESCAPE_N = 16, 0.01, 24
+ESCAPE_ZEROS = (3.5, 9.0)
+# the sharded viewer (step 9c; --only distributed at full width): CLI runs
+# of SERVE_FRAMES frames with --serve and --turntable, their service step
+# wrapped (ServeProbe): SERVE_VIEW alone at the last frame but one, then
+# every path of SERVE_PATHS at the last (SERVE_QUEUED of them need every
+# rank), SERVE_LATE after the last step
+SERVE_WORK = os.path.join(HERE, "chip_smoke_serve")
+SERVE_FRAMES = 6
+SERVE_PATHS = ("/frame.png", "/status",
+               "/view.png?yaw=3.1&pitch=-0.25&dist=0.9", "/mesh.bin",
+               "/mesh.ply")
+SERVE_QUEUED = 3
+SERVE_VIEW = "/view.png?yaw=2.8&pitch=-0.3&dist=1.0"
+SERVE_LATE = "/view.png?yaw=2.0"
+SERVE_TURNTABLE = 3
+SERVE_RANKS = 2               # on one card (gloo)
+SERVE_TIMEOUT_S = 300.0
+# the small scene's configuration (step 10's SMALL_OBJECTS, 160x120)
+SERVE_SMALL_CONFIG = """[Params]
+frameSize = 160 120
+globalVolumeDims = 128 128 128
+globalVoxelSize = 0.02
+volumePose = 0.0 0.0 1.28
+objVolumeDims = 32 32 32
+maxTrackingIter = 50
+raycast_max_steps = 256
+max_objects = 4
+maskRCNNFrames = 3
+visibilityThresh = 60
+mask_min_pixels = 60
+boundary = 5
+"""
 
 
 # ---------------------------------------------------------------------
@@ -2201,6 +2265,75 @@ def accel_pool_phase(torch, pipe, depth_raw):
                 torch, *stage_table(torch, pipe, points, slots))}
 
 
+def escape_items(torch, dev):
+    """Fault F2's two cache items (``ESCAPE_*``), captured at the identity
+    by one K3 launch (``tracking.stage_items``)."""
+    from emfusion_tpu_torch.tracking import stage_items
+    R, N, vs = ESCAPE_RES, ESCAPE_N, ESCAPE_VS
+    x = np.arange(R, dtype=np.float32)
+    tsdfs = [torch.tensor(np.broadcast_to(
+        np.where(x >= 8, 0.1 * (x - z), 1.0).astype(np.float32),
+        (R, R, R)).copy(), device=dev) for z in ESCAPE_ZEROS]
+    wts = [torch.ones((R, R, R), device=dev) for _ in ESCAPE_ZEROS]
+    rng = np.random.RandomState(0)
+    v = np.stack([np.full(N, 10.5), rng.uniform(4.3, 11.7, N),
+                  rng.uniform(8.3, 12.7, N)])
+    pts = torch.tensor(((v - (R - 1) / 2) * vs).astype(np.float32),
+                       device=dev)
+    S = len(ESCAPE_ZEROS)
+    return stage_items(tsdfs, wts, torch.full((S,), vs),
+                       pts.expand(S, 3, N).contiguous(),
+                       torch.ones((S, N), device=dev),
+                       torch.eye(3).expand(S, 3, 3), torch.zeros(S, 3),
+                       range(S))
+
+
+def hold_lm_escape(torch, report):
+    """Fault F2's guard on the card: ``lm_run`` over the two cache items
+    of :func:`escape_items` (one table), one launch of one iteration,
+    against the plain iteration on the same tensors: the state records
+    bit for bit, the first item's trial counted with no weighted point in
+    its windows and rejected (its pose kept, no gradient next), the
+    second's 24 points counted and its step accepted; then the table held
+    to its stop as :func:`hold_lm_run` holds it. Fails otherwise."""
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch import tracking as tr
+    cfg = tr.TrackConfig(tau=1e-6, max_iter=30)
+    items = escape_items(torch, "cuda")
+    k, q = tr.LMRun(items, cfg), tr.LMRun(items, cfg)
+    start = k.sf[:, :tr.SF_RN].clone()          # the poses R, t
+    kernels.reset_launches()
+    tr.lm_run(k, cfg, 1)
+    plain_iteration(tr, q, cfg)
+    torch.cuda.synchronize()
+    launched = kernels.launches.get(LM_RUN, 0)
+    equal = all(torch.equal(a, b) for a, b in (
+        (k.si, q.si), (k.sf, q.sf), (k.w, q.w), (k.scratch, q.scratch)))
+    nin = k.si[:, tr.SI_NIN].tolist()
+    ev = k.si[:, tr.SI_EVAL].tolist()
+    kept = torch.equal(k.sf[0, :tr.SF_RN], start[0])
+    moved = not torch.equal(k.sf[1, :tr.SF_RN], start[1])
+    row = hold_lm_run(torch, items, cfg, reps=3)
+    out = dict(first_iteration_equal=equal, counted=nin, eval_next=ev,
+               rejected_kept_pose=kept, accepted_moved=moved,
+               lm_run_launches=launched, run_iterations=row[
+                   "run_iterations"], max_abs_err=row["max_abs_err"],
+               whole_equal=row["whole_equal"])
+    report["lm_escape"] = out
+    print(f"F2 guard on the card (lm_run, 2 cache items, {ESCAPE_N} points "
+          f"each): first iteration card == plain {equal}; weighted points "
+          f"with a valid psi at the trial poses {nin}; gradient next {ev}; "
+          f"escaping item's pose kept {kept}, the other's moved {moved}; "
+          f"held to the stop ({row['run_iterations']} iterations): max abs "
+          f"err {row['max_abs_err']:.3e}, one launch == the chain "
+          f"{row['whole_equal']}", flush=True)
+    if not (equal and nin == [0, ESCAPE_N] and ev == [0, 1] and kept
+            and moved and launched == 1 and row["max_abs_err"] <= row["tol"]):
+        raise RuntimeError(f"F2 guard: the card or the plain version took "
+                           f"the escape, or they disagree: {out}")
+    return out
+
+
 # the export tree of tests/test_pipeline.py::test_export_tree
 EXPORT_TREE = ("output", "masks", "assoc_weights/bg/preTrack",
                "assoc_weights/bg/postTrack", "assoc_weights/{oid}/preTrack",
@@ -2887,6 +3020,228 @@ def struct_unpack(body):
         sizes.append(nv)
         off += 8 + nv * 24 + nt * 12
     return nm, off, sizes
+
+
+class ServeProbe:
+    """Wraps ``viz_server.serve_step`` and ``viz.render_turntable`` in
+    this process's CLI run with ``--serve`` (one card, or a rank): each
+    step's ms and requests; at pipeline frame ``at - 1`` a GET of
+    ``SERVE_VIEW`` alone, at ``at`` a GET of every path of
+    ``SERVE_PATHS`` (each on its own thread, their round trips timed; on
+    a mesh the step runs once the ``SERVE_QUEUED`` requests that need
+    every rank are queued), so each is answered at its frame; after the
+    last step (``serve_close``'s) a GET of ``SERVE_LATE``, which a
+    sharded run's closing answers with a 503; the turntable's ms a
+    view."""
+
+    def __init__(self, at: int):
+        from emfusion_tpu_torch import viz, viz_server
+        self.mods = (viz_server, viz)
+        self.real = (viz_server.serve_step, viz.render_turntable)
+        viz_server.serve_step, viz.render_turntable = self.step, self.views
+        self.at, self.last = at, None
+        self.answers, self.get_s, self.steps, self.late = {}, {}, [], {}
+        self.threads = []
+        self.turntable_ms = None
+
+    def restore(self) -> None:
+        self.mods[0].serve_step, self.mods[1].render_turntable = self.real
+
+    def _get(self, port, paths):
+        import threading
+
+        def one(p):
+            t0 = time.perf_counter()
+            st, _, body = http_get(port, p, timeout=SERVE_TIMEOUT_S)
+            self.get_s[p] = time.perf_counter() - t0
+            (self.late if p == SERVE_LATE else self.answers)[p] = (st, body)
+        ts = [threading.Thread(target=one, args=(p,)) for p in paths]
+        for t in ts:
+            t.start()
+        return ts
+
+    @staticmethod
+    def _wait_queued(pipe, viewer, n):
+        end = time.monotonic() + SERVE_TIMEOUT_S
+        while pipe.mesh is not None and viewer.queued() < n:
+            if time.monotonic() > end:
+                raise RuntimeError(f"sharded viewer: {viewer.queued()} of "
+                                   f"{n} requests queued")
+            time.sleep(0.002)
+
+    def step(self, pipe, viewer=None):
+        final = pipe.frame == self.last
+        self.last = pipe.frame
+        ts = []
+        if viewer is not None and not final and pipe.frame in (self.at - 1,
+                                                               self.at):
+            paths = [SERVE_VIEW] if pipe.frame < self.at else SERVE_PATHS
+            ts = self._get(viewer.port, paths)
+            self._wait_queued(pipe, viewer, 1 if pipe.frame < self.at
+                              else SERVE_QUEUED)
+        t0 = time.perf_counter()
+        n = self.real[0](pipe, viewer)
+        self.steps.append((1e3 * (time.perf_counter() - t0), n, final))
+        for t in ts:
+            t.join()
+        if final and viewer is not None:
+            self.threads = self._get(viewer.port, [SERVE_LATE])
+            if pipe.mesh is None:          # answered under the lock, now
+                self.threads[0].join()
+            self._wait_queued(pipe, viewer, 1)
+        return n
+
+    def views(self, pipe, *a, **k):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real[1](pipe, *a, **k)
+        torch.cuda.synchronize()
+        self.turntable_ms = 1e3 * (time.perf_counter() - t0) / len(out)
+        return out
+
+    def result(self, code: int) -> dict:
+        for t in self.threads:
+            t.join()
+        return dict(code=code, answers=self.answers, get_s=self.get_s,
+                    steps=self.steps, late=self.late.get(SERVE_LATE),
+                    turntable_ms=self.turntable_ms)
+
+
+def serve_rank(mesh, argv, at):
+    """A rank of ``apps.run_emfusion`` (``--nprocs``'s rank body) under a
+    :class:`ServeProbe`."""
+    from emfusion_tpu_torch.apps import run_emfusion
+    probe = ServeProbe(at)
+    return probe.result(run_emfusion._rank_main(mesh, argv))
+
+
+def serve_rank_main(argv) -> int:
+    """``chip_smoke.py --serve-rank OUT AT ARGV...``: a rank of
+    ``apps.run_emfusion.main(ARGV)`` under ``torchrun`` (its group joined
+    from ``WORLD_SIZE`` > 1) and a :class:`ServeProbe`; the probe's result
+    goes to ``OUT.rank<RANK>``."""
+    import pickle
+
+    from emfusion_tpu_torch.apps import run_emfusion
+    out, at = argv[0], int(argv[1])
+    probe = ServeProbe(at)
+    res = probe.result(run_emfusion.main(argv[2:]))
+    with open(f"{out}.rank{os.environ['RANK']}", "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def sharded_viewer(torch, params, scene, rng, report, key, config, ranks,
+                   backend, via):
+    """Step 9c: ``apps.run_emfusion --serve --turntable`` on ``ranks``
+    ranks (``backend``; ``via``: ``launch``, the ``--nprocs`` rank body,
+    or ``torchrun``, the CLI's entry under it) against one card, over a
+    ``SERVE_FRAMES``-frame TUM sequence of the object path's scene at
+    ``params``' size, each run under a :class:`ServeProbe`: every pinned
+    answer, the view alone a frame earlier and the ``--turntable`` PNGs
+    byte for byte; the late request answered (one card) or refused with a
+    503 (the ranks); every rank exits 0. Prints the service step's ms
+    with nothing queued, the view's round trip and the turntable's ms a
+    view, sharded beside one card. ``config``: a config file's path or
+    text. Fails on a difference."""
+    import pickle
+
+    from emfusion_tpu_torch.apps import run_emfusion
+    from emfusion_tpu_torch.distributed.mesh import launch
+
+    shutil.rmtree(SERVE_WORK, ignore_errors=True)
+    os.makedirs(SERVE_WORK)
+    try:
+        seq = os.path.join(SERVE_WORK, "seq")
+        write_tum_sequence(seq, params, scene, SERVE_FRAMES, rng)
+        if not os.path.exists(config):
+            with open(os.path.join(SERVE_WORK, "config.cfg"), "w") as f:
+                f.write(config)
+            config = os.path.join(SERVE_WORK, "config.cfg")
+
+        def argv(name):
+            return ["-t", seq, "-m", os.path.join(seq, "masks"), "-c",
+                    config, "-e", os.path.join(SERVE_WORK, name),
+                    "--frames", str(SERVE_FRAMES), "--serve",
+                    str(free_port()), "--turntable", str(SERVE_TURNTABLE)]
+
+        t0 = time.perf_counter()
+        probe = ServeProbe(SERVE_FRAMES)
+        try:
+            run_cli(run_emfusion, argv("one"))
+        finally:
+            probe.restore()
+        one = probe.result(0)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if via == "launch":
+            res = launch("chip_smoke:serve_rank", ranks,
+                         args=(argv("ranks"), SERVE_FRAMES), device="cuda",
+                         backend=backend, timeout_s=SERVE_TIMEOUT_S)
+        else:
+            out = os.path.join(SERVE_WORK, "probe")
+            subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(ranks),
+                 os.path.join(HERE, "chip_smoke.py"), "--serve-rank", out,
+                 str(SERVE_FRAMES)] + argv("ranks"),
+                env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                    [p for p in sys.path if p]
+                    + [os.environ.get("PYTHONPATH", "")])),
+                check=True, timeout=SERVE_TIMEOUT_S)
+            res = []
+            for r in range(ranks):
+                with open(f"{out}.rank{r}", "rb") as f:
+                    res.append(pickle.load(f))
+        ranks_s = time.perf_counter() - t0
+        r0 = res[0]
+        paths = list(SERVE_PATHS) + [SERVE_VIEW]
+        differ = [p for p in paths
+                  if r0["answers"].get(p) != one["answers"].get(p)
+                  or one["answers"][p][0] != 200]
+        tt = [os.path.join("turntable", f"view{i:03d}.png")
+              for i in range(SERVE_TURNTABLE)]
+        for name in tt:
+            a, b = (open(os.path.join(SERVE_WORK, w, name), "rb").read()
+                    for w in ("one", "ranks"))
+            if a != b:
+                differ.append(name)
+        idle = [ms for ms, n, final in r0["steps"] if n == 0 and not final]
+        busy = {n: ms for ms, n, final in r0["steps"] if n}
+        out = dict(
+            via=via, ranks=ranks, backend=backend, frames=SERVE_FRAMES,
+            size=[params.width, params.height],
+            volume=list(params.globalVolumeDims), differ=differ,
+            codes=[r["code"] for r in res],
+            late=[one["late"][0], r0["late"][0] if r0["late"] else None],
+            status=json.loads(one["answers"]["/status"][1]),
+            idle_step_ms=idle, step_ms_by_requests=busy,
+            view_get_s=[one["get_s"][SERVE_VIEW], r0["get_s"][SERVE_VIEW]],
+            turntable_ms_per_view=[one["turntable_ms"], r0["turntable_ms"]],
+            one_card_s=one_s, ranks_s=ranks_s,
+            bytes={p: len(one["answers"][p][1]) for p in SERVE_PATHS})
+        report[key] = out
+        print(f"sharded viewer ({via}, {ranks} ranks, {backend}, "
+              f"{params.width}x{params.height}, "
+              f"{params.globalVolumeDims[0]}^3, {SERVE_FRAMES} frames): "
+              f"answers equal to one card's: {not differ} (differ "
+              f"{differ}); live objects {out['status']['objects']}; late "
+              f"request {out['late'][0]} / {out['late'][1]}; service step "
+              f"with nothing queued {np.median(idle):.3f} ms (median of "
+              f"{len(idle)}, max {max(idle):.3f}); steps with requests "
+              f"{ {k: round(v, 3) for k, v in busy.items()} } ms; "
+              f"/view.png round trip {1e3 * out['view_get_s'][0]:.3f} / "
+              f"{1e3 * out['view_get_s'][1]:.3f} ms (one card / ranks); "
+              f"turntable {out['turntable_ms_per_view'][0]:.3f} / "
+              f"{out['turntable_ms_per_view'][1]:.3f} ms a view; runs "
+              f"{one_s:.1f} / {ranks_s:.1f} s", flush=True)
+        if differ or out["codes"] != [0] * ranks or out["late"] != [200, 503] \
+                or not out["status"]["objects"]:
+            raise RuntimeError(f"sharded viewer: {out}")
+        return out
+    finally:
+        shutil.rmtree(SERVE_WORK, ignore_errors=True)
 
 
 def profile_frames(torch, pipe, frames, report, key):
@@ -3755,6 +4110,12 @@ def only_distributed(torch, args, params, scene, rng, report, stress_path,
                                         (stress_path, f0, spheres), life,
                                         report)
     lap("distributed")
+    backend, _ = dist_transport(torch)
+    sharded_viewer(torch, params, scene, np.random.default_rng(args.seed + 2),
+                   report, "sharded_viewer_full",
+                   os.path.join(HERE, "configs", "default.cfg"), DIST_RANKS,
+                   backend, "torchrun" if backend == "nccl" else "launch")
+    lap("sharded viewer (full width)")
     table = [table_row(*SLAB_ROWS[0][:3], rows["fusion_slab"],
                        slab_launches)]
     return finish(torch, report, rows, table, card, t0)
@@ -3763,6 +4124,7 @@ def only_distributed(torch, args, params, scene, rng, report, stress_path,
 def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
               card):
     """Steps 1-11."""
+    from emfusion_tpu_torch.config import Params
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
     t0 = time.perf_counter()
@@ -3893,6 +4255,7 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     for name, r in acc_rows.items():
         print_row(name, r)
     rows.update(acc_rows)
+    hold_lm_escape(torch, report)
     lap("accel_path")
 
     # step 8b: the same frames and masks with bf16 background volumes
@@ -3919,6 +4282,13 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     print_row("raycast_orbit", orbit_row)
     rows["raycast_orbit"] = orbit_row
     lap("viewer")
+    small = Params(frameSize=(160, 120), fx=130.0, fy=130.0, cx=79.5,
+                   cy=59.5, **SMALL_OBJECTS)
+    sharded_viewer(torch, small, make_scene(120, 160, 130.0),
+                   np.random.default_rng(args.seed + 2), report,
+                   "sharded_viewer", SERVE_SMALL_CONFIG, SERVE_RANKS,
+                   "gloo", "launch")
+    lap("sharded viewer")
     small_reference(torch, np.random.default_rng(args.seed), report)
     lap("small_reference")
     slab_launches, group_lm = distributed_step(torch, params, stress, life,
@@ -3958,4 +4328,7 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-rank"]:
+        sys.path.insert(0, HERE)
+        sys.exit(serve_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -34,8 +34,12 @@ Without ``--serve`` no frame renders for the viewer.
 process joins that group instead. Every rank reads the same sequence;
 rank 0 prints, writes the export tree and the checkpoints, and the tree
 is the one-card run's. (The JAX app builds its mesh whenever more than
-one device is visible; the port asks for the number of ranks.)
-``--serve`` and ``--turntable`` run on one rank only.
+one device is visible; the port asks for the number of ranks.) Rank 0
+serves ``--serve``; after each frame every rank runs the viewer's
+service step (``viz_server.serve_step``), in which the orbit views and
+meshes that rank 0's handlers asked for are computed by all ranks
+together, and after the last frame one more before the viewer closes.
+``--turntable`` renders each view on every rank, and rank 0 writes it.
 
 The reader decodes ahead on 4 worker threads (``native.
 NativePrefetcher``). ``--frame-meshes`` meshes on the frame loop and
@@ -108,10 +112,6 @@ def main(argv=None):
         print("error: need --tumdir or --dir", file=sys.stderr)
         return 2
     world = int(os.environ.get("WORLD_SIZE", 1))
-    if (args.nprocs > 1 or world > 1) and (args.serve or args.turntable):
-        print("error: --serve and --turntable run on one rank",
-              file=sys.stderr)
-        return 2
     backend = "gloo" if args.device == "cpu" else "nccl"
     if world > 1:                     # under torchrun: join its group
         from emfusion_tpu_torch.distributed.mesh import (
@@ -191,10 +191,12 @@ def _run(args, mesh=None) -> int:
 
     viewer = None
     if args.serve:
-        from emfusion_tpu_torch.viz_server import LiveViewer
-        viewer = LiveViewer(pipe, port=args.serve, host=args.serve_host)
-        print(f"live viewer: http://{args.serve_host}:{viewer.port}/",
-              flush=True)
+        from emfusion_tpu_torch import viz_server
+        if pipe.is_writer:
+            viewer = viz_server.LiveViewer(pipe, port=args.serve,
+                                           host=args.serve_host)
+            print(f"live viewer: http://{args.serve_host}:{viewer.port}/",
+                  flush=True)
 
     prof = None
     if args.profile:
@@ -221,6 +223,8 @@ def _run(args, mesh=None) -> int:
         frame_times.append(time.time() - t_f)
         if viewer is not None:
             viewer.publish()
+        if args.serve:
+            viz_server.serve_step(pipe, viewer)
         if args.exportdir:
             if pipe.is_writer:
                 pipe.outputs["renderings"][n] = pipe.render()
@@ -239,6 +243,7 @@ def _run(args, mesh=None) -> int:
         if args.frames and n >= args.frames:
             stop = True
 
+    ended = False
     try:
         pending = None
         for nxt in reader.frames():
@@ -252,11 +257,12 @@ def _run(args, mesh=None) -> int:
             pending = nxt
         if pending is not None and not stop:
             do_frame(pending, None)
+        ended = True
     finally:
         reader.close()
         failed = writer.close() if writer is not None else 0
-        if viewer is not None:
-            viewer.close()
+        if args.serve:
+            viz_server.serve_close(pipe, viewer, final_step=ended)
         if prof is not None:
             prof.__exit__(None, None, None)
             os.makedirs(args.profile, exist_ok=True)
@@ -283,10 +289,11 @@ def _run(args, mesh=None) -> int:
                       export_volumes=args.export_volume)
         if args.turntable > 0:
             from emfusion_tpu_torch.viz import render_turntable, save_frames
-            tt_dir = os.path.join(args.exportdir, "turntable")
-            os.makedirs(tt_dir, exist_ok=True)
-            save_frames(render_turntable(pipe, n_views=args.turntable),
-                        os.path.join(tt_dir, "view%03d.png"))
+            views = render_turntable(pipe, n_views=args.turntable)
+            if pipe.is_writer:
+                tt_dir = os.path.join(args.exportdir, "turntable")
+                os.makedirs(tt_dir, exist_ok=True)
+                save_frames(views, os.path.join(tt_dir, "view%03d.png"))
         say(f"results written to {args.exportdir}")
     return 0
 

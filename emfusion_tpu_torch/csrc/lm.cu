@@ -113,7 +113,20 @@
 // which sum all six taps), up to the sign of a zero. A table holds
 // cache items only or gather items only: the run kernel is a template on
 // the item kind (emf_lm_run_kernel<true> and <false>), so the gather
-// table's code is what it was. A cache item reads per point its anchor
+// table's code is what it was.
+//
+// The empty-window guard (cache items only): a trial pose at which none of
+// the points that carry weight (w > 0, the last evaluation's) samples a
+// valid psi (inside its window and inside the volume) scores the error 0
+// of an empty sum, which rho > 0 would accept; the JAX package's
+// _lm_fixed_cache takes such a step, and a slot that had lost most of its
+// points jumps tens of voxels. Phase (d) therefore also counts a span's
+// weighted, valid trial points (partial column EMF_LM_P_INWIN, summed by
+// the same tree into the state word SI_NIN), and decide rejects a trial
+// whose count is 0 as it rejects rho <= 0 (tracking.lm_step_plain does
+// the same). Gather items neither write nor read the count.
+//
+// A cache item reads per point its anchor
 // (12 bytes) and at most 27 tsdf taps and 8 weight taps of its cache for
 // the system and 8 tsdf taps for the trial; neighbouring points share a
 // load only where they share a tap, since each point's taps lie in its
@@ -131,15 +144,18 @@ namespace cg = cooperative_groups;
 #define EMF_LM_SPAN (EMF_LM_BLOCK * EMF_LM_PPT)   // points a span
 #define EMF_LM_WARPS (EMF_LM_BLOCK / 32)
 #define EMF_LM_NSUM 28                             // A 21, b 6, err 1
-// A span's row of partials: the 28 sums, the trial error, max(0, intw).
-#define EMF_LM_PART 30
+// A span's row of partials: the 28 sums, the trial error, max(0, intw),
+// and (cache items) the count of weighted trial points with a valid psi.
+#define EMF_LM_PART 31
 #define EMF_LM_P_TRIAL 28
 #define EMF_LM_P_MAX 29
+#define EMF_LM_P_INWIN 30
 #define EMF_LM_ROWS_AHEAD 8   // partials a lane loads at once (emf_lm_rows)
 
 // The state record of an item, mirrored by tracking.LM_SI / LM_SF.
+// SI_NIN: a cache item's last trial's weighted points with a valid psi.
 enum { SI_IT = 0, SI_CONV = 1, SI_EVAL = 2, SI_FIRST = 3, SI_TRIAL = 4,
-       SI_RAN = 5, SI_N = 8 };
+       SI_RAN = 5, SI_NIN = 6, SI_N = 8 };
 enum { SF_R = 0, SF_T = 9, SF_RN = 12, SF_TN = 21, SF_X = 24, SF_MU = 30,
        SF_NU = 31, SF_MU0 = 32, SF_ERR = 33, SF_ERRN = 34, SF_A = 35,
        SF_B = 71, SF_N = 80 };
@@ -604,22 +620,26 @@ __device__ __forceinline__ EmfLmPoint emf_lm_point_cache(
 }
 
 // emf_lm_psi for point i of a cache item: sample_value_from_cache at
-// margin 1 (channel 0), 0 outside the window.
+// margin 1 (channel 0), 0 outside the window; `valid` says whether the
+// sample is inside the volume and the window.
 template <typename T>
 __device__ __forceinline__ float emf_lm_psi_cache(const EmfLmItem& it,
                                                   const EmfPose& P, float px,
-                                                  float py, float pz, int i) {
+                                                  float py, float pz, int i,
+                                                  bool& valid) {
+  valid = false;
   float wx, wy, wz;
   emf_apply(P, px, py, pz, wx, wy, wz);
   const float vx = wx / it.vs + 0.5f * (float)(it.X - 1);
   const float vy = wy / it.vs + 0.5f * (float)(it.Y - 1);
   const float vz = wz / it.vs + 0.5f * (float)(it.Z - 1);
-  const bool valid = pz > 0.0f && vx >= 0.0f && vy >= 0.0f && vz >= 0.0f &&
-                     vx + 1.0f < (float)it.X && vy + 1.0f < (float)it.Y &&
-                     vz + 1.0f < (float)it.Z;
-  if (!valid) return 0.0f;
+  if (!(pz > 0.0f && vx >= 0.0f && vy >= 0.0f && vz >= 0.0f &&
+        vx + 1.0f < (float)it.X && vy + 1.0f < (float)it.Y &&
+        vz + 1.0f < (float)it.Z))
+    return 0.0f;
   float lx, ly, lz;
   if (!emf_local(it, i, vx, vy, vz, lx, ly, lz)) return 0.0f;
+  valid = true;
   const int fx = (int)floorf(lx), fy = (int)floorf(ly), fz = (int)floorf(lz);
   const float tx[2] = {emf_tent(lx, fx), emf_tent(lx, fx + 1)};
   const float ty[2] = {emf_tent(ly, fy), emf_tent(ly, fy + 1)};
@@ -765,7 +785,8 @@ __device__ void emf_lm_terms_span(const EmfLmItem& it, const EmfPose& P,
 // (d) the span's sum of w psi^2 at the trial pose Pn. A thread loads its
 // points' weights, then the coordinates of those weighted, then samples
 // them; a point of weight 0 adds nothing (its term is exactly 0, psi is
-// finite). CACHE: the items are cache items (emf_lm_psi_cache).
+// finite). CACHE: the items are cache items (emf_lm_psi_cache), and the
+// span also counts its points with w > 0 and a valid psi (EMF_LM_P_INWIN).
 template <bool CACHE>
 __device__ void emf_lm_trial_span(const EmfLmItem& it, const EmfPose& Pn,
                                   const EmfLmBufs& B, int s, int bl) {
@@ -786,24 +807,40 @@ __device__ void emf_lm_trial_span(const EmfLmItem& it, const EmfPose& Pn,
     pz[j] = use ? it.pts[2 * st + i] : 0.0f;
   }
   double acc = 0.0;
+  [[maybe_unused]] int nin = 0;
 #pragma unroll
   for (int j = 0; j < EMF_LM_PPT; ++j) {
     if (w[j] == 0.0f) continue;
     float psi;
-    if constexpr (CACHE)
+    if constexpr (CACHE) {
+      bool ok;
       psi = it.bf16 ? emf_lm_psi_cache<emf_bf16>(it, Pn, px[j], py[j], pz[j],
-                                                 i0 + j * EMF_LM_BLOCK)
+                                                 i0 + j * EMF_LM_BLOCK, ok)
                     : emf_lm_psi_cache<float>(it, Pn, px[j], py[j], pz[j],
-                                              i0 + j * EMF_LM_BLOCK);
-    else
+                                              i0 + j * EMF_LM_BLOCK, ok);
+      nin += ok && w[j] > 0.0f;
+    } else {
       psi = it.bf16 ? emf_lm_psi<emf_bf16>(it, Pn, px[j], py[j], pz[j])
                     : emf_lm_psi<float>(it, Pn, px[j], py[j], pz[j]);
+    }
     acc += (double)(w[j] * psi * psi);
   }
   __shared__ double sh[EMF_LM_WARPS];
   acc = emf_warp_sum(acc);
   if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = acc;
-  __syncthreads();
+  if constexpr (CACHE) {
+    __shared__ double shn[EMF_LM_WARPS];
+    const double c = emf_warp_sum((double)nin);
+    if ((threadIdx.x & 31) == 0) shn[threadIdx.x >> 5] = c;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double v = 0.0;
+      for (int q = 0; q < EMF_LM_WARPS; ++q) v += shn[q];
+      B.part[(size_t)s * EMF_LM_PART + EMF_LM_P_INWIN] = v;
+    }
+  } else {
+    __syncthreads();
+  }
   if (threadIdx.x == 0) {
     double v = 0.0;
     for (int q = 0; q < EMF_LM_WARPS; ++q) v += sh[q];
@@ -1111,7 +1148,9 @@ __device__ void emf_lm_propose(const EmfLmBufs& B, const EmfLmCfg& C,
 }
 
 // Decide: it += 1 where the LM ran; for a trial, rho, accept or reject,
-// the damping and eval_grad.
+// the damping and eval_grad. CACHE: a cache item's trial whose count of
+// weighted points with a valid psi (SI_NIN) is 0 is rejected.
+template <bool CACHE>
 __device__ void emf_lm_decide(const EmfLmBufs& B, const EmfLmCfg& C,
                               int k) {
   int* s = B.si + k * SI_N;
@@ -1132,7 +1171,8 @@ __device__ void emf_lm_decide(const EmfLmBufs& B, const EmfLmCfg& C,
   const float gain = 0.5f * dot;
   const float rho =
       (f[SF_ERR] - err_new) / (fabsf(gain) > 1e-30f ? gain : 1e-30f);
-  const bool accept = rho > 0.0f;
+  bool accept = rho > 0.0f;
+  if constexpr (CACHE) accept = accept && s[SI_NIN] > 0;
   if (accept) {
     for (int q = 0; q < 12; ++q) f[SF_R + q] = f[SF_RN + q];
     const float u = 2.0f * rho - 1.0f;
@@ -1153,7 +1193,7 @@ __global__ void emf_lm_step_kernel(const EmfLmBufs B, const EmfLmCfg C,
   if (phase == 0)
     emf_lm_propose(B, C, blockIdx.x);
   else
-    emf_lm_decide(B, C, blockIdx.x);
+    emf_lm_decide<false>(B, C, blockIdx.x);
 }
 
 // ---------------------------------------------------------------------
@@ -1237,9 +1277,14 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
         const double v = emf_lm_rows<false>(B.part, s0, T.span_end[k] - s0,
                                             EMF_LM_P_TRIAL);
         if (threadIdx.x == 0) B.trial[k] = v;
+        if constexpr (CACHE) {
+          const double c = emf_lm_rows<false>(B.part, s0, T.span_end[k] - s0,
+                                              EMF_LM_P_INWIN);
+          if (threadIdx.x == 0) B.si[k * SI_N + SI_NIN] = (int)c;
+        }
       }
       __syncthreads();
-      if (threadIdx.x == 0) emf_lm_decide(B, C, k);
+      if (threadIdx.x == 0) emf_lm_decide<CACHE>(B, C, k);
       __syncthreads();
     }
     grid.sync();

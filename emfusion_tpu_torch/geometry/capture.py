@@ -258,17 +258,34 @@ def drift_ok(anchor, points_cam, rel_rot, rel_trans, voxel_size, shape,
                                       rel_trans, voxel_size, shape), tol)
 
 
+def _cache_valid(grid, local, shape, margin: int):
+    """Where a cache sample at margin ``margin`` is valid: in front of the
+    camera, inside the volume and inside the point's window."""
+    Z, Y, X = shape
+    vx, vy, vz, pz = grid
+    return (pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0) \
+        & (vx + margin < X) & (vy + margin < Y) & (vz + margin < Z) \
+        & _window_ok(*local)
+
+
+def valid_in_cache(anchor, points_cam, rel_rot, rel_trans, voxel_size,
+                   shape, margin: int = 1) -> torch.Tensor:
+    """(..., N) bool: where :func:`sample_value_from_cache` samples a valid
+    value at this pose (elsewhere it gives 0)."""
+    grid, local = _local_coords(anchor, points_cam, rel_rot, rel_trans,
+                                voxel_size, shape)
+    return _cache_valid(grid, local, shape, margin)
+
+
 def sample_value_from_cache(cache: torch.Tensor, anchor, points_cam,
                             rel_rot, rel_trans, voxel_size, shape,
                             margin: int = 1) -> torch.Tensor:
-    """Cache equivalent of ``sample_volume_at_points`` (same validity).
-    ``cache`` (..., C, W, W, W, N) -> (..., C, N)."""
-    Z, Y, X = shape
-    (vx, vy, vz, pz), (lx, ly, lz) = _local_coords(
+    """Cache equivalent of ``sample_volume_at_points`` (same validity,
+    :func:`valid_in_cache`). ``cache`` (..., C, W, W, W, N) ->
+    (..., C, N)."""
+    grid, (lx, ly, lz) = _local_coords(
         anchor, points_cam, rel_rot, rel_trans, voxel_size, shape)
-    valid = (pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0) \
-        & (vx + margin < X) & (vy + margin < Y) & (vz + margin < Z) \
-        & _window_ok(lx, ly, lz)
+    valid = _cache_valid(grid, (lx, ly, lz), shape, margin)
     cx = torch.sum(cache * _tents(lx)[..., None, None, None, :, :], dim=-2)
     cy = torch.sum(cx * _tents(ly)[..., None, None, :, :], dim=-2)
     out = torch.sum(cy * _tents(lz)[..., None, :, :], dim=-2)

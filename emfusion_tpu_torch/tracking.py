@@ -27,8 +27,11 @@ package:
     that budget, points that left their windows drop out of the system.
     The drift flag is read with the trial error, so a re-capture costs a
     third read. The JAX package runs it on its accelerators, and the port
-    under ``capture_backend="band"``. Its LM state machine runs on the
-    host in float32, as the reference does (it downloads the 6x6 system
+    under ``capture_backend="band"``. A trial step that leaves no point
+    with weight a valid ψ (in its window and the volume) is rejected: its
+    error, an empty sum, is 0 (the empty-window guard below). Its LM
+    state machine runs on the host in float32, as the reference does (it
+    downloads the 6x6 system
     every iteration, ``TSDF.cpp:274-282``): an iteration that evaluates
     the system reads it back once and every step reads back its trial
     error once.
@@ -56,6 +59,17 @@ launch for all slots before each stage), whatever ``sampler`` says, as in
 the JAX package: each stage is one table of cache items (:class:`LMItem`
 with its window cache) run by :func:`lm_run`, whose phases read the
 windows in place of the volume, and one read of the state after it.
+
+The empty-window guard (a repair of the JAX package's ``_lm_fixed_cache``
+and capture loop, ``tracking.py:452-459`` and ``:230`` there): ψ is 0
+outside a point's captured window, so a trial step that carries every
+weighted point out of its window scores the error 0 and ``rho > 0``
+would accept it, moving a slot by more than a window. A cache item's
+trial therefore also counts its points with ``w > 0`` whose ψ is valid
+at the trial pose (state word ``SI_NIN``), and a count of 0 rejects the
+step as ``rho <= 0`` does; the capture sampler's host loop does the same
+with the count read beside the trial error. A gather item's trial is not
+guarded.
 
 The device-resident LM (the gather sampler, and the batched object LM's
 cache items): :func:`run_lm_items` runs a
@@ -100,7 +114,7 @@ from emfusion_tpu_torch.distributed import comm
 from emfusion_tpu_torch.geometry.capture import (
     WIN, capture_neighborhoods, capture_neighborhoods_batched, drift_counts,
     drift_within, out_of_window_count, sample_system_from_cache,
-    sample_value_from_cache,
+    sample_value_from_cache, valid_in_cache,
 )
 from emfusion_tpu_torch.geometry.sampling import (
     sample_system_at_points, sample_volume_at_points_plain, scalar,
@@ -207,32 +221,42 @@ class _Window(_Sampler):
         return psi, g3, intw
 
     def trial(self, w, R, t):
-        """The error ``sum(w psi^2)`` at a trial pose, after re-centring
-        the windows there if relevant points drifted out and the
-        re-capture budget allows it (the JAX loop's ``maybe_recapture``
-        before ``psi_new``). The drift flag and the error on the current
-        windows come back in one read; a re-capture costs a second."""
+        """The error ``sum(w psi^2)`` at a trial pose and the count of the
+        points with ``w > 0`` whose ψ is valid there (inside the volume
+        and the window; the empty-window guard of
+        :func:`_track_volume_host` rejects a step that leaves none), after
+        re-centring the windows there if relevant points drifted out and
+        the re-capture budget allows it (the JAX loop's
+        ``maybe_recapture`` before ``psi_new``). The drift counts, the
+        error and the count on the current windows come back in one read
+        (one reduction over a group); a re-capture costs a second."""
         Rd, td = self.dev_pose(R, t)
         err = self.error(w, Rd, td)
         self.reads += 1
         if self.recaps >= self.cfg.max_recaptures:
-            return self.reduce(err[None]).cpu()[0]
+            host = self.reduce(torch.stack(err)).cpu()
+            return host[0], host[1]
         nbad, nrel = drift_counts(self.anchor, self.points, Rd, td, self.vs,
                                   self.shape)
-        # the error and the drift counts in one read (and one reduction)
-        host = self.reduce(torch.stack([err, nbad, nrel])).cpu()
-        if bool(drift_within(host[1], host[2])):
-            return host[0]
+        host = self.reduce(torch.stack([*err, nbad, nrel])).cpu()
+        if bool(drift_within(host[2], host[3])):
+            return host[0], host[1]
         self.capture(Rd, td)
         self.recaps += 1
         self.reads += 1
-        return self.reduce(self.error(w, Rd, td)[None]).cpu()[0]
+        host = self.reduce(torch.stack(self.error(w, Rd, td))).cpu()
+        return host[0], host[1]
 
     def error(self, w, Rd, td):
+        """(``sum(w psi^2)``, the points with ``w > 0`` and a valid ψ as a
+        float32 count) on the current windows."""
         psi = sample_value_from_cache(self.cache[0:1], self.anchor,
                                       self.points, Rd, td, self.vs,
                                       self.shape, margin=1)[0]
-        return torch.sum(w * psi * psi)
+        valid = valid_in_cache(self.anchor, self.points, Rd, td, self.vs,
+                               self.shape)
+        return (torch.sum(w * psi * psi),
+                torch.sum((valid & (w > 0)).to(torch.float32)))
 
     def dropped(self, Rd, td) -> int:
         """Relevant points outside their windows at the final pose: they
@@ -346,11 +370,15 @@ def _track_volume_host(tsdf, weights, voxel_size, points, assoc,
                 dT = se3_exp(-x)
                 R_new = dT[:3, :3] @ R
                 t_new = dT[:3, :3] @ t + dT[:3, 3]
-                err_new = win.trial(w, R_new, t_new)
+                # the capture sampler's trial also counts the weighted
+                # points whose ψ is valid there: a step that leaves none
+                # (error 0, an empty sum) is rejected
+                got = win.trial(w, R_new, t_new)
+                err_new, nin = got if cfg.sampler == "capture" else (got, 1)
                 gain = 0.5 * torch.dot(x, mu0 * x + b)
                 rho = (err - err_new) / torch.where(
                     torch.abs(gain) > 1e-30, gain, 1e-30)
-                accept = bool(rho > 0)
+                accept = bool(rho > 0) and nin > 0
                 if accept:
                     R, t = R_new, t_new
                     mu = mu0 * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
@@ -497,11 +525,13 @@ def track_volumes_batched(tsdfs, weights, voxel_sizes, points: torch.Tensor,
 # The device-resident LM of the gather sampler (csrc/lm.cu)
 
 LM_NSUM = 28      # the system's float64 sums: A's 21 unique terms, b, err
-LM_PART = 30      # a span's partials (lm.cu's EMF_LM_PART): sums, trial, max
+LM_PART = 31      # a span's partials (lm.cu's EMF_LM_PART): sums, trial,
+#                   max, the trial's weighted points with a valid ψ
 LM_MAX_ITEMS = 17  # LMs a plain table takes (lm.cu's EMF_MAX_ITEMS)
-# the words of an LM's state record (lm.cu's SI_* and SF_*)
-SI_IT, SI_CONV, SI_EVAL, SI_FIRST, SI_TRIAL, SI_RAN, SI_N = (
-    0, 1, 2, 3, 4, 5, 8)
+# the words of an LM's state record (lm.cu's SI_* and SF_*); SI_NIN: a
+# cache item's last trial's weighted points with a valid ψ
+SI_IT, SI_CONV, SI_EVAL, SI_FIRST, SI_TRIAL, SI_RAN, SI_NIN, SI_N = (
+    0, 1, 2, 3, 4, 5, 6, 8)
 SF_R, SF_T, SF_RN, SF_TN, SF_X = 0, 9, 12, 21, 24
 SF_MU, SF_NU, SF_MU0, SF_ERR, SF_ERRN = 30, 31, 32, 33, 34
 SF_A, SF_B, SF_N = 35, 71, 80
@@ -775,14 +805,14 @@ def _window_value(ch, tx, ty, tz):
 def _cache_psi(it: LMItem, R, t):
     """ψ at margin 1 of a cache item's points at the pose
     (``sample_value_from_cache`` of channel 0, the tent sums left to
-    right)."""
+    right), and where it is valid (inside the volume and the window)."""
     Z, Y, X = it.tsdf.shape
     (vx, vy, vz), pz, (lx, ly, lz), win = _cache_grid(it, R, t)
     valid = ((pz > 0) & (vx >= 0.0) & (vy >= 0.0) & (vz >= 0.0)
              & (vx + 1.0 < X) & (vy + 1.0 < Y) & (vz + 1.0 < Z) & win)
     psi = _window_value(it.cache[0].to(torch.float32), _tents(lx),
                         _tents(ly), _tents(lz))
-    return torch.where(valid, psi, 0.0)
+    return torch.where(valid, psi, 0.0), valid
 
 
 def lm_system_plain(run: LMRun, cfg: TrackConfig, group=None) -> None:
@@ -848,12 +878,15 @@ def lm_trial_plain(run: LMRun, cfg: TrackConfig, group=None) -> None:
     psi^2)`` in float64 into ``trial``, ψ sampled at margin 1 at the trial
     pose (from the window cache for a cache item, :func:`_cache_psi`),
     ``w`` of the last evaluation (all-reduced with SUM over a
-    ``group``)."""
+    ``group``). A cache item's state word ``SI_NIN`` gets the count of its
+    points with ``w > 0`` whose ψ is valid there (the empty-window guard of
+    :func:`lm_step_plain`)."""
     for k in _items_with(run, cfg, SI_TRIAL):
         it, sl = run.items[k], run.point_slice(k)
         Rn, tn = _pose_of(run, k, SF_RN)
         if it.cache is not None:
-            psi = _cache_psi(it, Rn, tn)
+            psi, valid = _cache_psi(it, Rn, tn)
+            run.si[k, SI_NIN] = int(torch.sum(valid & (run.w[sl] > 0)))
         else:
             psi = sample_volume_at_points_plain(it.tsdf, it.points, Rn, tn,
                                                 it.voxel_size, margin=1)
@@ -1005,7 +1038,12 @@ def lm_step_plain(run: LMRun, cfg: TrackConfig, phase: int) -> None:
     Phase 1: ``it += 1`` where the LM ran; for a trial, ``rho = (err -
     err_new) / (0.5 x.(mu0 x + b))``, and on ``rho > 0`` the trial pose,
     ``mu = mu0 max(1 - (2 rho - 1)^3, 1/3)`` and ``nu = nu_init``, else
-    ``mu = mu0 nu`` and ``nu *= nu_init``; ``eval_grad`` = accepted."""
+    ``mu = mu0 nu`` and ``nu *= nu_init``; ``eval_grad`` = accepted.
+    A cache item's trial with no weighted point whose ψ is valid at the
+    trial pose (``SI_NIN`` 0) is rejected as ``rho <= 0`` is: its error is
+    the 0 of an empty sum, which the JAX package's ``_lm_fixed_cache``
+    accepts (``tracking.py:452-459`` there), so a slot could jump out of
+    its windows."""
     si, sf = run.si, run.sf
     f32 = torch.float32
     if phase == 0:
@@ -1069,8 +1107,11 @@ def lm_step_plain(run: LMRun, cfg: TrackConfig, phase: int) -> None:
     gain = 0.5 * dot
     rho = (sf[:, SF_ERR] - err_new) / torch.where(
         torch.abs(gain) > 1e-30, gain, 1e-30)
-    accept = trial & (rho > 0)
-    reject = trial & ~(rho > 0)
+    ok = rho > 0
+    if run.cached:
+        ok = ok & (si[:, SI_NIN] > 0)
+    accept = trial & ok
+    reject = trial & ~ok
     u = 2.0 * rho - 1.0
     mu_acc = mu0 * torch.clamp(1.0 - u * u * u, min=1.0 / 3.0)
     sf[:, SF_R:SF_R + 12] = torch.where(accept[:, None],

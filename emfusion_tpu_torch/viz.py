@@ -184,12 +184,17 @@ def render_orbit_view(pipe, yaw: float, pitch: float = -0.25,
     and its Phong shading, then, with ``with_widgets``, each live
     object's volume box in its id's colour and the real camera's frustum
     in yellow. Returns an (H, W, 3) uint8 frame; the scene is untouched.
+    On a mesh every rank calls it, since the raycast gathers each rank's
+    nearest object surface; rank 0 shades the view and the others return
+    None.
     """
     pose = orbit_pose(pipe, yaw, pitch, radius)
     intr = np.asarray(pipe.params.intr, np.float32)
     with pipe.lock:
         slots = [int(k) for k in np.nonzero(pipe._h_active)[0]]
         rc = pipe.raycast(slots, cam_pose=torch.from_numpy(pose))
+        if not pipe.is_writer:
+            return None
         img = render_phong(rc["vertices"], rc["normals"], rc["seg"] % 256,
                            pipe.colormap).cpu().numpy()
         o = pipe.state.objs
@@ -219,7 +224,8 @@ def render_turntable(pipe, n_views: int = 12,
                      radius: Optional[float] = None,
                      with_widgets: bool = True) -> List[np.ndarray]:
     """The current fused model from a horizontal camera orbit
-    (:func:`render_orbit_view` at ``n_views`` evenly spaced yaws)."""
+    (:func:`render_orbit_view` at ``n_views`` evenly spaced yaws; every
+    rank of a mesh calls it, and the views are rank 0's)."""
     return [render_orbit_view(pipe, 2 * np.pi * i / n_views,
                               radius=radius, with_widgets=with_widgets)
             for i in range(n_views)]

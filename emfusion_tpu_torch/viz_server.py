@@ -34,6 +34,22 @@ pipeline's ``lock``, which ``EMFusionPipeline.process_frame`` holds for
 the whole frame (and :meth:`LiveViewer.publish` while it renders): each
 sees one whole frame's state, and a request waits at most one frame.
 
+A sharded run (a pipeline on a ``mesh`` of more than one rank). Rank 0
+holds the viewer. ``/frame.png``, ``/stream`` and ``/status`` read what
+rank 0 holds (the composite of the frame's own collective raycast, and
+the host state, which every rank keeps whole) and are served as on one
+rank. An orbit view gathers every rank's nearest object surface, and the
+meshes come from the z-sharded marching cubes and the gathered pool: all
+ranks must take part, and a handler thread never calls a collective. So
+a handler queues such a request on rank 0 and waits; at each frame
+boundary every rank calls :func:`serve_step`, in which rank 0 broadcasts
+the queued requests (their number, then each one's kind and orbit; one
+broadcast of 8 bytes when there is none), every rank runs them in order,
+and rank 0 hands each result to its handler. A request waits at most one
+frame, as on one rank. :func:`serve_close` ends a run: a last step, then
+the viewer closes and every handler still waiting gets a 503. Without a
+mesh both are no-ops beside :meth:`LiveViewer.close`.
+
 Needs nothing beyond the standard library, numpy and the port. Enable
 with ``apps.run_emfusion --serve PORT``.
 """
@@ -47,7 +63,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
+import torch
 
+from emfusion_tpu_torch.distributed import comm
 from emfusion_tpu_torch.io.codecs import encode_jpeg, encode_png
 from emfusion_tpu_torch.io.writers import (
     background_mesh, object_meshes, ply_bytes,
@@ -212,6 +230,113 @@ setInterval(async () => {
 
 JPEG_QUALITY = 85   # the JAX viewer's (viz_server.py:214-219)
 
+# the kinds of request that a sharded run's ranks run together
+VIEW, SCENE = 1, 2
+
+
+class Unavailable(Exception):
+    """The viewer closed before it could answer (a 503)."""
+
+
+class _Request:
+    """A queued request of a sharded run's viewer: its kind, its orbit
+    (yaw, pitch, dist; zeros for a scene), the handlers that wait for its
+    result and the result (an exception raised instead, or
+    :class:`Unavailable`)."""
+
+    def __init__(self, kind: int, orbit=(0.0, 0.0, 0.0)):
+        self.kind, self.orbit = kind, tuple(float(v) for v in orbit)
+        self.done = threading.Event()
+        self.also = []          # scene requests answered with this one's
+        self.result = None
+
+    def answer(self, result) -> None:
+        for r in [self] + self.also:
+            r.result = result
+            r.done.set()
+
+
+def scene_meshes(pipe):
+    """The current meshes [(verts, norms, tris), ...]: the background and
+    each live object (voxels with weight and, for an object, a foreground
+    probability above 0.5), in the world frame, under the pipeline's lock.
+    On a mesh every rank calls it (the background's marching cubes runs
+    over the z-slabs and the pool is gathered) and rank 0 gets the meshes,
+    the others None."""
+    with pipe.lock:
+        bg = background_mesh(pipe)
+        objs = object_meshes(pipe)
+        if not pipe.is_writer:
+            return None
+        v, n, t = bg
+        bg_pose = pipe.state.bg_pose.numpy()
+        meshes = [((v @ bg_pose[:3, :3].T + bg_pose[:3, 3]
+                    ).astype(np.float32),
+                   (n @ bg_pose[:3, :3].T).astype(np.float32),
+                   t.astype(np.uint32))]
+        poses = pipe.state.objs.pose.numpy()
+        for oid, (v2, n2, t2) in objs.items():
+            if not len(v2):
+                continue
+            T = poses[pipe._slot_of(oid)]
+            meshes.append(((v2 @ T[:3, :3].T + T[:3, 3]).astype(np.float32),
+                           (n2 @ T[:3, :3].T).astype(np.float32),
+                           t2.astype(np.uint32)))
+    return meshes
+
+
+def orbit_view(pipe, yaw: float, pitch: float, dist: float):
+    """The model from the orbit camera at ``dist`` x the default radius
+    (:func:`~emfusion_tpu_torch.viz.render_orbit_view`; None on a mesh's
+    ranks but 0, which take part in its raycast only)."""
+    p = pipe.params
+    base_r = 1.1 * max(p.globalVolumeDims) * p.globalVoxelSize
+    return render_orbit_view(pipe, yaw, pitch=pitch, radius=dist * base_r)
+
+
+def serve_step(pipe, viewer=None) -> int:
+    """A sharded run's service step at a frame boundary (see the module's
+    docstring): every rank of ``pipe.mesh`` calls it between frames, rank
+    0 with its :class:`LiveViewer`, the others with None. Rank 0
+    broadcasts the requests its handlers queued, every rank runs them in
+    order, rank 0 answers them. Without a mesh it does nothing. Returns
+    the requests run."""
+    mesh = pipe.mesh
+    if mesh is None:
+        return 0
+    jobs = viewer._take(pipe.frame) if viewer is not None else []
+    n = comm.broadcast(mesh.world, torch.tensor([len(jobs)]), 0)
+    if not int(n[0]):
+        return 0
+    spec = torch.tensor([[r.kind, *r.orbit] for r in jobs],
+                        dtype=torch.float64) if jobs else \
+        torch.zeros((int(n[0]), 4), dtype=torch.float64)
+    comm.broadcast(mesh.world, spec, 0)
+    for i, (kind, yaw, pitch, dist) in enumerate(spec.tolist()):
+        try:
+            out = (orbit_view(pipe, yaw, pitch, dist) if int(kind) == VIEW
+                   else scene_meshes(pipe))
+        except Exception as e:   # the handler answers a 500
+            out = e
+        if viewer is not None:
+            if int(kind) == SCENE and not isinstance(out, Exception):
+                viewer._scene_cache = (pipe.frame, out)
+            jobs[i].answer(out)
+    return len(spec)
+
+
+def serve_close(pipe, viewer=None, final_step: bool = True) -> None:
+    """The end of a run's viewer: with ``final_step`` (the frames ended
+    without an error, so every rank is here), a last :func:`serve_step`;
+    then rank 0's viewer closes, and every handler still waiting gets a
+    503."""
+    try:
+        if final_step:
+            serve_step(pipe, viewer)
+    finally:
+        if viewer is not None:
+            viewer.close()
+
 
 class LiveViewer:
     """Background HTTP viewer of a pipeline; call :meth:`publish` after
@@ -224,6 +349,7 @@ class LiveViewer:
         self._closed = False
         self._cond = threading.Condition()
         self._scene_cache = None
+        self._queue = []               # a sharded run's requests
         viewer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -273,6 +399,8 @@ class LiveViewer:
                         self._send(404, "text/plain", b"not found")
                 except (BrokenPipeError, ConnectionResetError):
                     pass
+                except Unavailable:
+                    self._send(503, "text/plain", b"viewer closed")
                 except Exception as e:  # keep the viewer alive
                     try:
                         self._send(500, "text/plain",
@@ -336,42 +464,66 @@ class LiveViewer:
     def render_view(self, yaw: float, pitch: float,
                     dist: float) -> np.ndarray:
         """The model from the orbit camera at ``dist`` x the default
-        radius (:func:`~emfusion_tpu_torch.viz.render_orbit_view`, which
-        holds the pipeline's lock)."""
-        p = self.pipe.params
-        base_r = 1.1 * max(p.globalVolumeDims) * p.globalVoxelSize
-        return render_orbit_view(self.pipe, yaw, pitch=pitch,
-                                 radius=dist * base_r)
+        radius (:func:`orbit_view`, which holds the pipeline's lock); on
+        a mesh, queued for the next :func:`serve_step`."""
+        if self.pipe.mesh is not None:
+            return self._ask(_Request(VIEW, (yaw, pitch, dist)))
+        return orbit_view(self.pipe, yaw, pitch, dist)
 
     def _extract_scene(self):
-        """The current meshes [(verts, norms, tris), ...]: the background
-        and each live object (voxels with weight and, for an object, a
-        foreground probability above 0.5), in the world frame; cached per
-        pipeline frame (a 512^3 extraction takes a tenth of a second on
-        the card, seconds on a CPU)."""
+        """The current meshes (:func:`scene_meshes`), cached per pipeline
+        frame (a 512^3 extraction takes a tenth of a second on the card,
+        seconds on a CPU); on a mesh, queued for the next
+        :func:`serve_step`."""
         pipe = self.pipe
+        if pipe.mesh is not None:
+            return self._ask(_Request(SCENE))
         with pipe.lock:
             cached = self._scene_cache
             if cached is not None and cached[0] == pipe.frame:
                 return cached[1]
-            meshes = []
-            v, n, t = background_mesh(pipe)
-            bg_pose = pipe.state.bg_pose.numpy()
-            meshes.append(((v @ bg_pose[:3, :3].T + bg_pose[:3, 3]
-                            ).astype(np.float32),
-                           (n @ bg_pose[:3, :3].T).astype(np.float32),
-                           t.astype(np.uint32)))
-            poses = pipe.state.objs.pose.numpy()
-            for oid, (v2, n2, t2) in object_meshes(pipe).items():
-                if not len(v2):
-                    continue
-                T = poses[pipe._slot_of(oid)]
-                meshes.append(((v2 @ T[:3, :3].T + T[:3, 3]
-                                ).astype(np.float32),
-                               (n2 @ T[:3, :3].T).astype(np.float32),
-                               t2.astype(np.uint32)))
+            meshes = scene_meshes(pipe)
             self._scene_cache = (pipe.frame, meshes)
         return meshes
+
+    def _ask(self, req: _Request):
+        """Queue a sharded run's request and wait for its answer (a
+        handler thread): raises :class:`Unavailable` once the viewer has
+        closed, and what the request raised."""
+        with self._cond:
+            if self._closed:
+                raise Unavailable()
+            self._queue.append(req)
+        req.done.wait()
+        if isinstance(req.result, Exception):
+            raise req.result
+        return req.result
+
+    def _take(self, frame: int):
+        """The queued requests that :func:`serve_step` runs at pipeline
+        frame ``frame`` (rank 0): a scene request is answered from the
+        cache of this frame where there is one, and scene requests share
+        one extraction."""
+        with self._cond:
+            reqs, self._queue = self._queue, []
+        jobs, scene = [], None
+        for r in reqs:
+            if r.kind != SCENE:
+                jobs.append(r)
+            elif self._scene_cache is not None and \
+                    self._scene_cache[0] == frame:
+                r.answer(self._scene_cache[1])
+            elif scene is None:
+                scene = r
+                jobs.append(r)
+            else:
+                scene.also.append(r)
+        return jobs
+
+    def queued(self) -> int:
+        """The requests waiting for the next :func:`serve_step`."""
+        with self._cond:
+            return len(self._queue)
 
     def mesh_bin(self) -> bytes:
         """The scene in the inline WebGL viewer's format (``/mesh.bin``
@@ -401,10 +553,14 @@ class LiveViewer:
             }
 
     def close(self) -> None:
-        """Stop the server and end every open stream."""
+        """Stop the server, end every open stream and answer every queued
+        request with a 503."""
         with self._cond:
             self._closed = True
+            reqs, self._queue = self._queue, []
             self._cond.notify_all()
+        for r in reqs:
+            r.answer(Unavailable())
         self.server.shutdown()
         self.server.server_close()
         self._thread.join()

@@ -1,41 +1,177 @@
 #!/usr/bin/env python3
 """The batched object LM against another checkout's, call by call, on the
-accelerator path's own inputs, on one card.
+accelerator path's own inputs, on one card, each traced iteration by
+iteration.
 
     python3 scripts/batched_lm_vs_host_loop.py OTHER_TREE [--follow other]
 
 Drives ``chip_smoke.accel_path`` of this checkout (float32, then bf16
 backgrounds). Every call of ``tracking.track_volumes_batched`` that the
-pipeline makes runs twice on the same inputs: this checkout's, and the
-function of ``OTHER_TREE/emfusion_tpu_torch/tracking.py`` (loaded as a
-module of its own; its imports resolve to this checkout's package, whose
-capture, sampling and SE(3) code it shares). The pipeline goes on with
-``--follow``'s result (this checkout's by default, or the other's), so
-each frame's comparison is on one set of inputs. Prints per call the
-largest translation gap in object voxels and rotation gap in radians
-between the two results, how far each result moved each slot from its
-start (object voxels), and each slot's iterations, converged flag,
-re-captures and dropped points from both, then the path's usual lines (a gate of the
-path that fails is printed, and the run goes on: following the other
-checkout, its reads are its own); writes the calls to
+pipeline makes runs on its inputs twice: in this checkout, and in
+``OTHER_TREE``'s own package, in a helper process that imports that
+tree's ``emfusion_tpu_torch`` and builds its kernels there (the inputs
+and results pass through files). Each side also traces the call
+(:func:`trace`): the function's two fixed-cache stages rebuilt from its
+module's ``stage_items`` and ``LMRun``, each stage's ``lm_run`` replayed
+one launch an iteration with the state read after each (a chain of
+launches ends on one launch's bits), which must end on the function's
+poses. Per slot the trace counts the trials, the accepted ones, the
+escapes (accepted trials at whose pose no point with ``w > 0`` has a
+valid ψ, inside its window and the volume, so that the error there,
+``err_new``, is the 0 of an empty sum; counted by :func:`window_count`,
+the same on both sides), the trials that the empty-window guard rejected
+(state word ``SI_NIN`` 0; only where the module has the guard), the
+smallest share of the weighted points with a valid ψ at an accepted
+trial and the largest accepted step in object voxels.
+
+The pipeline goes on with ``--follow``'s result (this checkout's by
+default, or the other's), so each call's comparison is on one set of
+inputs. Prints per call each side's move of each slot from its start
+(object voxels) and the two results' gap, then per path the slots moved
+more than ``FAR_VOX`` object voxels in a call and, among them, those
+with an escape, on each side (a gate of the path that fails is printed,
+and the run goes on: two LMs run a frame, so the path's launch and read
+limits do not hold); writes everything to
 ``chiprun_out/batched_vs_other_<follow>.json``. Needs a card; imports
 nothing of JAX.
 """
 
 import argparse
-import importlib.util
+import dataclasses
 import json
 import os
+import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FAR_VOX = 10.0
+
+
+def window_count(it, w, R, t):
+    """The points of cache item ``it`` with weight ``w > 0`` whose ψ is
+    valid at the pose (R, t): in front of the camera, inside the volume at
+    margin 1 and inside their window (local coordinates in [0, 4])."""
+    import torch
+    p = it.points
+    Z, Y, X = it.tsdf.shape
+    v = (R.to(p.device) @ p + t.to(p.device)[:, None]) / it.voxel_size \
+        + torch.tensor([(X - 1) / 2, (Y - 1) / 2, (Z - 1) / 2],
+                       device=p.device)[:, None]
+    loc = v - it.anchor.to(torch.float32)
+    ok = ((p[2] > 0) & (v >= 0).all(0) & (v[0] + 1 < X) & (v[1] + 1 < Y)
+          & (v[2] + 1 < Z) & ((loc >= 0) & (loc <= 4)).all(0))
+    return int((ok & (w > 0)).sum()), int((w > 0).sum())
+
+
+def trace(tr, tsdfs, weights, vs, points, assoc, rel, cfg, active):
+    """``tr.track_volumes_batched``'s stages, each ``lm_run`` replayed a
+    launch an iteration (see the module's docstring). Returns (poses
+    (S, 4, 4) host float32, per slot a dict of counts)."""
+    import torch
+    f32 = torch.float32
+    vs = torch.as_tensor(vs, dtype=f32).cpu()
+    rel = torch.as_tensor(rel, dtype=f32).cpu()
+    active = torch.as_tensor(active, dtype=torch.bool).cpu()
+    S = points.shape[0]
+    R, t = rel[:, :3, :3].clone(), rel[:, :3, 3].clone()
+    nin = getattr(tr, "SI_NIN", None)
+    out = [dict(trials=0, accepted=0, escapes=0, guard_rejects=0,
+                min_share=None, max_step_vox=0.0) for _ in range(S)]
+    half = max(cfg.max_iter // 2, 1)
+    cap = (tr.kernels.library("lm_run").emf_max_items() if points.is_cuda
+           else tr.LM_MAX_ITEMS)
+    converged = ~active
+    todo = torch.nonzero(active).flatten()
+    for budget in (half, cfg.max_iter - half):
+        if not len(todo):
+            break
+        scfg = dataclasses.replace(cfg, max_iter=budget)
+        for part in torch.split(todo, cap):
+            slots = part.tolist()
+            items = tr.stage_items(tsdfs, weights, vs, points, assoc, R, t,
+                                   slots)
+            run = tr.LMRun(items, scfg)
+            si0, sf0 = run.read()
+            for _ in range(budget):
+                if not bool(run.running(si0, scfg).any()):
+                    break
+                tr.lm_run(run, scfg, 1)
+                si, sf = run.read()
+                for j, k in enumerate(slots):
+                    ran = int(si[j, tr.SI_IT]) > int(si0[j, tr.SI_IT])
+                    if not ran or si[j, tr.SI_CONV]:
+                        continue                 # no trial this iteration
+                    o = out[k]
+                    o["trials"] += 1
+                    ok = bool(si[j, tr.SI_EVAL])
+                    if nin is not None and int(si[j, nin]) == 0:
+                        o["guard_rejects"] += 1
+                    if not ok:
+                        continue
+                    o["accepted"] += 1
+                    n_in, n_w = window_count(
+                        items[j], run.w[run.point_slice(j)],
+                        sf[j, tr.SF_R:tr.SF_R + 9].reshape(3, 3),
+                        sf[j, tr.SF_T:tr.SF_T + 3])
+                    o["escapes"] += n_in == 0
+                    share = n_in / max(n_w, 1)
+                    o["min_share"] = share if o["min_share"] is None \
+                        else min(o["min_share"], share)
+                    step = float((sf[j, tr.SF_T:tr.SF_T + 3]
+                                  - sf0[j, tr.SF_T:tr.SF_T + 3]).norm()
+                                 / vs[k])
+                    o["max_step_vox"] = max(o["max_step_vox"], step)
+                si0, sf0 = si, sf
+            R[part] = sf0[:, tr.SF_R:tr.SF_R + 9].reshape(-1, 3, 3)
+            t[part] = sf0[:, tr.SF_T:tr.SF_T + 3]
+            converged[part] = si0[:, tr.SI_CONV] != 0
+        todo = todo[~converged[todo]]
+    return tr._pose_mat(R, t), out
+
+
+def summary(tr, args, pose, stats):
+    """A side's result of a call: poses, counts and the trace."""
+    traced, per_slot = trace(tr, *args)
+    if not bool((traced == pose).all()):
+        raise RuntimeError("batched_lm_vs_host_loop: the trace left the "
+                           "function's poses")
+    return dict(pose=pose, trace=per_slot,
+                **{k: stats[k].tolist() for k in (
+                    "iterations", "converged", "recaptures",
+                    "dropped_points")})
+
+
+def serve(tree):
+    """The helper process: ``OTHER_TREE``'s package; per request line (a
+    file of the call's inputs) its ``track_volumes_batched`` and trace,
+    written beside it; "done" on its standard output."""
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+
+    from emfusion_tpu_torch import kernels, tracking
+    if torch.cuda.is_available():
+        kernels.build()
+    print("ready", flush=True)
+    for line in sys.stdin:
+        req = line.strip()
+        args = torch.load(req, weights_only=False)
+        cfg = tracking.TrackConfig(**args[6])
+        call = tuple(args[:6]) + (cfg, args[7])
+        pose, st = tracking.track_volumes_batched(*call)
+        torch.save(summary(tracking, call, pose, st), req + ".out")
+        print("done", flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other")
     ap.add_argument("--follow", choices=["this", "other"], default="this")
+    ap.add_argument("--serve", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.serve:
+        return serve(os.path.abspath(args.other))
     sys.path.insert(0, HERE)
     import numpy as np
     import torch
@@ -46,12 +182,12 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("batched_lm_vs_host_loop: no CUDA device")
-    spec = importlib.util.spec_from_file_location(
-        "other_tracking", os.path.join(args.other, "emfusion_tpu_torch",
-                                       "tracking.py"))
-    other = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = other       # its dataclasses look it up
-    spec.loader.exec_module(other)
+    helper = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), args.other, "--serve"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    if helper.stdout.readline().strip() != "ready":
+        raise RuntimeError("batched_lm_vs_host_loop: the helper failed")
+    tmp = tempfile.TemporaryDirectory(prefix="batched_vs_other_")
     calls = []
 
     def angle(a, b):
@@ -61,39 +197,51 @@ def main():
         return float(torch.arcsin(torch.clamp(v.norm() / 2.0, max=1.0)))
 
     def both(tsdfs, weights, vs, points, assoc, rel, cfg, active):
-        mine = tracking.track_volumes_batched(tsdfs, weights, vs, points,
-                                              assoc, rel, cfg, active)
-        theirs = other.track_volumes_batched(tsdfs, weights, vs, points,
-                                             assoc, rel, cfg, active)
-        (p, s), (q, t) = mine, theirs
+        call = ([x.clone() for x in tsdfs], [x.clone() for x in weights],
+                vs, points, assoc, rel, cfg, active)
+        pose, st = tracking.track_volumes_batched(*call)
+        mine = summary(tracking, call, pose, st)
+        req = os.path.join(tmp.name, f"call{len(calls)}.pt")
+        torch.save(call[:6] + (dataclasses.asdict(cfg), active), req)
+        helper.stdin.write(req + "\n")
+        helper.stdin.flush()
+        if helper.stdout.readline().strip() != "done":
+            raise RuntimeError("batched_lm_vs_host_loop: the helper failed")
+        theirs = torch.load(req + ".out", weights_only=False)
+        os.remove(req)
+        os.remove(req + ".out")
         vsh = torch.as_tensor(vs, dtype=torch.float32).cpu()
         start = torch.as_tensor(rel, dtype=torch.float32).cpu()
-        call = dict(
-            moved_this_vox=[float((p[k, :3, 3] - start[k, :3, 3]).norm()
-                                  / vsh[k]) for k in range(len(p))],
-            moved_other_vox=[float((q[k, :3, 3] - start[k, :3, 3]).norm()
-                                   / vsh[k]) for k in range(len(p))],
-            trans_gap_vox=[float((p[k, :3, 3] - q[k, :3, 3]).norm() / vsh[k])
-                           for k in range(len(p))],
-            rot_gap=[angle(p[k], q[k]) for k in range(len(p))],
-            **{f"{key}_{who}": st[key].tolist()
-               for key in ("iterations", "converged", "recaptures")
-               for who, st in (("this", s), ("other", t))},
-            dropped_this=s["dropped_points"].tolist(),
-            dropped_other=t["dropped_points"].tolist())
-        calls.append(call)
-        print(f"call {len(calls)}: gap {max(call['trans_gap_vox']):.3e} "
-              f"voxel, {max(call['rot_gap']):.3e} rad; moved from the "
-              f"start {[round(v, 3) for v in call['moved_this_vox']]} / "
-              f"{[round(v, 3) for v in call['moved_other_vox']]} voxels; "
-              f"iterations "
-              f"{call['iterations_this']} / {call['iterations_other']}, "
-              f"converged {call['converged_this']} / "
-              f"{call['converged_other']}, re-captures "
-              f"{call['recaptures_this']} / {call['recaptures_other']}, "
-              f"dropped {call['dropped_this']} / {call['dropped_other']}",
-              flush=True)
-        return mine if args.follow == "this" else theirs
+        S = len(pose)
+        rec = dict(
+            trans_gap_vox=[float((mine["pose"][k, :3, 3]
+                                  - theirs["pose"][k, :3, 3]).norm()
+                                 / vsh[k]) for k in range(S)],
+            rot_gap=[angle(mine["pose"][k], theirs["pose"][k])
+                     for k in range(S)])
+        for who, r in (("this", mine), ("other", theirs)):
+            rec[f"moved_{who}_vox"] = [
+                float((r["pose"][k, :3, 3] - start[k, :3, 3]).norm()
+                      / vsh[k]) for k in range(S)]
+            for key in ("iterations", "converged", "recaptures",
+                        "dropped_points", "trace"):
+                rec[f"{key}_{who}"] = r[key]
+        calls.append(rec)
+        moved = [[round(v, 3) for v in rec[f"moved_{who}_vox"]]
+                 for who in ("this", "other")]
+        print(f"call {len(calls)}: moved {moved[0]} / {moved[1]} voxels "
+              f"(this / other), gap {max(rec['trans_gap_vox']):.3e} voxel, "
+              f"{max(rec['rot_gap']):.3e} rad; escapes "
+              f"{[s['escapes'] for s in rec['trace_this']]} / "
+              f"{[s['escapes'] for s in rec['trace_other']]}; guard "
+              f"rejections {[s['guard_rejects'] for s in rec['trace_this']]}"
+              f"; iterations {rec['iterations_this']} / "
+              f"{rec['iterations_other']}", flush=True)
+        if args.follow == "this":
+            return pose, st
+        return (theirs["pose"], dict(
+            st, **{k: torch.tensor(theirs[k]) for k in (
+                "iterations", "converged", "recaptures")}))
 
     pipeline.track_volumes_batched = both
     kernels.build()
@@ -102,26 +250,53 @@ def main():
     rng = np.random.default_rng(0)
     frames, masks = cs.object_scene(scene, params, cs.ACCEL_FRAMES, rng)
     report, out = {}, {}
-    for key, dtype in (("accel_path", "auto"),
-                       ("accel_path_bf16", "bfloat16")):
-        calls.clear()
-        print(f"{key}: following {args.follow}", flush=True)
-        failed = None
-        try:
-            cs.accel_path(torch, params, frames, masks, report, key=key,
-                          volume_dtype=dtype)
-        except RuntimeError as e:       # a gate of the path
-            failed = str(e)
-            print(f"{key}: gate failed: {failed}", flush=True)
-        out[key] = dict(calls=list(calls), gate_failed=failed,
-                        live=report[key]["live_objects"],
-                        recovery={o: v["recovery"] for o, v in
-                                  report[key]["recovery"].items()})
+    try:
+        for key, dtype in (("accel_path", "auto"),
+                           ("accel_path_bf16", "bfloat16")):
+            calls.clear()
+            print(f"{key}: following {args.follow}", flush=True)
+            failed = None
+            try:
+                cs.accel_path(torch, params, frames, masks, report, key=key,
+                              volume_dtype=dtype)
+            except RuntimeError as e:       # a gate of the path
+                failed = str(e)
+                print(f"{key}: gate failed: {failed}", flush=True)
+            far = {}
+            for who in ("this", "other"):
+                slots = [(c[f"moved_{who}_vox"][k],
+                          c[f"trace_{who}"][k]["escapes"])
+                         for c in calls for k in range(len(c["trace_this"]))]
+                far[who] = dict(
+                    moved=sum(m > FAR_VOX for m, _ in slots),
+                    with_escape=sum(m > FAR_VOX and e > 0 for m, e in slots),
+                    escapes=sum(e for _, e in slots))
+            guard = sum(s["guard_rejects"] for c in calls
+                        for s in c["trace_this"])
+            print(f"{key}: {len(calls)} calls; slots moved more than "
+                  f"{FAR_VOX} object voxels in a call (with an escape): "
+                  f"this {far['this']['moved']} "
+                  f"({far['this']['with_escape']}), other "
+                  f"{far['other']['moved']} ({far['other']['with_escape']});"
+                  f" escapes in all: this {far['this']['escapes']}, other "
+                  f"{far['other']['escapes']}; this checkout's guard "
+                  f"rejections {guard}", flush=True)
+            out[key] = dict(calls=list(calls), gate_failed=failed, far=far,
+                            guard_rejects=guard,
+                            live=report.get(key, {}).get("live_objects"),
+                            recovery={o: v["recovery"] for o, v in
+                                      report.get(key, {}).get(
+                                          "recovery", {}).items()})
+    finally:
+        helper.stdin.close()
+        helper.wait(timeout=60)
+        tmp.cleanup()
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out",
                            f"batched_vs_other_{args.follow}.json"),
               "w") as f:
-        json.dump(dict(follow=args.follow, card=cs.card_line(), runs=out), f)
+        json.dump(dict(follow=args.follow, card=cs.card_line(), runs=out), f,
+                  default=lambda x: x.tolist())
     return 0
 
 

@@ -389,8 +389,10 @@ static void emf_points(const EmfLmItem* it, const float* pose,
   for (int i = 0; i < it->n; ++i) {
     const float px = it->pts[i], py = it->pts[st + i],
                 pz = it->pts[2 * st + i];
-    if (trial) {
-      out[i] = emf_lm_psi_cache<T>(*it, P, px, py, pz, i);
+    if (trial) {  // the trial psi, then whether it is valid
+      bool valid;
+      out[i] = emf_lm_psi_cache<T>(*it, P, px, py, pz, i, valid);
+      out[n + i] = valid ? 1.0f : 0.0f;
       continue;
     }
     const EmfLmPoint r = emf_lm_point_cache<T>(*it, P, px, py, pz, i, *C);
@@ -461,9 +463,10 @@ def test_cache_kernel_code_matches_plain(scene, host_lm, dtype):
     plain order), run on the host, against ``tracking._cache_system`` /
     ``_cache_psi`` (all six taps an axis): ψ, the gradient, the clamped
     weight, the Huber weight and the trial ψ bit for bit (``torch.equal``:
-    a left-out zero product may change only the sign of a zero), at
-    poses where part of the points lie outside their windows and some
-    behind the camera; float32 and bf16 caches."""
+    a left-out zero product may change only the sign of a zero), and the
+    trial ψ's validity, which the empty-window guard counts, at poses
+    where part of the points lie outside their windows and some behind
+    the camera; float32 and bf16 caches."""
     cfg = TrackConfig()
     rng = np.random.RandomState(5)
     start = moved(scene, START_FAR)
@@ -492,14 +495,16 @@ def test_cache_kernel_code_matches_plain(scene, host_lm, dtype):
                               cfg.max_iter)
         pose = torch.cat([R.reshape(9), t]).contiguous()
         out = torch.zeros((6, n))
-        trial = torch.zeros(n)
+        trial = torch.zeros((2, n))
         for buf, flag in ((out, 0), (trial, 1)):
             host_lm.emf_host_points(ctypes.addressof(args), pose.data_ptr(),
                                     ctypes.addressof(c), buf.data_ptr(),
                                     flag)
         assert torch.equal(out, torch.stack([psi, *g3, intw, hub]))
-        assert torch.equal(trial, tr._cache_psi(it, R, t))
-        assert (psi != 0).sum() > 100
+        psi_t, valid = tr._cache_psi(it, R, t)
+        assert torch.equal(trial[0], psi_t)
+        assert torch.equal(trial[1] != 0, valid)
+        assert (psi != 0).sum() > 100 and valid.sum() > 100
         outside.append(int(out_of_window_count(it.anchor, it.points, R, t,
                                                VS, scene["tsdf"].shape)))
     assert outside[0] == 0 and outside[-1] > 100, outside

@@ -4,7 +4,8 @@ planes, rank 0 writes) against the one-process CLI, on the 8-frame TUM
 sequence of ``tests/test_torch_cli.py`` (the rigid object scene with
 ``.plk`` masks at frames 0, 3 and 6): the same export tree, byte for
 byte (pose files, the sharded background mesh, the object mesh, every
-image), and the same checkpoint arrays.
+image, the three ``--turntable`` views, which every rank renders
+together), and the same checkpoint arrays.
 
 Both runs take one intra-op thread per process (``OMP_NUM_THREADS=1``
 for the ranks): PyTorch's CPU reductions split their sums by thread.
@@ -44,7 +45,7 @@ def runs(tmp_path_factory):
             argv = ["-t", seq, "-e", o, "-m", os.path.join(seq, "masks"),
                     "-c", os.path.join(seq, "config.cfg"), "--device",
                     "cpu", "--checkpoint", str(root / f"{name}.npz"),
-                    "--checkpoint-every", "8"] + extra
+                    "--checkpoint-every", "8", "--turntable", "3"] + extra
             with pytest.MonkeyPatch.context() as mp:
                 mp.setenv("OMP_NUM_THREADS", "1")
                 assert run_emfusion.main(argv) == 0
@@ -58,6 +59,8 @@ def test_export_tree_is_the_one_process_tree(runs):
     a, b = tree(runs["one"][0]), tree(runs["two"][0])
     assert sorted(a) == sorted(b)
     assert "mesh_bg.ply" in a and "mesh_1.ply" in a and "poses-1.txt" in a
+    assert [k for k in sorted(a) if k.startswith("turntable")] == [
+        os.path.join("turntable", f"view{i:03d}.png") for i in range(3)]
     assert len(a["mesh_bg.ply"]) > 10000
     differ = [k for k in a if a[k] != b[k]]
     assert not differ, differ
@@ -69,7 +72,3 @@ def test_checkpoint_is_the_one_process_checkpoint(runs):
         for k in x.files:
             assert np.array_equal(x[k], y[k]), k
 
-
-def test_serve_and_turntable_refused_on_ranks(tmp_path):
-    assert run_emfusion.main(["-t", str(tmp_path), "--nprocs", "2",
-                              "--device", "cpu", "--turntable", "3"]) == 2

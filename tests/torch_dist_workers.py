@@ -285,3 +285,120 @@ def stress_state(params_kw, depth, n=16, z=1.3):
                       for f in dataclasses.fields(o)}
     return dict(arrays=arrays, frame=pipe.frame,
                 ids=[int(i) for i in range(1, n + 1)])
+
+
+# ---------------------------------------------------------------------
+# the sharded viewer (tests/test_torch_distributed_viewer.py): the CLI's
+# --serve run with its service step wrapped
+VIEW_PATHS = ("/frame.png", "/status", "/view.png?yaw=0.7&pitch=-0.3&dist=1.2",
+              "/mesh.bin", "/mesh.ply")
+QUEUED = 3     # of them, the requests a sharded run's ranks answer together
+LATE_PATH = "/view.png?yaw=2.0"
+
+
+def http_get(port: int, path: str, timeout: float = 120.0):
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+class ViewerProbe:
+    """Wraps ``viz_server.serve_step`` for a run of the CLI with
+    ``--serve``: at pipeline frame ``at`` it GETs every path of
+    ``VIEW_PATHS`` from rank 0's viewer, each on its own thread, waits (on
+    a mesh) until the ``QUEUED`` requests that need every rank are queued,
+    runs the step and keeps the answers, so that every answer is of that
+    frame; after the run's last step (``serve_close``'s) it GETs
+    ``LATE_PATH``, which on a mesh stays queued for the viewer's closing
+    to answer. On every rank it notes, at frame ``at``, the live slots
+    whose volumes the rank holds."""
+
+    def __init__(self, at: int):
+        from emfusion_tpu_torch import viz_server
+        self.mod, self.real = viz_server, viz_server.serve_step
+        self.at, self.last = at, None
+        self.answers, self.owned, self.late = {}, None, {}
+        self.late_thread = None
+        viz_server.serve_step = self.step
+
+    def restore(self) -> None:
+        self.mod.serve_step = self.real
+
+    @staticmethod
+    def _get_all(port, paths, into):
+        import threading
+
+        def one(p):
+            into[p] = http_get(port, p)
+        ts = [threading.Thread(target=one, args=(p,)) for p in paths]
+        for t in ts:
+            t.start()
+        return ts
+
+    @staticmethod
+    def _wait_queued(pipe, viewer, n, timeout=120.0):
+        import time
+        end = time.monotonic() + timeout
+        while pipe.mesh is not None and viewer.queued() < n:
+            if time.monotonic() > end:
+                raise TimeoutError(f"{viewer.queued()} of {n} requests "
+                                   "queued")
+            time.sleep(0.005)
+
+    def step(self, pipe, viewer=None):
+        final = pipe.frame == self.last          # serve_close's step
+        self.last = pipe.frame
+        if pipe.frame == self.at and not final:
+            self.owned = [int(k) for k in np.nonzero(pipe._h_active)[0]
+                          if pipe._owns(int(k))]
+            if viewer is not None:
+                threads = self._get_all(viewer.port, VIEW_PATHS,
+                                        self.answers)
+                self._wait_queued(pipe, viewer, QUEUED)
+                n = self.real(pipe, viewer)
+                for t in threads:
+                    t.join()
+                return n
+        n = self.real(pipe, viewer)
+        if final and viewer is not None:
+            (self.late_thread,) = self._get_all(viewer.port, [LATE_PATH],
+                                                self.late)
+            if pipe.mesh is None:      # answered under the lock, now
+                self.late_thread.join()
+            self._wait_queued(pipe, viewer, 1)
+        return n
+
+    def result(self, code: int) -> dict:
+        if self.late_thread is not None:
+            self.late_thread.join()
+        return dict(code=code, answers=self.answers, owned=self.owned,
+                    late=self.late.get(LATE_PATH))
+
+
+def viewer_rank(mesh, argv, at):
+    """A rank of the CLI (``--nprocs``'s rank body) under a
+    :class:`ViewerProbe`."""
+    from emfusion_tpu_torch.apps import run_emfusion
+    probe = ViewerProbe(at)
+    return probe.result(run_emfusion._rank_main(mesh, argv))
+
+
+if __name__ == "__main__":
+    # a rank of the CLI under torchrun (WORLD_SIZE > 1: main() joins its
+    # group) and a ViewerProbe: torch_dist_workers.py OUT AT ARGV...; the
+    # probe's result goes to OUT.rank<RANK>
+    import os
+    import pickle
+    import sys
+
+    from emfusion_tpu_torch.apps import run_emfusion
+    out, at = sys.argv[1], int(sys.argv[2])
+    probe = ViewerProbe(at)
+    res = probe.result(run_emfusion.main(sys.argv[3:]))
+    with open(f"{out}.rank{os.environ['RANK']}", "wb") as f:
+        pickle.dump(res, f)
