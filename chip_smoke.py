@@ -41,8 +41,11 @@ under ``torchrun``.)
    every LM call read the device at most once a table (one ``lm_run`` of
    ``max_iter`` iterations). Prints the camera LM's iterations a call, ms an iteration,
    device reads a call, re-captures and dropped points. Then (after step
-   4) runs the same frames with the capture sampler (which also launches
-   K3), with the gather LM in the per-iteration host loop, and with the
+   4) runs the same frames with the capture sampler (its LM on the device
+   too: K3 and ``lm_run`` launch, and a call may read the device once
+   and once more a re-capture; its ``track_camera`` printed beside the
+   host loop's 185.918 ms, ``PERF.md`` section 5), with the gather LM in the
+   per-iteration host loop, and with the
    device LM as the split kernels (``tracking._run_lm_split``, 4
    iterations between reads), and prints each against ``lm_run``:
    iterations, ms an iteration, ``track_camera`` ms, device reads a call
@@ -83,14 +86,24 @@ under ``torchrun``.)
    configuration's ``auto`` sampler resolves to, as the JAX package's
    ``auto`` picks on a chip). The batched LM runs each of its two
    fixed-cache stages as one K3 launch and one ``lm_run`` over the
-   slots' window caches (cache items), then one read. Prints its phases,
-   ``track_objects`` beside the batched LM's time as a host loop on the
-   same card model (``HOST_LOOP_TRACK_OBJECTS_MS``), LM iterations
-   (camera and batched), device reads per batched LM call, peak memory
-   and launches; fails as the object path does (``lm_run`` must have run
-   at the object shape), and also if a frame launched K3 or ``lm_run``
-   at the object shape more than twice (once per LM stage, every slot in
-   one launch) or a batched LM call read the device more than twice.
+   slots' window caches (cache items), then one read; the camera LM is
+   one re-capturing cache item (``tracking.track_volumes_capture``: a K3
+   launch at its start, ``lm_run`` until its trial leaves the windows,
+   a read, K3 at the trial pose, ``lm_run`` again). Prints its phases,
+   ``track_objects`` and ``track_camera`` beside the batched LM's and the
+   camera LM's times as host loops on the same card model
+   (``HOST_LOOP_TRACK_OBJECTS_MS``, ``HOST_LOOP_TRACK_CAMERA_MS``), LM
+   iterations (camera and batched), device reads per batched LM and
+   camera call, the camera calls that spent the whole re-capture budget
+   and their dropped points, peak memory and launches; fails as the
+   object path does (``lm_run`` must have run at the object shape), and
+   also if a frame launched K3 or ``lm_run`` at the object shape more
+   than twice (once per LM stage, every slot in one launch), a batched
+   LM call read the device more than twice or a camera call more than
+   1 + its re-captures times. Then runs the path's first
+   ``HOST_LOOP_CALLS`` camera calls again, each also through the host
+   loop on the same inputs, and prints re-captures, iterations and the
+   pose gap of the two (``capture_vs_host_loop``).
    Holds K3 over that path's final two-slot table (2 x 4096 points),
    over the camera's stride-3 points, and over a full pool (16 x 4096,
    the pool of step 7), and ``lm_run`` over the cache items of a first
@@ -98,7 +111,13 @@ under ``torchrun``.)
    (``lm_run_cache_pool``) and of the two slots with their volumes cast
    to bf16 (``lm_run_cache_bf16``, a bf16 cache; no path runs one yet),
    as ``hold_lm_run`` holds the gather tables (no split kernels: they
-   take gather items only); profiles three frames of the path
+   take gather items only), and ``lm_run`` over the camera LM's capture
+   item (34,240 points) from 3 voxels off its start, so that it
+   re-captures (``lm_run_capture``, ``hold_lm_capture``: in lockstep
+   with the plain iteration, K3 at each flagged trial pose against the
+   plain capture, then the whole call, which must end on the same bits
+   and read at most 1 + its re-captures times); profiles three frames
+   of the path
    (``chiprun_out/accel_profile_ops.txt``). Then holds fault F2's guard:
    ``lm_run`` over a table of two cache items on a 16^3 slope whose
    first undamped step carries the first item's 24 points 7 voxels out
@@ -116,7 +135,9 @@ under ``torchrun``.)
    bf16 background and both float32 slots, one launch), K2 over the
    E-step's table, K3 over the camera's stride-3 points (a bf16 cache)
    and K4 on the bf16 background, each at max abs error 0 with its bound
-   recounted for bf16 bytes.
+   recounted for bf16 bytes, and ``lm_run`` over the camera's capture LM
+   with a bf16 cache (``lm_run_capture_bf16``); then the host-loop
+   comparison of step 8 on this path's first camera calls.
 9. Runs the CLI path: writes a 40-frame 640x480 TUM-format sequence of
    the object path's scene (with ground truth, calibration and ``.plk``
    masks at frames 0 and 30), its PNGs with libpng's adaptive filters
@@ -227,8 +248,9 @@ and written), the ``lm_*`` rows: the LM kernels at the background's
 shape, over the object path's two-slot table (``*_objects``) and a full
 pool (``*_pool``): ``lm_run`` with the main path's launches (the
 object path's at the object shape; the ``lm_run_cache*`` rows the
-accelerator path's at the object shape, 0 for the bf16 cache), the split
-kernels with the launches
+accelerator path's at the object shape, 0 for the bf16 cache; the
+``lm_run_capture`` rows steps 8's and 8b's at the background's shape,
+the camera LM's), the split kernels with the launches
 of rank 0's pixel-sharded LM in step 11 (the only path that runs them; 0
 at the object shape), its ``bound_ms`` this run's per-iteration bound:
 ``lm_system``'s over the LMs that evaluate plus ``lm_trial``'s over
@@ -299,13 +321,20 @@ LM_KERNELS = [LM_RUN] + LM_SPLIT_KERNELS
 SPLIT_CHUNK = 4               # the split loop's iterations between reads
 
 
-def one_read(iterations):
+def one_read(iterations, recaptures):
     """Reads of the device an LM call of ``lm_run`` may take: one a
     table (a launch of ``max_iter`` iterations, then one read)."""
     return 1
 
 
-def split_reads(iterations):
+def capture_reads(iterations, recaptures):
+    """Reads a capture sampler's LM call may take: one, and one more for
+    each re-capture of its table (the launch ends when an LM must be
+    captured again at its trial pose)."""
+    return 1 + recaptures
+
+
+def split_reads(iterations, recaptures):
     """Reads a call of the split loop may take: one a chunk of
     ``SPLIT_CHUNK`` iterations, and one more where the last chunk ended
     on the stop."""
@@ -320,18 +349,40 @@ LM_ROWS = [(f"{k}{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
 LM_CACHE_ROWS = [(f"lm_run_cache{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
                   "emfusion_tpu/tracking.py:394", LM_RUN)
                  for suffix in ("", "_pool", "_bf16")]
+# lm_run over re-capturing cache items (the capture sampler's LM: the JAX
+# package's capture while_loop, tracking.py:224-352, its re-capture
+# lax.cond at :224-240): the accelerator path's camera LM (stride-3
+# points of the 512^3 background), float32 and bf16
+LM_CAPTURE_ROWS = [(f"lm_run_capture{suffix}",
+                    "emfusion_tpu_torch/csrc/lm.cu",
+                    "emfusion_tpu/tracking.py:224", LM_RUN)
+                   for suffix in ("", "_bf16")]
+# a start this many voxels off the camera's (along x) in those holds, so
+# that the LM re-captures
+CAPTURE_HOLD_OFFSET = 3.0
+# track_camera ms a call with the capture sampler's LM as the host loop it
+# replaced, on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 5):
+# the accelerator path float32 and bf16, the background path's capture
+# run
+HOST_LOOP_TRACK_CAMERA_MS = {"float32": 137.191, "bf16": 232.659,
+                             "background": 185.918}
+# the accelerator paths' first camera calls also run through the host loop
+# on the same inputs (capture_vs_host_loop)
+HOST_LOOP_CALLS = 10
 # track_objects ms a call of the accelerator path's batched object LM as
 # the host loop it replaced (each pass read the card twice), on one NVIDIA
 # H100 80GB HBM3 at 700 W (PERF.md, section 5): float32, bf16 backgrounds
 HOST_LOOP_TRACK_OBJECTS_MS = {"float32": 156.079, "bf16": 214.039}
 # K6 (warp) is not on the main path: the fusion kernel makes its pick;
 # K3 (capture) is on the paths whose LMs run the capture sampler (the
-# main path's capture run, the accelerator path), not on the exact paths,
-# whose LMs gather (the default sampler) on the device (lm_*), or in the
-# host loop (the main path's comparison run)
-CAPTURE_PATH_KERNELS = [row[3] for row in KERNEL_ROWS if row[3] != "warp"]
-HOST_LOOP_KERNELS = [k for k in CAPTURE_PATH_KERNELS if k != "capture"]
+# main path's capture run, the accelerator path; their LMs on the device,
+# lm_run), not on the exact paths, whose LMs gather (the default sampler)
+# on the device (lm_*), or in the host loop (the main path's comparison
+# run)
+HOST_LOOP_KERNELS = [row[3] for row in KERNEL_ROWS
+                     if row[3] not in ("warp", "capture")]
 PATH_KERNELS = HOST_LOOP_KERNELS + [LM_RUN]
+CAPTURE_PATH_KERNELS = PATH_KERNELS + ["capture"]
 SPLIT_PATH_KERNELS = HOST_LOOP_KERNELS + LM_SPLIT_KERNELS
 # the same kernels held at an object's shapes (object_kernel_phases), and
 # K1 and K2 over a full pool (pool_kernel_phases)
@@ -1051,14 +1102,21 @@ def lm_cache_system_bound(torch, items, run, only=None):
     return bound(nbytes, ops)
 
 
-def lm_cache_trial_bound(torch, items, run):
+def lm_cache_trial_bound(torch, items, run, drift=()):
     """:func:`lm_trial_bound` for a table of cache items: per point the 4
     bytes of its track weight; per point whose weight is not 0 its 12
     bytes of coordinates; per such point valid at the trial pose (inside
     its window) its 12 bytes of anchors and the values of channel 0 with
     a nonzero tent product; a sum written. Float32 operations: 1 a point,
     34 a weighted point, 43 more a sampled one (the window test 9, 6
-    tents of 3 operations, the tent sum 14, the term 2)."""
+    tents of 3 operations, the tent sum 14, the term 2). The items of
+    ``drift`` also count their drift at the trial pose in the same pass,
+    charged only for what the trial does not already do: per point of
+    weight 0 its 12 bytes of coordinates and 34 operations (the
+    transform 18, the grid coordinates 6, the relevance test 10), and per
+    relevant point that is not sampled its 12 bytes of anchors and 9
+    operations (the window test)."""
+    from emfusion_tpu_torch.geometry import capture as cap
     from emfusion_tpu_torch.tracking import SF_RN, SF_TN, SI_TRIAL
     nbytes = ops = 0
     for k, it in enumerate(items):
@@ -1075,6 +1133,14 @@ def lm_cache_trial_bound(torch, items, run):
         nbytes += (4 * n + 12 * nw + 12 * int(valid1.sum())
                    + it.cache.element_size() * wtaps + 8)
         ops += n + 34 * nw + 43 * int(valid1.sum())
+        if k in drift:
+            shape = tuple(it.tsdf.shape)
+            grid, local = cap._local_coords(it.anchor, it.points, R, t,
+                                            it.voxel_size, shape)
+            sampled = weighted & cap._cache_valid(grid, local, shape, 1)
+            rest = int((cap._relevant(*grid, shape) & ~sampled).sum())
+            nbytes += 12 * (n - nw) + 12 * rest
+            ops += 34 * (n - nw) + 9 * rest
     return bound(nbytes, ops)
 
 
@@ -1227,6 +1293,166 @@ def hold_lm_run(torch, items, cfg, reps=20):
     return row
 
 
+def hold_lm_capture(torch, item, cfg, reps=5):
+    """``lm_run`` over one re-capturing cache item (the capture sampler's
+    LM: ``tracking.capture_table``, budget ``max_recaptures``) from
+    ``item``'s start pose, its windows captured there by K3, against the
+    plain versions on the card, three ways:
+    (1) a launch an iteration in lockstep with the plain iteration until
+    the LM stops, and after an iteration that flagged a re-capture, K3 at
+    the trial pose into the card form's windows and the plain capture
+    into the plain form's: the windows and anchors exactly, and after
+    every iteration the per-point values, the weight maximum and the int
+    words (the drift counts, the flag and the re-captures among them)
+    exactly, the float64 sums within a float32 ulp once rounded, the
+    poses within 1e-5 (``max_abs_err``, ``tol``) and the other float
+    words within 1e-5 relative; the plain run takes the card's state
+    after each iteration;
+    (2) ``tracking.capture_table`` from the start (what the path runs:
+    launches of ``max_iter`` iterations, K3 between them, a read after
+    each), whose state must equal (1)'s last bit for bit and whose reads
+    are at most 1 + its re-captures (``whole_equal``);
+    (3) the plain versions alone from the start, re-capturing with the
+    plain capture: the same int words as (2), poses within 1e-5
+    (``whole_gap``).
+    Fails unless the LM re-captured at least once. ``call_ms``: (2) whole
+    on the host's clock around a synchronised call (launches, K3 and
+    reads), median of ``reps``; ``ms`` that over its iterations. ``bound``:
+    per iteration of (1) ``lm_system``'s bound if it evaluated, the
+    trial's with its drift test where it ran (one pass,
+    :func:`lm_cache_trial_bound`) and K3's for a re-capture, summed over
+    the run and divided by its iterations. ``plain_ms``: the plain
+    versions' first iteration.
+    Returns the row."""
+    from emfusion_tpu_torch import tracking as tr
+    from emfusion_tpu_torch.geometry.capture import (
+        capture_into, capture_neighborhoods_plain,
+    )
+    budget = cfg.max_recaptures
+    (start,) = tr.capture_items([item])
+    pose0 = torch.as_tensor(item.rel_pose, dtype=torch.float32)
+    vols = (item.tsdf, item.weights)
+    qc, qa = capture_neighborhoods_plain(vols, start.points,
+                                         pose0[:3, :3].cuda(),
+                                         pose0[:3, 3].cuda(), item.voxel_size)
+    ok = torch.equal(qc, start.cache) and torch.equal(qa, start.anchor)
+    cache0, anchor0 = start.cache.clone(), start.anchor.clone()
+
+    def copy(cache=cache0, anchor=anchor0):
+        return dataclasses.replace(start, cache=cache.clone(),
+                                   anchor=anchor.clone())
+
+    ki, qi = copy(), copy(qc, qa)
+    k = tr.LMRun([ki], cfg, recaps=budget)
+    q = tr.LMRun([qi], cfg, recaps=budget)
+
+    def recapture(it, run, plain):
+        pose = run.sf[0, tr.SF_RN:tr.SF_RN + 12].cpu()
+        R, t = pose[:9].reshape(3, 3), pose[9:]
+        if not plain:
+            capture_into([(it.tsdf, it.weights, it.points, R, t,
+                           it.voxel_size, it.cache, it.anchor)])
+            return None
+        c, a = capture_neighborhoods_plain(vols, it.points, R.cuda(),
+                                           t.cuda(), it.voxel_size)
+        return c, a
+
+    gap, steps, recaps = 0.0, 0, 0
+    spent = {"bytes": 0.0, "operations": 0.0}
+    while (steps < cfg.max_iter + budget + 1
+           and bool(q.running(q.si, cfg).any())):
+        evaluating = tr._items_with(q, cfg, tr.SI_EVAL)
+        tr.lm_run(k, cfg, 1)
+        tr.lm_system_plain(q, cfg)
+        parts = [lm_system_bound(torch, [qi], q, evaluating)]
+        tr.lm_step_plain(q, cfg, 0)
+        drift = bool(q.si[0, tr.SI_TRIAL]) and tr._drifts(q, 0)
+        parts.append(lm_cache_trial_bound(torch, [qi], q,
+                                          (0,) if drift else ()))
+        tr.lm_trial_plain(q, cfg)
+        tr.lm_step_plain(q, cfg, 1)
+        torch.cuda.synchronize()
+        ok &= all(torch.equal(a, b) for a, b in (
+            (k.w, q.w), (k.hub, q.hub), (k.scratch, q.scratch),
+            (k.wmax, q.wmax), (k.si, q.si)))
+        for a, b in ((k.sys, q.sys), (k.trial, q.trial)):
+            g, ulp = sums_gap(torch, a, b)
+            ok &= g <= ulp
+        rel = float(((k.sf - q.sf).abs() / q.sf.abs().clamp(min=1.0)).max())
+        ok &= rel <= 1e-5
+        gap = max(gap, max_err(k.sf[:, :tr.SF_X], q.sf[:, :tr.SF_X]))
+        q.si.copy_(k.si)
+        q.sf.copy_(k.sf)
+        if int(k.si[0, tr.SI_PEND]):
+            recaps += 1
+            recapture(ki, k, False)
+            c, a = recapture(qi, q, True)
+            ok &= torch.equal(c, ki.cache) and torch.equal(a, ki.anchor)
+            qi.cache.copy_(c)
+            qi.anchor.copy_(a)
+            parts.append(capture_bound(
+                k.n[0], window_voxels(torch, a, item.tsdf.shape),
+                item.tsdf.element_size()))
+        for t, by in parts:
+            spent[by] += t
+        steps += 1
+    chain = {n: getattr(k, n).clone() for n in
+             ("si", "sf", "sys", "trial", "w", "hub", "scratch", "wmax")}
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        it = copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run, _ = tr.capture_table([it], cfg)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    whole_equal = all(torch.equal(getattr(run, n), v)
+                      for n, v in chain.items())
+    iters = int(run.si[0, tr.SI_IT])
+    reads_ok = run.reads <= 1 + int(run.si[0, tr.SI_RECAP])
+    alone_it = copy(qc, qa)
+    alone = tr.LMRun([alone_it], cfg, recaps=budget)
+    for _ in range(cfg.max_iter + budget + 1):
+        if not bool(alone.running(alone.si, cfg).any()):
+            break
+        plain_iteration(tr, alone, cfg)
+        if int(alone.si[0, tr.SI_PEND]):
+            c, a = recapture(alone_it, alone, True)
+            alone_it.cache.copy_(c)
+            alone_it.anchor.copy_(a)
+    torch.cuda.synchronize()
+    whole_gap = (max_err(run.sf[:, :tr.SF_X], alone.sf[:, :tr.SF_X])
+                 if torch.equal(run.si, alone.si) else float("inf"))
+    ok &= whole_equal and reads_ok and whole_gap <= 1e-5
+    if recaps == 0:
+        raise RuntimeError(f"hold_lm_capture: the LM took no re-capture "
+                           f"from its start ({iters} iterations)")
+    fresh = tr.LMRun([copy(qc, qa)], cfg, recaps=budget)
+    si0, sf0 = fresh.si.clone(), fresh.sf.clone()
+
+    def plain_first():
+        fresh.si.copy_(si0)
+        fresh.sf.copy_(sf0)
+        plain_iteration(tr, fresh, cfg)
+
+    by = max(spent, key=spent.get)
+    n = max(iters, 1)
+    call = float(np.median(times))
+    row = dict(
+        items=1, points=k.n[0], shapes=[list(item.tsdf.shape)],
+        max_abs_err=max(gap, whole_gap) if ok else float("inf"), tol=1e-5,
+        whole_equal=whole_equal, whole_gap=whole_gap, reads=run.reads,
+        recaptures=int(run.si[0, tr.SI_RECAP]), run_iterations=iters,
+        cache_dtype=str(start.cache.dtype),
+        bound=(sum(spent.values()) / n, by), bound_run=sum(spent.values()),
+        ms=call / n, call_ms=call,
+        plain_ms=time_ms(torch, plain_first, 2, warmup=1), library_ms=None)
+    del k, q, run, alone, fresh
+    torch.cuda.empty_cache()
+    return row
+
+
 def hold_lm(torch, items, cfg):
     """The device-resident LM's kernels over the table ``items`` (one LM
     an item, as the pipeline builds them) against their plain versions:
@@ -1335,6 +1561,13 @@ def print_row(name, r):
                  f"{r['shares']['changed']:.3f}")
     if "stopped_ms" in r:
         extra = f", once every LM has stopped {r['stopped_ms']:.4f} ms"
+    if "call_ms" in r:
+        extra += (f"; a whole call {r['call_ms']:.4f} ms (its launches, K3 "
+                  f"and reads) over {r['run_iterations']} iterations with "
+                  f"{r['recaptures']} re-captures and {r['reads']} reads, "
+                  f"the run's bound {r['bound_run']:.5f} ms, the call equal "
+                  f"to the chain: {r['whole_equal']}, plain run alone "
+                  f"{r['whole_gap']:.3e} away; {r['cache_dtype']} cache")
     if "run_ms" in r:
         split = ("cache items: no split kernels" if r["split_ms"] is None
                  else f"the split kernels {r['split_ms']:.4f} ms an "
@@ -1652,33 +1885,37 @@ def run_frames(torch, pipe, frames):
 
 
 def lm_reads(pipe):
-    """The last frame's LMs' reads of the device and iterations: the
-    camera LM's, and the serial object LMs' (one table: its reads, its
-    longest LM's iterations), where they count them."""
+    """The last frame's LMs' reads of the device, iterations and
+    re-captures: the camera LM's, and the serial object LMs' (one table:
+    its reads, its longest LM's iterations, its re-captures), where they
+    count them."""
     cam = pipe.last_track_stats or {}
     obj = list(pipe.last_obj_track_stats.values())
-    return dict(camera=(cam.get("host_reads"), cam.get("iterations")),
+    return dict(camera=(cam.get("host_reads"), cam.get("iterations"),
+                        cam.get("recaptures") or 0),
                 objects=(max((st.get("host_reads") or 0 for st in obj),
                              default=None),
                          max((st["iterations"] for st in obj),
-                             default=None)))
+                             default=None),
+                         sum(int(st.get("recaptures") or 0) for st in obj)))
 
 
 def check_reads(name, per_frame, most):
     """The camera's and the object tables' mean reads of the device a
-    call (where the LMs count them); with ``most`` (the LMs are the
-    gather sampler's on the device: the reads a call may take, given its
-    iterations) fails if a call read the device more often."""
+    call (where the LMs count them); with ``most`` (the LMs run on the
+    device: the reads a call may take, given its iterations and
+    re-captures) fails if a call read the device more often."""
     means = {}
     for who in ("camera", "objects"):
         calls = [f["reads"][who] for f in per_frame
                  if f["reads"] and f["reads"][who][0]]
-        bad = [(r, it) for r, it in calls if most and r > most(it)]
+        bad = [c for c in calls if most and c[0] > most(c[1], c[2])]
         if bad:
             raise RuntimeError(f"{name}: the {who} LM read the device "
                                f"more often than it may (reads, "
-                               f"iterations): {bad[:5]}")
-        means[who] = float(np.mean([r for r, _ in calls])) if calls else None
+                               f"iterations, re-captures): {bad[:5]}")
+        means[who] = (float(np.mean([c[0] for c in calls])) if calls
+                      else None)
     return means
 
 
@@ -1715,13 +1952,21 @@ def check_launches(name, launches, kernels_of_path, timer=None,
 
 def lm_summary(per_frame):
     """The LMs' re-captures and dropped points over a run's frames (per
-    LM call): the camera's and, pooled, the objects'."""
+    LM call): the camera's and, pooled, the objects'; and the calls that
+    spent the whole re-capture budget (``TrackConfig.max_recaptures``:
+    past it the capture LM's windows stay fixed) with their dropped
+    points."""
+    from emfusion_tpu_torch.tracking import TrackConfig
+    budget = TrackConfig().max_recaptures
     cam = [f["lm"]["camera"] for f in per_frame if f["lm"]]
     obj = [st for f in per_frame if f["lm"]
            for st in f["lm"]["objects"].values()]
 
     def agg(calls):
-        return dict(calls=len(calls),
+        spent = [c["dropped_points"] or 0 for c in calls
+                 if (c["recaptures"] or 0) >= budget]
+        return dict(calls=len(calls), budget_spent_calls=len(spent),
+                    budget_spent_dropped=spent,
                     recaptures_total=int(sum(c["recaptures"] or 0
                                              for c in calls)),
                     recaptures_max=int(max((c["recaptures"] or 0
@@ -1739,7 +1984,9 @@ def print_lm_summary(name, summ):
         f"{who} ({s['calls']} calls): re-captures total "
         f"{s['recaptures_total']}, max {s['recaptures_max']}; dropped "
         f"points total {s['dropped_points_total']}, max "
-        f"{s['dropped_points_max']}"
+        f"{s['dropped_points_max']}; the whole budget spent in "
+        f"{s['budget_spent_calls']} calls, their dropped points "
+        f"{s['budget_spent_dropped']}"
         for who, s in summ.items() if s["calls"]), flush=True)
 
 
@@ -1781,8 +2028,9 @@ def main_path(torch, params, frames, report, sampler=None,
     (``lm_run``, the default), ``split`` (:func:`split_lm_loop`) or
     ``host`` (:func:`host_lm_loop`), the last two comparisons. Reports
     its LM's iterations a call, ms an iteration (``track_camera`` ms over
-    iterations) and reads of the device a call, and keeps the camera
-    poses."""
+    iterations) and reads of the device a call (on the device at most one
+    a call, and one more a re-capture with the capture sampler), and
+    keeps the camera poses."""
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
     n_frames = len(frames)
@@ -1795,11 +2043,12 @@ def main_path(torch, params, frames, report, sampler=None,
     phases = pipe.timer.ms_per_call()
     it = float(np.mean([i[0] for i in lm_iters]))
     lm = lm_summary(per_frame)
-    loop_kind = loop if pipe.sampler == "gather" else "host"
+    capture = pipe.sampler == "capture"
     reads = check_reads(key, per_frame, {
-        "device": one_read, "split": split_reads}.get(loop_kind))
+        "device": capture_reads if capture else one_read,
+        "split": split_reads}.get(loop))
     report[key] = dict(
-        frames=n_frames, sampler=pipe.sampler, loop=loop_kind,
+        frames=n_frames, sampler=pipe.sampler, loop=loop,
         camera_lm_host_reads_mean=reads["camera"],
         poses={f: q.tolist() for f, q in pipe.poses.items()},
         e2e_ms_per_frame=float(np.mean(e2e[1:])),
@@ -1819,17 +2068,18 @@ def main_path(torch, params, frames, report, sampler=None,
     print(f"{key} camera LM: {it:.2f} iterations a call, "
           f"{phases['track_camera']:.3f} ms a call, "
           f"{phases['track_camera'] / it:.4f} ms an iteration, "
-          f"{reads['camera']:.2f} device reads a call ({loop_kind} loop)",
-          flush=True)
+          f"{reads['camera']:.2f} device reads a call ({loop} loop)"
+          + (f"; as the host loop (PERF.md, section 5): "
+             f"{HOST_LOOP_TRACK_CAMERA_MS['background']:.3f} ms a call"
+             if capture else ""), flush=True)
     print_lm_summary(key, lm)
     print(f"peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
           f"ATE rmse {ate['rmse'] * 1e3:.3f} mm", flush=True)
     check_launches(key, launches, {
-        "device": PATH_KERNELS, "split": SPLIT_PATH_KERNELS,
-        "host": CAPTURE_PATH_KERNELS if pipe.sampler == "capture"
-        else HOST_LOOP_KERNELS}[loop_kind], pipe.timer,
-        forbidden={"device": LM_SPLIT_KERNELS, "split": [LM_RUN]}.get(
-            loop_kind, LM_KERNELS))
+        "device": CAPTURE_PATH_KERNELS if capture else PATH_KERNELS,
+        "split": SPLIT_PATH_KERNELS, "host": HOST_LOOP_KERNELS}[loop],
+        pipe.timer, forbidden={"device": LM_SPLIT_KERNELS,
+                               "split": [LM_RUN]}.get(loop, LM_KERNELS))
     if not ate["rmse"] < VOXEL_CUT:
         raise RuntimeError(f"{key}: ATE {ate['rmse']} m >= {VOXEL_CUT} m")
     return launches, pipe
@@ -1998,22 +2248,18 @@ def object_path(torch, params, scene, n_frames, rng, report):
 
 def check_objects(name, pipe, launches, obj_launches, rec, ate):
     """Fails if a kernel of the path never ran (or K1 and K2 not once per
-    fusion and per E-step), if K1, K2 and K4 (and K3 where the LMs
-    capture, ``lm_run`` where they run on the device: the gather
-    sampler's, and the batched object LM's stages) never ran at the
-    object shape, if a split LM kernel ran, if an object is lost, if an
+    fusion and per E-step), if K1, K2, K4 and ``lm_run`` (and K3 where
+    the LMs capture) never ran at the object shape, if a split LM kernel
+    ran, if an object is lost, if an
     object's x-motion recovers less than 0.35 or more than 2.0 of the
     truth (the JAX gate's band), or if the camera ATE reaches a voxel."""
     capture = pipe.sampler == "capture" or pipe.object_lm == "batched"
-    on_card = pipe.sampler == "gather" or pipe.object_lm == "batched"
-    check_launches(name, launches, (
-        CAPTURE_PATH_KERNELS if capture else HOST_LOOP_KERNELS)
-        + ([LM_RUN] if on_card else []), pipe.timer,
-        forbidden=LM_SPLIT_KERNELS)
+    check_launches(name, launches,
+                   CAPTURE_PATH_KERNELS if capture else PATH_KERNELS,
+                   pipe.timer, forbidden=LM_SPLIT_KERNELS)
     check_launches(f"{name} at the object shape", obj_launches,
                    [row[3] for row in OBJECT_ROWS
-                    if capture or row[3] != "capture"]
-                   + ([LM_RUN] if on_card else []))
+                    if capture or row[3] != "capture"] + [LM_RUN])
     if len(rec) != len(MOVERS) or \
             sorted(r["mover"] for r in rec.values()) != list(
                 range(len(MOVERS))):
@@ -2032,11 +2278,14 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     (``ACCEL``), its volumes stored in ``volume_dtype``. Fails as the
     object path does (:func:`check_objects`), and also if a frame
     launched K3 or ``lm_run`` at the object shape more than twice (once
-    per batched LM stage) or a call of the batched LM read the device
-    more than twice (once a stage). Prints ``track_objects`` beside the
-    host loop's time (``HOST_LOOP_TRACK_OBJECTS_MS``). Returns the path's
-    launches (all of them, K3's at the camera's and at the objects'
-    shape, ``lm_run``'s at the objects'), and the pipeline."""
+    per batched LM stage), a call of the batched LM read the device
+    more than twice (once a stage) or a camera LM call (the capture
+    sampler's, on the device) more than 1 + its re-captures times.
+    Prints ``track_objects`` and ``track_camera`` beside the host loops'
+    times (``HOST_LOOP_TRACK_OBJECTS_MS``, ``HOST_LOOP_TRACK_CAMERA_MS``).
+    Returns the path's launches (all of them, K3's at the camera's and at
+    the objects' shape, ``lm_run``'s at the objects' and at the
+    camera's), and the pipeline."""
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
     n_frames = len(frames)
@@ -2061,6 +2310,7 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
         raise RuntimeError(f"{name}: the batched object LM ran in "
                            f"{len(lms)} of {n_frames - 1} frames")
     reads = [lm["host_reads"] for lm in lms]
+    cam_reads = check_reads(name, per_frame, capture_reads)["camera"]
     cam_it = float(np.mean([it[0] for it in lm_iters]))
     obj_it = [n for it in lm_iters for n in it[1:]]
     loop_it = [lm["loop_iterations"] for lm in lms]
@@ -2081,7 +2331,10 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
         batched_lm_points=[lm["points"] for lm in lms],
         host_reads_per_batched_call_mean=float(np.mean(reads)),
         host_reads_per_batched_call_max=int(max(reads)),
+        camera_lm_host_reads_mean=cam_reads,
         track_objects_host_loop_ms=HOST_LOOP_TRACK_OBJECTS_MS[
+            "bf16" if volume_dtype == "bfloat16" else "float32"],
+        track_camera_host_loop_ms=HOST_LOOP_TRACK_CAMERA_MS[
             "bf16" if volume_dtype == "bfloat16" else "float32"],
         lm_iterations=lm_iters, lm=lm_counts,
         live_objects=pipe.active_object_ids, recovery=rec)
@@ -2101,12 +2354,15 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
           f"batched stages {np.mean(loop_it):.1f} (per object "
           f"{np.mean(obj_it):.1f}, {lms[-1]['points']} points a slot); "
           f"device reads per batched call mean {np.mean(reads):.3f}, "
-          f"max {max(reads)}", flush=True)
+          f"max {max(reads)}; camera device reads a call {cam_reads:.3f}",
+          flush=True)
     print(f"{name}: track_objects {phases['track_objects']:.3f} ms a call "
           f"(the batched LM as a host loop: "
           f"{report[key]['track_objects_host_loop_ms']:.3f} ms on an H100 "
           f"80GB HBM3 at 700 W), track_camera "
-          f"{phases['track_camera']:.3f} ms", flush=True)
+          f"{phases['track_camera']:.3f} ms (the capture LM as a host "
+          f"loop: {report[key]['track_camera_host_loop_ms']:.3f} ms, "
+          f"on an H100 80GB HBM3 at 700 W)", flush=True)
     print_lm_summary(name, lm_counts)
     print(f"{name}: peak memory {peak / 2**30:.3f} GiB; live objects "
           f"{pipe.active_object_ids}; camera ATE rmse "
@@ -2124,8 +2380,62 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     bg_launches = {k: by_shape.get((k, bg_shape), 0) for k in launches}
     return dict(camera=report[key]["k3_camera_shape_launches"],
                 objects=obj_launches["capture"],
-                lm_objects=obj_launches[LM_RUN], all=launches,
+                lm_objects=obj_launches[LM_RUN],
+                lm_camera=bg_launches[LM_RUN], all=launches,
                 background=bg_launches), pipe
+
+
+def capture_vs_host_loop(torch, params, frames, masks, report, key,
+                         volume_dtype="auto"):
+    """The accelerator path's first ``HOST_LOOP_CALLS`` camera LM calls
+    (frames 1.. of ``frames`` and ``masks``, the pipeline as
+    :func:`accel_path` builds it, so the same inputs as that path's
+    first calls): each call runs the device capture LM (whose result the
+    pipeline keeps) and the host loop it replaced
+    (``tracking._track_volume_host``) on the same inputs. Reports per
+    call both forms' re-captures, iterations, reads and dropped points
+    and their pose gap, the calls where the counts agree and the largest
+    gap."""
+    from emfusion_tpu_torch import pipeline as pl
+    from emfusion_tpu_torch import tracking as tr
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    params = dataclasses.replace(params, volume_dtype=volume_dtype, **ACCEL)
+    pipe = EMFusionPipeline(params, mask_provider(masks))
+    calls = []
+
+    def both(*args):
+        pose, st = tr.track_volume(*args)
+        hpose, hst = tr._track_volume_host(*args)
+        calls.append({k: (int(st[k]), int(hst[k])) for k in (
+            "recaptures", "iterations", "host_reads", "dropped_points")})
+        calls[-1]["pose_gap"] = float((pose - hpose).abs().max())
+        return pose, st
+
+    pl.track_volume = both
+    try:
+        for i, depth in enumerate(frames[:HOST_LOOP_CALLS + 1]):
+            pipe.process_frame(None, depth, timestamp=float(i))
+    finally:
+        pl.track_volume = tr.track_volume
+    out = dict(calls=calls, same_recaptures=sum(
+        c["recaptures"][0] == c["recaptures"][1] for c in calls),
+        same_iterations=sum(c["iterations"][0] == c["iterations"][1]
+                            for c in calls),
+        max_pose_gap=max(c["pose_gap"] for c in calls))
+    report[key] = out
+    print(f"{key.replace('_', ' ')}: {len(calls)} camera calls, device LM "
+          f"/ host loop on the same inputs: re-captures equal in "
+          f"{out['same_recaptures']}, iterations equal in "
+          f"{out['same_iterations']}, largest pose gap "
+          f"{out['max_pose_gap']:.3e}; per call (re-captures, iterations, "
+          f"reads, dropped points, gap): " + "; ".join(
+              f"{c['recaptures']} {c['iterations']} {c['host_reads']} "
+              f"{c['dropped_points']} {c['pose_gap']:.1e}" for c in calls),
+          flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return out
 
 
 def stage_table(torch, pipe, points, slots, dtype=None):
@@ -2154,7 +2464,9 @@ def accel_kernel_phases(torch, pipe, depth_raw):
     (:meth:`EMFusionPipeline.batched_lm_inputs`); ``lm_run`` over that
     stage's cache items (:func:`hold_lm_run`), from float32 volumes
     (``lm_run_cache``) and from the slots' volumes cast to bf16
-    (``lm_run_cache_bf16``, a bf16 cache). Returns the rows."""
+    (``lm_run_cache_bf16``, a bf16 cache), and over the camera LM as the
+    capture sampler runs it (``lm_run_capture``,
+    :func:`hold_camera_capture`). Returns the rows."""
     from emfusion_tpu_torch.geometry.se3 import pose_inverse, reorthonormalize
 
     s = pipe.state
@@ -2176,7 +2488,20 @@ def accel_kernel_phases(torch, pipe, depth_raw):
                         ("lm_run_cache_bf16", torch.bfloat16)):
         rows[name] = hold_lm_run(torch, *stage_table(torch, pipe, points,
                                                      live, dtype))
+    rows["lm_run_capture"] = hold_camera_capture(torch, pipe, points)
     return rows
+
+
+def hold_camera_capture(torch, pipe, points):
+    """:func:`hold_lm_capture` over the camera LM of ``pipe`` (its
+    stride-3 points and the background's volumes, a cache of their type)
+    from ``CAPTURE_HOLD_OFFSET`` voxels along x off its constant-velocity
+    start, so that it re-captures."""
+    it = pipe.camera_lm_item(points)
+    start = torch.as_tensor(it.rel_pose, dtype=torch.float32).clone()
+    start[0, 3] += CAPTURE_HOLD_OFFSET * pipe.voxel
+    return hold_lm_capture(torch, dataclasses.replace(it, rel_pose=start),
+                           pipe.track_cfg)
 
 
 def bf16_kernel_phases(torch, pipe, depth_raw):
@@ -2185,7 +2510,9 @@ def bf16_kernel_phases(torch, pipe, depth_raw):
     bf16 background and every visible float32 slot, one launch), K2 over
     the E-step's table (the bf16 background and every live slot), K3 over
     the camera's stride-3 points at the constant-velocity start (a bf16
-    cache) and K4 on the bf16 background at the camera. Returns the
+    cache), K4 on the bf16 background at the camera, and ``lm_run`` over
+    the camera's capture LM on the bf16 background (a bf16 cache,
+    ``lm_run_capture_bf16``, :func:`hold_camera_capture`). Returns the
     rows."""
     from emfusion_tpu_torch.geometry.se3 import pose_inverse, reorthonormalize
 
@@ -2210,7 +2537,8 @@ def bf16_kernel_phases(torch, pipe, depth_raw):
         "raycast_bf16": hold_raycast(
             torch, s.bg_tsdf, s.bg_weights, cam[:3, :3], cam[:3, 3],
             pipe.intr, pipe.voxel, pipe.trunc, pipe.H, pipe.W,
-            p.raycast_max_steps)}
+            p.raycast_max_steps),
+        "lm_run_capture_bf16": hold_camera_capture(torch, pipe, points)}
 
 
 def compare_accel(report):
@@ -4256,6 +4584,8 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
         print_row(name, r)
     rows.update(acc_rows)
     hold_lm_escape(torch, report)
+    capture_vs_host_loop(torch, params, acc_frames, acc_masks, report,
+                         "accel_path_vs_host_loop")
     lap("accel_path")
 
     # step 8b: the same frames and masks with bf16 background volumes
@@ -4269,6 +4599,9 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     for name, r in bf_rows.items():
         print_row(name, r)
     rows.update(bf_rows)
+    capture_vs_host_loop(torch, params, acc_frames, acc_masks, report,
+                         "accel_path_bf16_vs_host_loop",
+                         volume_dtype="bfloat16")
     lap("accel_path_bf16")
 
     config = os.path.join(HERE, "configs", "default.cfg")
@@ -4310,6 +4643,8 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
                         lm_run_cache_pool=acc_launches["lm_objects"],
                         # no path's objects keep bf16 volumes
                         lm_run_cache_bf16=0,
+                        lm_run_capture=acc_launches["lm_camera"],
+                        lm_run_capture_bf16=bf_launches["lm_camera"],
                         fusion_bf16=bf_launches["all"]["fusion"],
                         sample_bf16=bf_launches["all"]["sample"],
                         capture_camera_bf16=bf_launches["camera"],
@@ -4323,7 +4658,7 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
              for name, src, replaces, kernel in (
                  KERNEL_ROWS + OBJECT_ROWS + POOL_ROWS + ACCEL_ROWS
                  + BF16_ROWS + VIEW_ROWS + SLAB_ROWS + LM_ROWS
-                 + LM_CACHE_ROWS)]
+                 + LM_CACHE_ROWS + LM_CAPTURE_ROWS)]
     return finish(torch, report, rows, table, card, t0)
 
 

@@ -126,6 +126,30 @@
 // whose count is 0 as it rejects rho <= 0 (tracking.lm_step_plain does
 // the same). Gather items neither write nor read the count.
 //
+// Re-capturing cache items (the capture sampler's LM, tracking.
+// track_volumes_capture; the JAX package's capture while_loop with its
+// maybe_recapture lax.cond at the trial pose, emfusion_tpu/tracking.py:
+// 224-240, 277-282): a table's re-capture budget is EmfLmCfg.recaps (0
+// for the batched LM's fixed-cache stages, whose code path is then the one
+// above, bit for bit). While a cache item has re-captures left (SI_RECAP <
+// recaps), phase (d) also counts, over all its points, those relevant at
+// the trial pose (in front of the camera, within a voxel of the volume)
+// and those of them outside their windows (geometry/capture.drift_counts;
+// partial columns 0 and 1, dead once propose has summed the system),
+// summed by the same tree into SI_NREL and SI_NBAD. If more than
+// EMF_DRIFT_TOL of the relevant points left (drift_within), decide does
+// not decide: it flags the item (SI_PEND), counts the re-capture
+// (SI_RECAP), leaves SI_IT and the trial as they are, and clears SI_EVAL.
+// The launch ends after the iteration in which an item was flagged (the
+// test is uniform across the grid, after (e)'s barrier); the host reads
+// the records, captures the flagged items' windows at their trial poses
+// with K3 (into the items' own caches) and launches again. There a
+// flagged item skips (a)-(c) (no gradient to evaluate; propose leaves it
+// alone), and (d) and (e) take its trial on the new windows, with no
+// second drift test: the JAX order, which keeps the new windows even when
+// the step is then rejected. A call reads the device at most 1 +
+// re-captures times.
+//
 // A cache item reads per point its anchor
 // (12 bytes) and at most 27 tsdf taps and 8 weight taps of its cache for
 // the system and 8 tsdf taps for the trial; neighbouring points share a
@@ -150,12 +174,23 @@ namespace cg = cooperative_groups;
 #define EMF_LM_P_TRIAL 28
 #define EMF_LM_P_MAX 29
 #define EMF_LM_P_INWIN 30
+// (d) of a cache item that tests its drift: its relevant points and those
+// outside their windows at the trial pose, in columns that hold the
+// system's sums only until (c) has summed them
+#define EMF_LM_P_NBAD 0
+#define EMF_LM_P_NREL 1
+#define EMF_DRIFT_TOL 0.01f   // geometry/capture.DRIFT_TOL
 #define EMF_LM_ROWS_AHEAD 8   // partials a lane loads at once (emf_lm_rows)
 
-// The state record of an item, mirrored by tracking.LM_SI / LM_SF.
-// SI_NIN: a cache item's last trial's weighted points with a valid psi.
+// The state record of an item, mirrored by tracking.SI_* / SF_*. Cache
+// items: SI_NIN, the last trial's weighted points with a valid psi;
+// SI_PEND, a trial that waits for a re-capture at its trial pose;
+// SI_RECAP, the re-captures taken; SI_NBAD and SI_NREL, the last drift
+// test's points outside their windows and relevant points. SI_N keeps a
+// record 16-byte aligned (emf_lm_head).
 enum { SI_IT = 0, SI_CONV = 1, SI_EVAL = 2, SI_FIRST = 3, SI_TRIAL = 4,
-       SI_RAN = 5, SI_NIN = 6, SI_N = 8 };
+       SI_RAN = 5, SI_NIN = 6, SI_PEND = 7, SI_RECAP = 8, SI_NBAD = 9,
+       SI_NREL = 10, SI_N = 12 };
 enum { SF_R = 0, SF_T = 9, SF_RN = 12, SF_TN = 21, SF_X = 24, SF_MU = 30,
        SF_NU = 31, SF_MU0 = 32, SF_ERR = 33, SF_ERRN = 34, SF_A = 35,
        SF_B = 71, SF_N = 80 };
@@ -196,6 +231,7 @@ struct EmfLmBufs {
 struct EmfLmCfg {
   float tau, eps1, eps2, nu_init, huber, max_w;
   int max_iter;
+  int recaps;   // cache items: the table's re-capture budget
 };
 
 struct EmfLmTable {
@@ -648,6 +684,27 @@ __device__ __forceinline__ float emf_lm_psi_cache(const EmfLmItem& it,
                   fz, fy, fx, tx, ty, tz);
 }
 
+// geometry/capture.drift_counts for point i of a cache item at the pose
+// P: adds 1 to nrel if the point is relevant (in front of the camera and
+// within a voxel of the volume) and, if so, 1 to nbad if it lies outside
+// its window (a local coordinate outside [0, WIN - 2]).
+__device__ __forceinline__ void emf_lm_drift(const EmfLmItem& it,
+                                             const EmfPose& P, float px,
+                                             float py, float pz, int i,
+                                             int& nrel, int& nbad) {
+  float wx, wy, wz;
+  emf_apply(P, px, py, pz, wx, wy, wz);
+  const float vx = wx / it.vs + 0.5f * (float)(it.X - 1);
+  const float vy = wy / it.vs + 0.5f * (float)(it.Y - 1);
+  const float vz = wz / it.vs + 0.5f * (float)(it.Z - 1);
+  if (!(pz > 0.0f && vx >= -1.0f && vy >= -1.0f && vz >= -1.0f &&
+        vx < (float)it.X && vy < (float)it.Y && vz < (float)it.Z))
+    return;
+  ++nrel;
+  float lx, ly, lz;
+  if (!emf_local(it, i, vx, vy, vz, lx, ly, lz)) ++nbad;
+}
+
 // ---------------------------------------------------------------------
 // A span's work in each phase, for the block that holds span s (the
 // item's span bl). Every thread of the block calls these; each ends with
@@ -786,10 +843,13 @@ __device__ void emf_lm_terms_span(const EmfLmItem& it, const EmfPose& P,
 // points' weights, then the coordinates of those weighted, then samples
 // them; a point of weight 0 adds nothing (its term is exactly 0, psi is
 // finite). CACHE: the items are cache items (emf_lm_psi_cache), and the
-// span also counts its points with w > 0 and a valid psi (EMF_LM_P_INWIN).
+// span also counts its points with w > 0 and a valid psi (EMF_LM_P_INWIN);
+// with `drift`, also its relevant points and those outside their windows
+// (emf_lm_drift, over every point: EMF_LM_P_NREL, EMF_LM_P_NBAD).
 template <bool CACHE>
 __device__ void emf_lm_trial_span(const EmfLmItem& it, const EmfPose& Pn,
-                                  const EmfLmBufs& B, int s, int bl) {
+                                  const EmfLmBufs& B, int s, int bl,
+                                  [[maybe_unused]] bool drift) {
   const size_t st = (size_t)it.stride;
   const int i0 = bl * EMF_LM_SPAN + threadIdx.x;
   float w[EMF_LM_PPT], px[EMF_LM_PPT], py[EMF_LM_PPT], pz[EMF_LM_PPT];
@@ -801,15 +861,20 @@ __device__ void emf_lm_trial_span(const EmfLmItem& it, const EmfPose& Pn,
 #pragma unroll
   for (int j = 0; j < EMF_LM_PPT; ++j) {
     const int i = i0 + j * EMF_LM_BLOCK;
-    const bool use = w[j] != 0.0f;
+    bool use = w[j] != 0.0f;
+    if constexpr (CACHE) use = use || (drift && i < it.n);
     px[j] = use ? it.pts[i] : 0.0f;
     py[j] = use ? it.pts[st + i] : 0.0f;
     pz[j] = use ? it.pts[2 * st + i] : 0.0f;
   }
   double acc = 0.0;
-  [[maybe_unused]] int nin = 0;
+  [[maybe_unused]] int nin = 0, nrel = 0, nbad = 0;
 #pragma unroll
   for (int j = 0; j < EMF_LM_PPT; ++j) {
+    if constexpr (CACHE)
+      if (drift && i0 + j * EMF_LM_BLOCK < it.n)
+        emf_lm_drift(it, Pn, px[j], py[j], pz[j], i0 + j * EMF_LM_BLOCK,
+                     nrel, nbad);
     if (w[j] == 0.0f) continue;
     float psi;
     if constexpr (CACHE) {
@@ -829,14 +894,30 @@ __device__ void emf_lm_trial_span(const EmfLmItem& it, const EmfPose& Pn,
   acc = emf_warp_sum(acc);
   if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = acc;
   if constexpr (CACHE) {
-    __shared__ double shn[EMF_LM_WARPS];
+    // the counts: integers, exact in float64 in any order
+    __shared__ double shn[3][EMF_LM_WARPS];
     const double c = emf_warp_sum((double)nin);
-    if ((threadIdx.x & 31) == 0) shn[threadIdx.x >> 5] = c;
+    double r = 0.0, b = 0.0;
+    if (drift) {  // the item's flag: uniform across the block
+      r = emf_warp_sum((double)nrel);
+      b = emf_warp_sum((double)nbad);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      shn[0][threadIdx.x >> 5] = c;
+      shn[1][threadIdx.x >> 5] = r;
+      shn[2][threadIdx.x >> 5] = b;
+    }
     __syncthreads();
     if (threadIdx.x == 0) {
-      double v = 0.0;
-      for (int q = 0; q < EMF_LM_WARPS; ++q) v += shn[q];
-      B.part[(size_t)s * EMF_LM_PART + EMF_LM_P_INWIN] = v;
+      double v[3] = {0.0, 0.0, 0.0};
+      for (int q = 0; q < EMF_LM_WARPS; ++q)
+        for (int m = 0; m < 3; ++m) v[m] += shn[m][q];
+      double* row = B.part + (size_t)s * EMF_LM_PART;
+      row[EMF_LM_P_INWIN] = v[0];
+      if (drift) {
+        row[EMF_LM_P_NREL] = v[1];
+        row[EMF_LM_P_NBAD] = v[2];
+      }
     }
   } else {
     __syncthreads();
@@ -896,7 +977,7 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK)
   if (!emf_lm_si(B, k, SI_TRIAL)) return;
   const int nb = T.span_end[k] - s0;
   emf_lm_trial_span<false>(T.items[k], emf_lm_pose(B, k, SF_RN), B,
-                           blockIdx.x, blockIdx.x - s0);
+                           blockIdx.x, blockIdx.x - s0, false);
   if (emf_lm_last(B.count + k, nb) && threadIdx.x < 32) {
     const double v = emf_lm_rows<false>(B.part, s0, nb, EMF_LM_P_TRIAL);
     if (threadIdx.x == 0) {
@@ -1066,11 +1147,15 @@ __device__ __forceinline__ void emf_solve6(const float* A, float mu0,
 // The step of item k, run by one thread. Propose: after an evaluation
 // (A, b, err) rounded from the sums and the gradient test; then mu0, the
 // solve, the step test and the trial pose. The record's words are read
-// into registers first and the results written at the end.
+// into registers first and the results written at the end. CACHE: a trial
+// that waited for a re-capture (SI_PEND) is left as it is, for (d).
+template <bool CACHE>
 __device__ void emf_lm_propose(const EmfLmBufs& B, const EmfLmCfg& C,
                                int k) {
   int* s = B.si + k * SI_N;
   float* f = B.sf + k * SF_N;
+  if constexpr (CACHE)
+    if (s[SI_PEND]) return;
   const int it = s[SI_IT], conv = s[SI_CONV], eval = s[SI_EVAL],
             first = s[SI_FIRST];
   s[SI_TRIAL] = 0;
@@ -1149,13 +1234,27 @@ __device__ void emf_lm_propose(const EmfLmBufs& B, const EmfLmCfg& C,
 
 // Decide: it += 1 where the LM ran; for a trial, rho, accept or reject,
 // the damping and eval_grad. CACHE: a cache item's trial whose count of
-// weighted points with a valid psi (SI_NIN) is 0 is rejected.
+// weighted points with a valid psi (SI_NIN) is 0 is rejected; a trial that
+// tested its drift (re-captures left, not itself a re-captured trial) and
+// failed it (drift_within) is not decided but flagged for a re-capture at
+// its trial pose (SI_PEND, SI_RECAP; no gradient to evaluate on resuming).
 template <bool CACHE>
 __device__ void emf_lm_decide(const EmfLmBufs& B, const EmfLmCfg& C,
                               int k) {
   int* s = B.si + k * SI_N;
   float* f = B.sf + k * SF_N;
   if (!s[SI_RAN]) return;
+  if constexpr (CACHE) {
+    if (s[SI_TRIAL] && !s[SI_PEND] && s[SI_RECAP] < C.recaps &&
+        !((float)s[SI_NBAD] <=
+          EMF_DRIFT_TOL * fmaxf((float)s[SI_NREL], 1.0f))) {
+      s[SI_PEND] = 1;
+      s[SI_RECAP] += 1;
+      s[SI_EVAL] = 0;
+      return;
+    }
+    s[SI_PEND] = 0;
+  }
   s[SI_IT] += 1;
   if (!s[SI_TRIAL]) return;
   s[SI_TRIAL] = 0;
@@ -1191,7 +1290,7 @@ __global__ void emf_lm_step_kernel(const EmfLmBufs B, const EmfLmCfg C,
                                    int phase) {
   if (threadIdx.x != 0) return;
   if (phase == 0)
-    emf_lm_propose(B, C, blockIdx.x);
+    emf_lm_propose<false>(B, C, blockIdx.x);
   else
     emf_lm_decide<false>(B, C, blockIdx.x);
 }
@@ -1204,8 +1303,16 @@ __device__ __forceinline__ bool emf_lm_lead(const EmfLmTable& T, int k) {
   return (k ? T.span_end[k - 1] : 0) % gridDim.x == blockIdx.x;
 }
 
+// A cache item tests its drift in (d) while it has re-captures left and
+// is not a re-captured trial (the condition decide reads again).
+__device__ __forceinline__ bool emf_lm_drifts(const EmfLmBufs& B,
+                                              const EmfLmCfg& C, int k) {
+  return !emf_lm_si(B, k, SI_PEND) && emf_lm_si(B, k, SI_RECAP) < C.recaps;
+}
+
 // CACHE: a table of cache items; the two instantiations differ in phases
-// (a) and (d) only.
+// (a) and (d), in the cache items' drift test and re-capture flag, and in
+// the loop's end on a flag.
 template <bool CACHE>
 __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
     emf_lm_run_kernel(const __grid_constant__ EmfLmTable T,
@@ -1215,9 +1322,17 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
   const int warp = threadIdx.x >> 5;
   __shared__ float wm[EMF_MAX_ITEMS];
   for (int iter = 0; iter < iters; ++iter) {
-    bool any = false;
-    for (int k = 0; k < S; ++k) any = any || emf_lm_running(B, C, k);
-    if (!any) break;  // every block read the same records: all leave
+    bool any = false, stop;
+    [[maybe_unused]] bool pend = false;
+    for (int k = 0; k < S; ++k) {
+      any = any || emf_lm_running(B, C, k);
+      if constexpr (CACHE) pend = pend || emf_lm_si(B, k, SI_PEND);
+    }
+    stop = !any;
+    // after the launch's first iteration, an item flagged for a
+    // re-capture ends the launch: the host captures its windows
+    if constexpr (CACHE) stop = stop || (iter > 0 && pend);
+    if (stop) break;  // every block read the same records: all leave
     // (a) gather (a span's pose is loaded beside its item's flags)
     for (int s = blockIdx.x; s < NS; s += G) {
       int s0;
@@ -1256,7 +1371,7 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
         const int s0 = k ? T.span_end[k - 1] : 0;
         emf_lm_sums(B, k, s0, T.span_end[k] - s0);
       }
-      if (threadIdx.x == 0) emf_lm_propose(B, C, k);
+      if (threadIdx.x == 0) emf_lm_propose<CACHE>(B, C, k);
       __syncthreads();
     }
     grid.sync();
@@ -1265,8 +1380,11 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
       int s0;
       const int k = emf_lm_item(T, s, s0);
       const EmfPose P = emf_lm_pose(B, k, SF_RN);
-      if (emf_lm_si(B, k, SI_TRIAL))
-        emf_lm_trial_span<CACHE>(T.items[k], P, B, s, s - s0);
+      if (emf_lm_si(B, k, SI_TRIAL)) {
+        bool drift = false;
+        if constexpr (CACHE) drift = emf_lm_drifts(B, C, k);
+        emf_lm_trial_span<CACHE>(T.items[k], P, B, s, s - s0, drift);
+      }
     }
     grid.sync();
     // (e) decide, in each item's lead block
@@ -1278,9 +1396,17 @@ __global__ void __launch_bounds__(EMF_LM_BLOCK, 2)
                                             EMF_LM_P_TRIAL);
         if (threadIdx.x == 0) B.trial[k] = v;
         if constexpr (CACHE) {
-          const double c = emf_lm_rows<false>(B.part, s0, T.span_end[k] - s0,
-                                              EMF_LM_P_INWIN);
+          const int nr = T.span_end[k] - s0;
+          const double c = emf_lm_rows<false>(B.part, s0, nr, EMF_LM_P_INWIN);
           if (threadIdx.x == 0) B.si[k * SI_N + SI_NIN] = (int)c;
+          if (emf_lm_drifts(B, C, k)) {
+            const double r = emf_lm_rows<false>(B.part, s0, nr, EMF_LM_P_NREL);
+            const double b = emf_lm_rows<false>(B.part, s0, nr, EMF_LM_P_NBAD);
+            if (threadIdx.x == 0) {
+              B.si[k * SI_N + SI_NREL] = (int)r;
+              B.si[k * SI_N + SI_NBAD] = (int)b;
+            }
+          }
         }
       }
       __syncthreads();

@@ -114,26 +114,46 @@ def _launch_capture(jobs) -> None:
     kernels.launch_table("capture", table, device=dev)
 
 
+def capture_buffers(vol: torch.Tensor, n: int, lead=(), device=None):
+    """Empty outputs of a capture of ``n`` points: a (``*lead``, 2, 6, 6,
+    6, n) cache in the :func:`cache_dtype` of ``vol`` and (``*lead``, 3,
+    n) int32 anchors, on ``device`` (else ``vol``'s)."""
+    dev = vol.device if device is None else device
+    return (torch.empty((*lead, 2, WIN, WIN, WIN, n), dtype=cache_dtype(vol),
+                        device=dev),
+            torch.empty((*lead, 3, n), dtype=torch.int32, device=dev))
+
+
+def capture_into(jobs) -> None:
+    """Kernel K3 wrapper writing into given tensors: per job (tsdf,
+    weights, points (3, N), rot, trans, voxel size, cache (2, 6, 6, 6, N),
+    anchor (3, N)), the windows and anchors of its points at its pose into
+    its cache and anchor. On a CUDA device one launch for every job
+    (:func:`_launch_capture`), else :func:`capture_neighborhoods_plain`
+    per job, copied in."""
+    jobs = list(jobs)
+    if jobs and jobs[0][0].is_cuda:
+        _launch_capture(jobs)
+        return
+    for tsdf, wts, pts, rot, trans, vs, cache, anchor in jobs:
+        c, a = capture_neighborhoods_plain((tsdf, wts), pts, rot, trans, vs)
+        cache.copy_(c)
+        anchor.copy_(a)
+
+
 def capture_neighborhoods(vols, points_cam: torch.Tensor, rel_rot,
                           rel_trans, voxel_size):
-    """Kernel K3 wrapper (see :func:`capture_neighborhoods_plain`): a
-    one-item launch. The kernel takes two float32 volumes, ``(tsdf,
+    """Kernel K3 wrapper (see :func:`capture_neighborhoods_plain`): one
+    job of :func:`capture_into`. The kernel takes two volumes, ``(tsdf,
     weights)``, which need not be stacked (a stack of two 512^3 volumes
     would copy 1 GB)."""
-    if not vols[0].is_cuda:
-        return capture_neighborhoods_plain(vols, points_cam, rel_rot,
-                                           rel_trans, voxel_size)
     if len(vols) != 2:
-        raise ValueError("capture_neighborhoods: the CUDA kernel takes two "
+        raise ValueError("capture_neighborhoods: the capture takes two "
                          "volumes (tsdf, weights)")
     pts = points_cam.contiguous()
-    N = pts.shape[1]
-    dev = vols[0].device
-    cache = torch.empty((2, WIN, WIN, WIN, N), dtype=cache_dtype(vols[0]),
-                        device=dev)
-    anchor = torch.empty((3, N), dtype=torch.int32, device=dev)
-    _launch_capture([(vols[0], vols[1], pts, rel_rot, rel_trans,
-                      voxel_size, cache, anchor)])
+    cache, anchor = capture_buffers(vols[0], pts.shape[1])
+    capture_into([(vols[0], vols[1], pts, rel_rot, rel_trans, voxel_size,
+                   cache, anchor)])
     return cache, anchor
 
 
@@ -147,18 +167,13 @@ def capture_neighborhoods_batched(tsdfs, weights, points_cam: torch.Tensor,
     6, M), anchor (S, 3, M) int32)``, each slot's the clipped voxel
     reads of :func:`capture_neighborhoods_plain`, the cache in the
     :func:`cache_dtype` of the first slot's volume (all slots share one
-    dtype). On the card, one K3 launch for every slot."""
-    if not points_cam.is_cuda:
-        return capture_neighborhoods_batched_plain(
-            tsdfs, weights, points_cam, rel_rot, rel_trans, voxel_sizes)
+    dtype): :func:`capture_into` with a job a slot (on the card one K3
+    launch for every slot)."""
     S, _, M = points_cam.shape
     pts = points_cam.contiguous()
-    cache = torch.empty((S, 2, WIN, WIN, WIN, M),
-                        dtype=cache_dtype(tsdfs[0]), device=pts.device)
-    anchor = torch.empty((S, 3, M), dtype=torch.int32, device=pts.device)
-    _launch_capture([(tsdfs[s], weights[s], pts[s], rel_rot[s],
-                      rel_trans[s], voxel_sizes[s], cache[s], anchor[s])
-                     for s in range(S)])
+    cache, anchor = capture_buffers(tsdfs[0], M, (S,), pts.device)
+    capture_into([(tsdfs[s], weights[s], pts[s], rel_rot[s], rel_trans[s],
+                   voxel_sizes[s], cache[s], anchor[s]) for s in range(S)])
     return cache, anchor
 
 

@@ -40,7 +40,9 @@ state and buffers of :class:`LmBufsArgs` and the constants of
 :class:`LmCfgArgs` (``tracking.LMRun`` builds them). ``lm_run`` is one
 cooperative launch (``cudaLaunchCooperativeKernel``) for up to
 ``max_iter`` LM iterations of the whole table (of gather items, or of
-cache items that read K3's windows: the batched object LM's stages),
+cache items that read K3's windows: the batched object LM's stages,
+and the capture sampler's LMs, whose launch ends when an item's windows
+must be captured again),
 its grid at most the blocks the card holds at once
 (:func:`lm_run_blocks`); the split kernels, which the pixel-sharded LM
 launches, count per phase: ``lm_system`` and ``lm_step`` two launches
@@ -143,9 +145,11 @@ class LmBufsArgs(ctypes.Structure):
 
 
 class LmCfgArgs(ctypes.Structure):
-    """The LM's constants (``EmfLmCfg``)."""
+    """The LM's constants (``EmfLmCfg``); ``recaps``: a table of cache
+    items' re-capture budget (0: the windows stay fixed)."""
     _fields_ = [("tau", _F), ("eps1", _F), ("eps2", _F), ("nu_init", _F),
-                ("huber", _F), ("max_w", _F), ("max_iter", _I)]
+                ("huber", _F), ("max_w", _F), ("max_iter", _I),
+                ("recaps", _I)]
 
 
 launches = {name: 0 for name in KERNELS}

@@ -33,12 +33,13 @@ The camera LM and the serial object LMs run the pipeline's ``sampler``
 (``EMF_TRACK_SAMPLER`` or the constructor's argument, as the JAX pipeline
 reads it; :func:`~emfusion_tpu_torch.config.resolve_params` resolves
 ``auto``): the exact gather sampler on every device, or ``capture``, the
-JAX package's accelerator sampler. The gather sampler's LMs run on the
-device (:func:`~emfusion_tpu_torch.tracking.run_lm_items`, the JAX
+JAX package's accelerator sampler. Both samplers' LMs run on the
+device (:func:`~emfusion_tpu_torch.tracking.run_lm_items` and
+:func:`~emfusion_tpu_torch.tracking.track_volumes_capture`, the JAX
 package's ``lax.while_loop``): the camera's as one LM, a frame's serial
-object LMs as one table of every slot, each read by the host once per
-few iterations to learn whether it has stopped. The JAX package's
-accelerator configuration is run by asking for its knobs:
+object LMs as one table of every slot, read by the host once a table
+(the capture sampler's once more for each round of re-captures). The
+JAX package's accelerator configuration is run by asking for its knobs:
 ``tracking_stride=3``, ``estep_scale=2`` (the association weights on the
 ``[::2, ::2]`` pixel grid, upsampled), ``motion_model="constvel"`` (the
 camera LM starts at a constant-velocity prediction from the last two
@@ -110,7 +111,7 @@ from emfusion_tpu_torch.ops.render import make_colormap, render_phong
 from emfusion_tpu_torch.profiling import PhaseTimer
 from emfusion_tpu_torch.tracking import (
     LMItem, TrackConfig, track_volume, track_volumes_batched,
-    track_volumes_gather,
+    track_volumes_capture, track_volumes_gather,
 )
 from emfusion_tpu_torch.viz import visualize_detections
 from emfusion_tpu_torch.volume import VOLUME_DTYPES, fg_probs, make_volume
@@ -845,13 +846,13 @@ class EMFusionPipeline:
         slot's camera-to-object transform, then ``pose = cam_pose rel^-1``
         (``ObjTSDF::syncTrack``). Serially (``pipeline.py:494-551``): each
         slot's LM over all tracking points with the slot's association
-        image, the gather sampler's as one device-resident table of every
-        slot (:func:`~emfusion_tpu_torch.tracking.track_volumes_gather`,
-        the JAX pipeline's ``lax.scan``; each slot's LM is the one it
-        would run alone), the capture sampler's one slot after another;
-        or batched (:meth:`_track_objects_batched`). On a mesh each rank
-        tracks its own slots (:meth:`_gather_tracks` shares the
-        results)."""
+        image, as one device-resident table of every slot (the gather
+        sampler's :func:`~emfusion_tpu_torch.tracking.track_volumes_gather`,
+        the capture sampler's :func:`~emfusion_tpu_torch.tracking.
+        track_volumes_capture`; the JAX pipeline's ``lax.scan``; each
+        slot's LM is the one it would run alone); or batched
+        (:meth:`_track_objects_batched`). On a mesh each rank tracks its
+        own slots (:meth:`_gather_tracks` shares the results)."""
         s, o = self.state, self.state.objs
         self.last_obj_track_stats = {}
         self.last_obj_track_weights = {}
@@ -864,18 +865,16 @@ class EMFusionPipeline:
             grid = self._track_grid()
             items = self.object_lm_items(points, own)
             cfg = self.track_cfg
-            if cfg.sampler == "gather":
-                results = track_volumes_gather(items, cfg)
-            else:
-                results = [track_volume(it.tsdf, it.weights, it.voxel_size,
-                                        it.points, it.assoc, it.rel_pose,
-                                        cfg) for it in items]
+            results = (track_volumes_gather if cfg.sampler == "gather"
+                       else track_volumes_capture)(items, cfg)
             for k, (rel, stats) in zip(own, results):
                 o.pose[k] = s.cam_pose @ pose_inverse(rel)
                 oid = int(o.object_id[k])
+                # the weight images go apart; the capture sampler's
+                # dropped points stay on the device until lm_counts()
                 self.last_obj_track_stats[oid] = {
                     key: v for key, v in stats.items()
-                    if not torch.is_tensor(v)}
+                    if key not in ("track_weights", "huber_weights")}
                 self.last_obj_track_weights[oid] = (
                     stats["track_weights"].reshape(grid),
                     stats["huber_weights"].reshape(grid))

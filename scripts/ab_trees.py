@@ -21,8 +21,9 @@ kernels there and, on one seed's scene, drives:
 
 Prints one line per tree, ``ab {json}``: the e2e ms a frame (frames 1..)
 and ``track_camera`` / ``track_objects`` ms a call of each path, the
-``lm_run`` holds' ms an iteration, the batched LM's reads a call where
-the tree reports them, and the card's name and power limit; and writes
+``lm_run`` holds' ms an iteration, the batched LM's and the camera LM's
+reads a call where the tree reports them, the accelerator paths' camera
+ATE, and the card's name and power limit; and writes
 the same with each accelerator path's camera and object poses frame by
 frame to ``chiprun_out/ab_<run>.json``, where two trees' trajectories
 can be compared. Needs a card; imports nothing of JAX.
@@ -90,6 +91,9 @@ def one(tree):
                     f"{key}_track_objects": ph["track_objects"],
                     f"{key}_reads_a_call": r.get(
                         "host_reads_per_batched_call_mean"),
+                    f"{key}_camera_reads_a_call": r.get(
+                        "camera_lm_host_reads_mean"),
+                    f"{key}_ate": r["ate"]["rmse"],
                     f"{key}_live": r["live_objects"],
                     f"{key}_phases": ph,
                     f"{key}_recovery": {o: v["recovery"] for o, v in

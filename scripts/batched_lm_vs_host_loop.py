@@ -4,6 +4,8 @@ accelerator path's own inputs, on one card, each traced iteration by
 iteration.
 
     python3 scripts/batched_lm_vs_host_loop.py OTHER_TREE [--follow other]
+    python3 scripts/batched_lm_vs_host_loop.py --alone
+    python3 scripts/batched_lm_vs_host_loop.py --compare A.json B.json
 
 Drives ``chip_smoke.accel_path`` of this checkout (float32, then bf16
 backgrounds). Every call of ``tracking.track_volumes_batched`` that the
@@ -34,6 +36,20 @@ and the run goes on: two LMs run a frame, so the path's launch and read
 limits do not hold); writes everything to
 ``chiprun_out/batched_vs_other_<follow>.json``. Needs a card; imports
 nothing of JAX.
+
+``--alone`` runs no other checkout: the accelerator paths of this
+checkout alone, on the frames that ``scripts/ab_trees.py`` gives them
+(its random draws taken in its order: the object path's frames, one
+more depth, then these), each batched LM call traced as above and each
+camera LM call's counts (iterations, re-captures, converged) kept beside
+its pose (and, where the camera LM runs on the device, those of the host
+loop ``tracking._track_volume_host`` on the same inputs), frame by frame,
+into ``chiprun_out/traced_alone.json``. Run so in two
+checkouts (each with this script), two such files hold each checkout's
+own trajectory; ``--compare`` reads them (no card needed) and prints,
+per path, the first frame where the camera poses or an object's moved
+apart by more than ``SPLIT_M`` metres, with both sides' camera counts
+and traces of that frame and of the frame before.
 """
 
 import argparse
@@ -46,6 +62,7 @@ import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAR_VOX = 10.0
+SPLIT_M = 1e-4
 
 
 def window_count(it, w, R, t):
@@ -164,14 +181,126 @@ def serve(tree):
         print("done", flush=True)
 
 
+def alone(torch, cs, tracking, pipeline, params, frames, masks):
+    """``--alone``: this checkout's accelerator paths, traced frame by
+    frame (see the module's docstring); returns what the file holds."""
+    out = {}
+
+    def counts(pose, st):
+        return dict(pose=pose, **{k: int(st[k]) for k in (
+            "iterations", "recaptures", "converged")})
+
+    def camera(*args):
+        pose, st = tracking.track_volume(*args)
+        rec[-1]["camera"] = counts(pose, st)
+        if hasattr(tracking, "track_volumes_capture"):   # a device form
+            rec[-1]["camera"]["host_loop"] = counts(
+                *tracking._track_volume_host(*args))
+        return pose, st
+
+    def batched(*call):
+        pose, st = tracking.track_volumes_batched(*call)
+        rec[-1]["objects"] = dict(
+            start=torch.as_tensor(call[5], dtype=torch.float32).cpu(),
+            vs=torch.as_tensor(call[2], dtype=torch.float32).cpu(),
+            **summary(tracking, call, pose, st))
+        return pose, st
+
+    def frame(self, *a, **k):
+        rec.append({})
+        return process(self, *a, **k)
+
+    process = pipeline.EMFusionPipeline.process_frame
+    pipeline.track_volume = camera
+    pipeline.track_volumes_batched = batched
+    pipeline.EMFusionPipeline.process_frame = frame
+    report = {}
+    for key, dtype in (("accel_path", "auto"),
+                       ("accel_path_bf16", "bfloat16")):
+        rec = []
+        try:
+            cs.accel_path(torch, params, frames, masks, report, key=key,
+                          volume_dtype=dtype)
+        except RuntimeError as e:           # a gate of the path
+            print(f"{key}: gate failed: {e}", flush=True)
+        out[key] = rec
+        print(f"{key}: {len(rec)} frames traced", flush=True)
+    return out
+
+
+def compare(a_path, b_path):
+    """``--compare``: the first frame where two ``--alone`` files'
+    trajectories split, per path (see the module's docstring)."""
+    import numpy as np
+    runs = [json.load(open(p)) for p in (a_path, b_path)]
+    print(f"A {a_path}: {runs[0]['card']}; B {b_path}: {runs[1]['card']}")
+
+    def world(fr):
+        """The camera pose and each slot's object pose (camera pose times
+        the inverse of its camera-to-object pose) of a frame."""
+        cam = np.asarray(fr["camera"]["pose"], dtype=np.float64) \
+            if "camera" in fr else np.eye(4)
+        objs = [cam @ np.linalg.inv(np.asarray(r, dtype=np.float64))
+                for r in fr.get("objects", {}).get("pose", [])]
+        return cam, objs
+
+    def counts(fr):
+        c = fr.get("camera", {})
+        o = fr.get("objects", {})
+        host = c.get("host_loop")
+        if host is not None:
+            gap = float(np.abs(np.asarray(host["pose"])
+                               - np.asarray(c["pose"])).max())
+            host = dict({k: host[k] for k in (
+                "iterations", "recaptures", "converged")}, pose_gap=gap)
+        return dict(camera=dict({k: c.get(k) for k in (
+            "iterations", "recaptures", "converged")}, host_loop=host),
+            objects=dict(iterations=o.get("iterations"),
+                         recaptures=o.get("recaptures"),
+                         dropped_points=o.get("dropped_points"),
+                         trace=o.get("trace")))
+
+    for key in runs[0]["runs"]:
+        fa, fb = runs[0]["runs"][key], runs[1]["runs"][key]
+        split = None
+        for f, (ra, rb) in enumerate(zip(fa, fb)):
+            (ca, oa), (cb, ob) = world(ra), world(rb)
+            gaps = dict(camera=float(np.abs(ca - cb)[:3, 3].max()),
+                        objects=[float(np.linalg.norm(x[:3, 3] - y[:3, 3]))
+                                 for x, y in zip(oa, ob)])
+            least = [[None if t["min_share"] is None
+                      else round(t["min_share"], 4) for t in
+                      r.get("objects", {}).get("trace", [])]
+                     for r in (ra, rb)]
+            print(f"{key} frame {f}: camera gap {gaps['camera']:.3e} m, "
+                  f"object gaps {[f'{g:.3e}' for g in gaps['objects']]} m; "
+                  f"least share A {least[0]} B {least[1]}", flush=True)
+            if split is None and max([gaps["camera"]] + gaps["objects"]) \
+                    > SPLIT_M:
+                split = f
+        if split is None:
+            print(f"{key}: no split past {SPLIT_M} m")
+            continue
+        print(f"{key}: first split past {SPLIT_M} m at frame {split}")
+        for f in (split - 1, split):
+            for who, fr in (("A", fa[f]), ("B", fb[f])):
+                print(f"  frame {f} {who}: {json.dumps(counts(fr))}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("other")
+    ap.add_argument("other", nargs="?")
     ap.add_argument("--follow", choices=["this", "other"], default="this")
+    ap.add_argument("--alone", action="store_true")
+    ap.add_argument("--compare", nargs=2, metavar="JSON")
     ap.add_argument("--serve", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.compare:
+        return compare(*args.compare)
     if args.serve:
         return serve(os.path.abspath(args.other))
+    if not args.alone and not args.other:
+        ap.error("OTHER_TREE, --alone or --compare")
     sys.path.insert(0, HERE)
     import numpy as np
     import torch
@@ -182,6 +311,24 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("batched_lm_vs_host_loop: no CUDA device")
+    params = load_config(os.path.join(HERE, "configs", "default.cfg"))
+    scene = cs.make_scene(params.height, params.width, params.fx)
+    rng = np.random.default_rng(0)
+    if args.alone:
+        cs.object_scene(scene, params, cs.OBJ_FRAMES, rng)
+        f = cs.OBJ_FRAMES
+        cs.sensor_depth(scene.render(cs.gt_pose(f), cs.movers_at(f))[0],
+                        rng)
+    frames, masks = cs.object_scene(scene, params, cs.ACCEL_FRAMES, rng)
+    if args.alone:
+        kernels.build()
+        runs = alone(torch, cs, tracking, pipeline, params, frames, masks)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "traced_alone.json"),
+                  "w") as f:
+            json.dump(dict(tree=HERE, card=cs.card_line(), runs=runs), f,
+                      default=lambda x: x.tolist())
+        return 0
     helper = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), args.other, "--serve"],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
@@ -245,10 +392,6 @@ def main():
 
     pipeline.track_volumes_batched = both
     kernels.build()
-    params = load_config(os.path.join(HERE, "configs", "default.cfg"))
-    scene = cs.make_scene(params.height, params.width, params.fx)
-    rng = np.random.default_rng(0)
-    frames, masks = cs.object_scene(scene, params, cs.ACCEL_FRAMES, rng)
     report, out = {}, {}
     try:
         for key, dtype in (("accel_path", "auto"),

@@ -43,7 +43,7 @@ from emfusion_tpu.tracking import track_volumes_batched as jax_batched
 from emfusion_tpu_torch import kernels
 from emfusion_tpu_torch import tracking as tr
 from emfusion_tpu_torch.geometry.capture import (
-    capture_neighborhoods_plain, out_of_window_count,
+    capture_neighborhoods_plain, drift_counts, out_of_window_count,
 )
 from emfusion_tpu_torch.tracking import TrackConfig, track_volumes_batched
 from test_torch_batched_lm import angle
@@ -389,6 +389,13 @@ static void emf_points(const EmfLmItem* it, const float* pose,
   for (int i = 0; i < it->n; ++i) {
     const float px = it->pts[i], py = it->pts[st + i],
                 pz = it->pts[2 * st + i];
+    if (trial == 2) {  // drift_counts' flags: relevant, then outside
+      int rel = 0, bad = 0;
+      emf_lm_drift(*it, P, px, py, pz, i, rel, bad);
+      out[i] = (float)rel;
+      out[n + i] = (float)bad;
+      continue;
+    }
     if (trial) {  // the trial psi, then whether it is valid
       bool valid;
       out[i] = emf_lm_psi_cache<T>(*it, P, px, py, pz, i, valid);
@@ -508,3 +515,48 @@ def test_cache_kernel_code_matches_plain(scene, host_lm, dtype):
         outside.append(int(out_of_window_count(it.anchor, it.points, R, t,
                                                VS, scene["tsdf"].shape)))
     assert outside[0] == 0 and outside[-1] > 100, outside
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_drift_kernel_code_matches_drift_counts(scene, host_lm, dtype):
+    """``lm.cu``'s ``emf_lm_drift`` (a re-capturing cache item's drift
+    test at its trial pose, summed over the points by ``lm_run``'s trial
+    phase), run on the host: per point relevant and outside its window,
+    summed, equal to ``geometry.capture.drift_counts`` at poses 0.2 to
+    3.2 voxels from the windows' capture, with points behind the camera
+    and outside the volume."""
+    cfg = TrackConfig()
+    rng = np.random.RandomState(6)
+    start = moved(scene, START_FAR)
+    counts = []
+    for f in (0.95, 0.6, 0.3, 0.0):
+        at = moved(scene, np.array(START_FAR) * f + rng.normal(0, 0.1, 6)
+                   * [1, 1, 1, 0.01, 0.01, 0.01])
+        run, _, _ = cache_item(scene, dtype, start, at)
+        it = run.items[0]
+        it.points[2, :20] = -0.1                 # behind the camera
+        it.points[0, 20:40] += 0.16 + 0.002 * torch.arange(20.0)
+        n = it.points.shape[1]
+        args = kernels.LmItemArgs(
+            it.tsdf.data_ptr(), it.weights.data_ptr(), it.points.data_ptr(),
+            it.assoc.data_ptr(), it.cache.data_ptr(), it.anchor.data_ptr(),
+            it.points.stride(0), n, *it.tsdf.shape,
+            int(dtype == torch.bfloat16), VS, 0, n, 1)
+        c = kernels.LmCfgArgs(cfg.tau, cfg.eps1, cfg.eps2, cfg.nu_init,
+                              cfg.huber_thresh, cfg.max_tsdf_weight,
+                              cfg.max_iter, cfg.max_recaptures)
+        R, t = torch.tensor(at[:3, :3]), torch.tensor(at[:3, 3])
+        pose = torch.cat([R.reshape(9), t]).contiguous()
+        flags = torch.zeros((2, n))
+        host_lm.emf_host_points(ctypes.addressof(args), pose.data_ptr(),
+                                ctypes.addressof(c), flags.data_ptr(), 2)
+        nbad, nrel = drift_counts(it.anchor, it.points, R, t, VS,
+                                  scene["tsdf"].shape)
+        assert float(flags[0].sum()) == float(nrel)
+        assert float(flags[1].sum()) == float(nbad)
+        assert not bool((flags[1] > flags[0]).any())   # bad only if relevant
+        counts.append((int(nrel), int(nbad)))
+    # some points not relevant; from 0.2 voxels only the moved points out
+    # of their windows, from 3.2 voxels half of them
+    assert all(r < 1000 for r, _ in counts)
+    assert counts[0][1] < 20 and counts[-1][1] > 100, counts

@@ -22,8 +22,11 @@ count, a table that stops in its first iteration and one that runs into
 object LM's stages: K3 window caches of float32 and bf16, ragged point
 counts, an empty item, part of the points outside their windows)
 iteration by iteration and in one launch, and the split kernels refusing
-them; and whole LMs (the device LM, the batched object LM) on the card
-against the plain versions on the CPU.
+them; ``lm_run`` over re-capturing cache items (the capture sampler's LM:
+K3 at each flagged trial pose between launches) in lockstep and as
+``tracking.capture_table``; and whole LMs (the device LM, the batched
+object LM, the capture LM) on the card against the plain versions on the
+CPU.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -1217,6 +1220,107 @@ def test_split_kernels_refuse_cache_items(cuda, scene):
     assert kernels.launches == before
     with pytest.raises(ValueError):
         tr.LMRun([items[0], lm_items(cuda, scene, 64, 1)[0]], cfg)
+
+
+# ---------------------------------------------------------------------
+# lm_run over re-capturing cache items (the capture sampler's LM)
+CAPTURE_STARTS = (0.5, 2.0, 4.0)   # voxels along x off each LM's start
+
+
+def capture_lm_items(cuda, scene, dtype):
+    """Three LMs of ``lm_items`` (4,097 points) on the scene's volumes in
+    ``dtype``, their starts moved ``CAPTURE_STARTS`` voxels along x, as
+    gather items (``tracking.capture_items`` captures their windows)."""
+    from emfusion_tpu_torch.tracking import LMItem
+    items = []
+    for it, dx in zip(lm_items(cuda, scene, 4097, 3), CAPTURE_STARTS):
+        start = it.rel_pose.clone()
+        start[0, 3] += dx * VOXEL
+        items.append(LMItem(scene["tsdf"].to(cuda).to(dtype),
+                            scene["wts"].to(cuda).to(dtype), VOXEL,
+                            it.points, it.assoc, start))
+    return items
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_capture_lm_matches_plain(cuda, scene, dtype):
+    """A table of three re-capturing cache items (the capture sampler's
+    LM, budget ``max_recaptures``), float32 and bf16 caches: a launch an
+    iteration in lockstep with the plain iteration on the card (as
+    ``hold_lm_run``: the drift counts, the re-capture flag and count
+    among the int words), and after an iteration that flagged an item,
+    K3 at its trial pose into the card run's windows and the plain
+    capture into the plain run's (windows and anchors bit-equal); then
+    ``tracking.capture_table`` from the start ends on the same bits,
+    reading the state at most 1 + its re-captures times; at least one
+    re-capture."""
+    import dataclasses
+    from emfusion_tpu_torch import tracking as tr
+    cfg = TrackConfig(max_iter=30, sampler="capture")
+    start = tr.capture_items(capture_lm_items(cuda, scene, dtype))
+    fresh = [dataclasses.replace(it, cache=it.cache.clone(),
+                                 anchor=it.anchor.clone()) for it in start]
+    ki = [dataclasses.replace(it, cache=it.cache.clone(),
+                              anchor=it.anchor.clone()) for it in start]
+    qi = [dataclasses.replace(it, cache=it.cache.clone(),
+                              anchor=it.anchor.clone()) for it in start]
+    k = tr.LMRun(ki, cfg, recaps=cfg.max_recaptures)
+    q = tr.LMRun(qi, cfg, recaps=cfg.max_recaptures)
+    recaps = 0
+    for _ in range(cfg.max_iter + cfg.max_recaptures + 1):
+        if not bool(q.running(q.si, cfg).any()):
+            break
+        hold_lm_run(k, q, cfg, 1)
+        flagged = torch.nonzero(k.si[:, tr.SI_PEND]).flatten().tolist()
+        for j in flagged:
+            recaps += 1
+            pose = k.sf[j, tr.SF_RN:tr.SF_RN + 12].cpu()
+            a, b = ki[j], qi[j]
+            launched("capture", lambda: capture.capture_into([
+                (a.tsdf, a.weights, a.points, pose[:9].reshape(3, 3),
+                 pose[9:], VOXEL, a.cache, a.anchor)]))
+            c, an = capture.capture_neighborhoods_plain(
+                (b.tsdf, b.weights), b.points, pose[:9].reshape(3, 3).to(
+                    cuda), pose[9:].to(cuda), VOXEL)
+            assert torch.equal(c, a.cache) and torch.equal(an, a.anchor)
+            b.cache.copy_(c)
+            b.anchor.copy_(an)
+    assert recaps >= 1
+    assert not bool(k.running(k.si, cfg).any())
+    run, (si, _) = tr.capture_table(fresh, cfg)
+    for name in ("si", "sf", "sys", "trial", "w", "hub", "scratch", "wmax"):
+        assert torch.equal(getattr(run, name), getattr(k, name)), name
+    assert run.reads <= 1 + int(si[:, tr.SI_RECAP].sum())
+
+
+def test_capture_lm_card_matches_cpu(cuda, scene):
+    """Whole capture LMs: ``track_volumes_capture`` on the card (K3 and
+    ``lm_run``) against the plain versions on the CPU, a table of the
+    three LMs: the same re-captures, iterations within 1, converged flags
+    and poses within 1e-5 (the CPU's sin and cos round apart from the
+    card's, as in ``test_device_lm_card_matches_cpu``); the card reads
+    at most 1 + the table's re-captures times, and its dropped points
+    stay on the card."""
+    from emfusion_tpu_torch import tracking as tr
+    cfg = TrackConfig(max_iter=30, sampler="capture")
+    items = capture_lm_items(cuda, scene, torch.float32)
+    cpu = [tr.LMItem(it.tsdf.cpu(), it.weights.cpu(), it.voxel_size,
+                     it.points.cpu(), it.assoc.cpu(), it.rel_pose)
+           for it in items]
+    before = dict(kernels.launches)
+    kres = tr.track_volumes_capture(items, cfg)
+    torch.cuda.synchronize()
+    qres = tr.track_volumes_capture(cpu, cfg)
+    assert kernels.launches["lm_run"] > before["lm_run"]
+    assert kernels.launches["capture"] > before["capture"]
+    recaps = sum(st["recaptures"] for _, st in kres)
+    assert kres[0][1]["host_reads"] <= 1 + recaps and recaps >= 1
+    for (kp, ks), (qp, qs) in zip(kres, qres):
+        assert ks["dropped_points"].is_cuda
+        assert ks["recaptures"] == qs["recaptures"]
+        assert abs(ks["iterations"] - qs["iterations"]) <= 1
+        assert ks["converged"] == qs["converged"]
+        assert torch.allclose(kp, qp, rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------
