@@ -85,19 +85,23 @@ under ``torchrun``.)
    points, and the camera LM with the capture sampler, which the
    configuration's ``auto`` sampler resolves to, as the JAX package's
    ``auto`` picks on a chip). The batched LM runs each of its two
-   fixed-cache stages as one K3 launch and one ``lm_run`` over the
-   slots' window caches (cache items), then one read; the camera LM is
-   one re-capturing cache item (``tracking.track_volumes_capture``: a K3
-   launch at its start, ``lm_run`` until its trial leaves the windows,
-   a read, K3 at the trial pose, ``lm_run`` again). Prints its phases,
+   fixed-cache stages as one K3 launch and one ``lm_cluster`` launch
+   over the slots' window caches (cache items, a thread-block cluster a
+   slot), then one read; the camera LM is one re-capturing cache item
+   (``tracking.track_volumes_capture``: a K3 launch at its start,
+   ``lm_run`` until its trial leaves the windows, a read, K3 at the
+   trial pose, ``lm_run`` again: its 34 spans are more than a cluster's
+   16 blocks, so the cooperative launch takes its table). Prints its phases,
    ``track_objects`` and ``track_camera`` beside the batched LM's and the
    camera LM's times as host loops on the same card model
    (``HOST_LOOP_TRACK_OBJECTS_MS``, ``HOST_LOOP_TRACK_CAMERA_MS``), LM
    iterations (camera and batched), device reads per batched LM and
    camera call, the camera calls that spent the whole re-capture budget
    and their dropped points, peak memory and launches; fails as the
-   object path does (``lm_run`` must have run at the object shape), and
-   also if a frame launched K3 or ``lm_run`` at the object shape more
+   object path does (``lm_cluster`` must have run at the object shape,
+   and no ``lm_run`` there: no cooperative launch takes a stage's
+   table), and
+   also if a frame launched K3 or ``lm_cluster`` at the object shape more
    than twice (once per LM stage, every slot in one launch), a batched
    LM call read the device more than twice or a camera call more than
    1 + its re-captures times. Then runs the path's first
@@ -106,20 +110,20 @@ under ``torchrun``.)
    pose gap of the two (``capture_vs_host_loop``).
    Holds K3 over that path's final two-slot table (2 x 4096 points),
    over the camera's stride-3 points, and over a full pool (16 x 4096,
-   the pool of step 7), and ``lm_run`` over the cache items of a first
+   the pool of step 7), and ``lm_cluster`` over the cache items of a first
    stage's table of the two slots (``lm_run_cache``), of the full pool
    (``lm_run_cache_pool``) and of the two slots with their volumes cast
    to bf16 (``lm_run_cache_bf16``, a bf16 cache; no path runs one yet),
    as ``hold_lm_run`` holds the gather tables (no split kernels: they
-   take gather items only), and ``lm_run`` over the camera LM's capture
-   item (34,240 points) from 3 voxels off its start, so that it
+   take gather items only), and ``lm_run`` over the camera LM's
+   capture item (34,240 points) from 3 voxels off its start, so that it
    re-captures (``lm_run_capture``, ``hold_lm_capture``: in lockstep
    with the plain iteration, K3 at each flagged trial pose against the
    plain capture, then the whole call, which must end on the same bits
    and read at most 1 + its re-captures times); profiles three frames
    of the path
    (``chiprun_out/accel_profile_ops.txt``). Then holds fault F2's guard:
-   ``lm_run`` over a table of two cache items on a 16^3 slope whose
+   ``lm_cluster`` over a table of two cache items on a 16^3 slope whose
    first undamped step carries the first item's 24 points 7 voxels out
    of their windows (the JAX package's fixed-cache LM accepts that step,
    its error being an empty sum) and the second's 1.5 voxels, one launch
@@ -135,8 +139,8 @@ under ``torchrun``.)
    bf16 background and both float32 slots, one launch), K2 over the
    E-step's table, K3 over the camera's stride-3 points (a bf16 cache)
    and K4 on the bf16 background, each at max abs error 0 with its bound
-   recounted for bf16 bytes, and ``lm_run`` over the camera's capture LM
-   with a bf16 cache (``lm_run_capture_bf16``); then the host-loop
+   recounted for bf16 bytes, and ``lm_run`` over the camera's capture
+   LM with a bf16 cache (``lm_run_capture_bf16``); then the host-loop
    comparison of step 8 on this path's first camera calls.
 9. Runs the CLI path: writes a 40-frame 640x480 TUM-format sequence of
    the object path's scene (with ground truth, calibration and ``.plk``
@@ -247,10 +251,11 @@ K1 rows also carry ``bound_all_ms``, the bound if every voxel were read
 and written), the ``lm_*`` rows: the LM kernels at the background's
 shape, over the object path's two-slot table (``*_objects``) and a full
 pool (``*_pool``): ``lm_run`` with the main path's launches (the
-object path's at the object shape; the ``lm_run_cache*`` rows the
-accelerator path's at the object shape, 0 for the bf16 cache; the
-``lm_run_capture`` rows steps 8's and 8b's at the background's shape,
-the camera LM's), the split kernels with the launches
+object path's at the object shape), the ``lm_run_cache*`` rows
+``lm_cluster``'s over cache items with the accelerator path's at the
+object shape, 0 for the bf16 cache; the ``lm_run_capture`` rows
+``lm_run``'s with steps 8's and 8b's at the background's shape, the
+camera LM's; the split kernels with the launches
 of rank 0's pixel-sharded LM in step 11 (the only path that runs them; 0
 at the object shape), its ``bound_ms`` this run's per-iteration bound:
 ``lm_system``'s over the LMs that evaluate plus ``lm_trial``'s over
@@ -316,6 +321,10 @@ KERNEL_ROWS = [
 # iterations a cooperative launch) runs the exact paths' LMs; the split
 # kernels the pixel-sharded LM's
 LM_RUN = "lm_run"
+# lm_cluster runs the tables of cache items whose items fit a cluster (at
+# most 16 spans: the batched object LM's stages), one thread-block
+# cluster an LM; lm_run the others (the capture camera LM's 34 spans)
+LM_CLUSTER = "lm_cluster"
 LM_SPLIT_KERNELS = ["lm_system", "lm_trial", "lm_step"]
 LM_KERNELS = [LM_RUN] + LM_SPLIT_KERNELS
 SPLIT_CHUNK = 4               # the split loop's iterations between reads
@@ -347,7 +356,7 @@ LM_ROWS = [(f"{k}{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
 # the accelerator path's stage table of both objects, a full pool's, and
 # the objects' table with bf16 volumes (a bf16 cache)
 LM_CACHE_ROWS = [(f"lm_run_cache{suffix}", "emfusion_tpu_torch/csrc/lm.cu",
-                  "emfusion_tpu/tracking.py:394", LM_RUN)
+                  "emfusion_tpu/tracking.py:394", LM_CLUSTER)
                  for suffix in ("", "_pool", "_bf16")]
 # lm_run over re-capturing cache items (the capture sampler's LM: the JAX
 # package's capture while_loop, tracking.py:224-352, its re-capture
@@ -383,6 +392,7 @@ HOST_LOOP_KERNELS = [row[3] for row in KERNEL_ROWS
                      if row[3] not in ("warp", "capture")]
 PATH_KERNELS = HOST_LOOP_KERNELS + [LM_RUN]
 CAPTURE_PATH_KERNELS = PATH_KERNELS + ["capture"]
+BATCHED_PATH_KERNELS = CAPTURE_PATH_KERNELS + [LM_CLUSTER]
 SPLIT_PATH_KERNELS = HOST_LOOP_KERNELS + LM_SPLIT_KERNELS
 # the same kernels held at an object's shapes (object_kernel_phases), and
 # K1 and K2 over a full pool (pool_kernel_phases)
@@ -1286,6 +1296,7 @@ def hold_lm_run(torch, items, cfg, reps=20):
         bound_first=first, ms=whole / n, launch_ms=one, run_ms=whole,
         run_iterations=iters, split_ms=split, split_pose_gap=split_gap,
         stopped_ms=stopped, grid=k.grid, spans=k.part.shape[0],
+        kernel=k.kernel, cluster=k.cluster,
         plain_ms=time_ms(torch, lambda: (restore(q), plain_iteration(
             tr, q, cfg)), 2, warmup=1), library_ms=None)
     del k, q
@@ -1444,7 +1455,7 @@ def hold_lm_capture(torch, item, cfg, reps=5):
         max_abs_err=max(gap, whole_gap) if ok else float("inf"), tol=1e-5,
         whole_equal=whole_equal, whole_gap=whole_gap, reads=run.reads,
         recaptures=int(run.si[0, tr.SI_RECAP]), run_iterations=iters,
-        cache_dtype=str(start.cache.dtype),
+        cache_dtype=str(start.cache.dtype), kernel=k.kernel, grid=k.grid,
         bound=(sum(spent.values()) / n, by), bound_run=sum(spent.values()),
         ms=call / n, call_ms=call,
         plain_ms=time_ms(torch, plain_first, 2, warmup=1), library_ms=None)
@@ -2078,8 +2089,10 @@ def main_path(torch, params, frames, report, sampler=None,
     check_launches(key, launches, {
         "device": CAPTURE_PATH_KERNELS if capture else PATH_KERNELS,
         "split": SPLIT_PATH_KERNELS, "host": HOST_LOOP_KERNELS}[loop],
-        pipe.timer, forbidden={"device": LM_SPLIT_KERNELS,
-                               "split": [LM_RUN]}.get(loop, LM_KERNELS))
+        pipe.timer, forbidden={
+            "device": LM_SPLIT_KERNELS + [LM_CLUSTER],
+            "split": [LM_RUN, LM_CLUSTER]}.get(loop,
+                                              LM_KERNELS + [LM_CLUSTER]))
     if not ate["rmse"] < VOXEL_CUT:
         raise RuntimeError(f"{key}: ATE {ate['rmse']} m >= {VOXEL_CUT} m")
     return launches, pipe
@@ -2248,18 +2261,26 @@ def object_path(torch, params, scene, n_frames, rng, report):
 
 def check_objects(name, pipe, launches, obj_launches, rec, ate):
     """Fails if a kernel of the path never ran (or K1 and K2 not once per
-    fusion and per E-step), if K1, K2, K4 and ``lm_run`` (and K3 where
-    the LMs capture) never ran at the object shape, if a split LM kernel
-    ran, if an object is lost, if an
+    fusion and per E-step), if K1, K2, K4 and ``lm_run`` (where the LMs
+    capture also K3; the batched LM's stages take ``lm_cluster`` in place
+    of ``lm_run``) never ran at the object shape, if a split LM kernel
+    ran, or ``lm_cluster`` where no table fits a cluster (the exact
+    paths) and ``lm_run`` at the object shape of the batched LM, if an
+    object is lost, if an
     object's x-motion recovers less than 0.35 or more than 2.0 of the
     truth (the JAX gate's band), or if the camera ATE reaches a voxel."""
-    capture = pipe.sampler == "capture" or pipe.object_lm == "batched"
+    batched = pipe.object_lm == "batched"
+    capture = pipe.sampler == "capture" or batched
     check_launches(name, launches,
+                   BATCHED_PATH_KERNELS if batched else
                    CAPTURE_PATH_KERNELS if capture else PATH_KERNELS,
-                   pipe.timer, forbidden=LM_SPLIT_KERNELS)
+                   pipe.timer, forbidden=LM_SPLIT_KERNELS + (
+                       [] if capture else [LM_CLUSTER]))
     check_launches(f"{name} at the object shape", obj_launches,
                    [row[3] for row in OBJECT_ROWS
-                    if capture or row[3] != "capture"] + [LM_RUN])
+                    if capture or row[3] != "capture"]
+                   + [LM_CLUSTER if batched else LM_RUN],
+                   forbidden=[LM_RUN] if batched else [])
     if len(rec) != len(MOVERS) or \
             sorted(r["mover"] for r in rec.values()) != list(
                 range(len(MOVERS))):
@@ -2277,15 +2298,15 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     ``masks`` under the JAX package's accelerator tracking configuration
     (``ACCEL``), its volumes stored in ``volume_dtype``. Fails as the
     object path does (:func:`check_objects`), and also if a frame
-    launched K3 or ``lm_run`` at the object shape more than twice (once
+    launched K3 or ``lm_cluster`` at the object shape more than twice (once
     per batched LM stage), a call of the batched LM read the device
     more than twice (once a stage) or a camera LM call (the capture
     sampler's, on the device) more than 1 + its re-captures times.
     Prints ``track_objects`` and ``track_camera`` beside the host loops'
     times (``HOST_LOOP_TRACK_OBJECTS_MS``, ``HOST_LOOP_TRACK_CAMERA_MS``).
     Returns the path's launches (all of them, K3's at the camera's and at
-    the objects' shape, ``lm_run``'s at the objects' and at the
-    camera's), and the pipeline."""
+    the objects' shape, ``lm_cluster``'s at the objects' and ``lm_run``'s
+    at the camera's), and the pipeline."""
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
     n_frames = len(frames)
@@ -2304,7 +2325,8 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     bg_shape = tuple(pipe.state.bg_tsdf.shape)
     obj_launches = {k: by_shape.get((k, obj_shape), 0) for k in launches}
     k3_obj = [f["by_shape"].get(("capture", obj_shape), 0) for f in per_frame]
-    lm_obj = [f["by_shape"].get((LM_RUN, obj_shape), 0) for f in per_frame]
+    lm_obj = [f["by_shape"].get((LM_CLUSTER, obj_shape), 0)
+              for f in per_frame]
     lms = [f["batched_lm"] for f in per_frame if f["batched_lm"]]
     if len(lms) != n_frames - 1:
         raise RuntimeError(f"{name}: the batched object LM ran in "
@@ -2323,7 +2345,7 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
         phase_calls=dict(pipe.timer.counts), max_memory_allocated=peak,
         launches=launches, object_shape_launches=obj_launches,
         k3_object_shape_launches_per_frame=k3_obj,
-        lm_run_object_shape_launches_per_frame=lm_obj,
+        lm_cluster_object_shape_launches_per_frame=lm_obj,
         k3_camera_shape_launches=by_shape.get(("capture", bg_shape), 0),
         ate=ate, camera_lm_iterations_mean=cam_it,
         object_lm_iterations_mean=float(np.mean(obj_it)),
@@ -2348,7 +2370,7 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     print(f"{name} launches per frame: " + ", ".join(
         f"{k} {v / n_frames:.2f}" for k, v in launches.items())
         + f"; K3 at the object shape {list(obj_shape)} per frame: max "
-        f"{max(k3_obj)}, total {sum(k3_obj)}; lm_run there: max "
+        f"{max(k3_obj)}, total {sum(k3_obj)}; lm_cluster there: max "
         f"{max(lm_obj)}, total {sum(lm_obj)}", flush=True)
     print(f"{name} LM iterations per call: camera {cam_it:.1f}, "
           f"batched stages {np.mean(loop_it):.1f} (per object "
@@ -2370,7 +2392,7 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
               f"object {oid} {r['recovery']:.3f}"
               for oid, r in rec.items()), flush=True)
     check_objects(name, pipe, launches, obj_launches, rec, ate)
-    for what, per in (("K3", k3_obj), (LM_RUN, lm_obj)):
+    for what, per in (("K3", k3_obj), (LM_CLUSTER, lm_obj)):
         if max(per) > 2:
             raise RuntimeError(f"{name}: {what} launched {max(per)} times "
                                "at the object shape in a frame (at most 2)")
@@ -2380,7 +2402,7 @@ def accel_path(torch, params, frames, masks, report, key="accel_path",
     bg_launches = {k: by_shape.get((k, bg_shape), 0) for k in launches}
     return dict(camera=report[key]["k3_camera_shape_launches"],
                 objects=obj_launches["capture"],
-                lm_objects=obj_launches[LM_RUN],
+                lm_objects=obj_launches[LM_CLUSTER],
                 lm_camera=bg_launches[LM_RUN], all=launches,
                 background=bg_launches), pipe
 
@@ -2617,7 +2639,7 @@ def escape_items(torch, dev):
 
 
 def hold_lm_escape(torch, report):
-    """Fault F2's guard on the card: ``lm_run`` over the two cache items
+    """Fault F2's guard on the card: ``lm_cluster`` over the two cache items
     of :func:`escape_items` (one table), one launch of one iteration,
     against the plain iteration on the same tensors: the state records
     bit for bit, the first item's trial counted with no weighted point in
@@ -2634,7 +2656,7 @@ def hold_lm_escape(torch, report):
     tr.lm_run(k, cfg, 1)
     plain_iteration(tr, q, cfg)
     torch.cuda.synchronize()
-    launched = kernels.launches.get(LM_RUN, 0)
+    launched = kernels.launches.get(LM_CLUSTER, 0)
     equal = all(torch.equal(a, b) for a, b in (
         (k.si, q.si), (k.sf, q.sf), (k.w, q.w), (k.scratch, q.scratch)))
     nin = k.si[:, tr.SI_NIN].tolist()
@@ -2644,11 +2666,11 @@ def hold_lm_escape(torch, report):
     row = hold_lm_run(torch, items, cfg, reps=3)
     out = dict(first_iteration_equal=equal, counted=nin, eval_next=ev,
                rejected_kept_pose=kept, accepted_moved=moved,
-               lm_run_launches=launched, run_iterations=row[
+               lm_cluster_launches=launched, run_iterations=row[
                    "run_iterations"], max_abs_err=row["max_abs_err"],
                whole_equal=row["whole_equal"])
     report["lm_escape"] = out
-    print(f"F2 guard on the card (lm_run, 2 cache items, {ESCAPE_N} points "
+    print(f"F2 guard on the card (lm_cluster, 2 cache items, {ESCAPE_N} points "
           f"each): first iteration card == plain {equal}; weighted points "
           f"with a valid psi at the trial poses {nin}; gradient next {ev}; "
           f"escaping item's pose kept {kept}, the other's moved {moved}; "

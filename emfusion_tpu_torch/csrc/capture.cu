@@ -29,6 +29,16 @@
 // S slots x 4096 points writes only S x 7 MB, so one launch for all slots
 // (not one per slot) is the design there; the table is passed by value
 // (__grid_constant__) and a block finds its item among the block offsets.
+// Each (dz, dy) block recomputes its points' transform and anchor (some 30
+// operations against 12 voxel reads and 12 stores). Layouts that compute
+// an anchor once (a thread looping over one dz's 6 rows, or over all 36)
+// keep 6 or 36 times fewer threads in flight and measured as fast to
+// 240% slower on an H100, and a bf16 item's two points a thread with
+// 32-bit stores
+// gained nothing measurable (scripts/k3_variants.py, which carries those
+// layouts). What keeps a bf16 cache's and a 2 x 4096 stage's rows under
+// half their bound is suspected, not counted: a row's voxel reads in
+// flight, each an L2 round trip.
 #include <cuda_runtime.h>
 
 #include "common.cuh"

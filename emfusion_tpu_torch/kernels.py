@@ -1,9 +1,9 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
 Each ``csrc/*.cu`` file holds kernels for Hopper (``sm_90a``) with plain
-C entry points (``lm.cu`` four: ``lm_run``, and the split ``lm_system``,
-``lm_trial`` and ``lm_step``). At first use every source is compiled by its own ``nvcc``
-process, all started together, into a shared library under ``build/``
+C entry points (``lm.cu`` five: ``lm_run``, ``lm_cluster``, and the
+split ``lm_system``, ``lm_trial`` and ``lm_step``). At first use every
+source is compiled by its own ``nvcc`` process, all started together, into a shared library under ``build/``
 (listed in ``.gitignore``); the file name carries a hash of the sources
 and flags, so an edit rebuilds. The libraries are loaded with ``ctypes``.
 No PyTorch header is compiled, which keeps a cold build to seconds.
@@ -39,12 +39,16 @@ take one launch per that many). The device-resident LM's kernels
 state and buffers of :class:`LmBufsArgs` and the constants of
 :class:`LmCfgArgs` (``tracking.LMRun`` builds them). ``lm_run`` is one
 cooperative launch (``cudaLaunchCooperativeKernel``) for up to
-``max_iter`` LM iterations of the whole table (of gather items, or of
-cache items that read K3's windows: the batched object LM's stages,
-and the capture sampler's LMs, whose launch ends when an item's windows
-must be captured again),
-its grid at most the blocks the card holds at once
-(:func:`lm_run_blocks`); the split kernels, which the pixel-sharded LM
+``max_iter`` LM iterations of a table, its grid at most the blocks the
+card holds at once (:func:`lm_run_blocks`); ``lm_cluster`` the same for
+a table of cache items (they read K3's windows: the batched object LM's
+stages, and the capture sampler's LMs, each of which leaves the launch
+when its windows must be captured again) whose items fit a cluster
+(``emf_lm_cluster_size`` above 0: at most 16 spans an item), one
+thread-block cluster an LM (``cudaLaunchKernelEx``). A table of cache
+items with a larger item (the capture camera LM's 34 spans) takes
+``lm_run``; each kernel refuses the other's tables. The split kernels,
+which the pixel-sharded LM
 launches, count per phase: ``lm_system`` and ``lm_step`` two launches
 an iteration, ``lm_trial`` one.
 """
@@ -87,6 +91,7 @@ KERNELS = {
     "warp": ("warp.cu", "emf_warp", [_P, _P] + [_I] * 4 + [_F] * 13
              + [_I] * 3),
     "lm_run": ("lm.cu", "emf_lm_run", [_P, _I, _I, _P, _P, _I]),
+    "lm_cluster": ("lm.cu", "emf_lm_cluster", [_P, _I, _I, _P, _P]),
     "lm_system": ("lm.cu", "emf_lm_system", [_P, _I, _I, _P, _P]),
     "lm_trial": ("lm.cu", "emf_lm_trial", [_P, _I, _P, _P]),
     "lm_step": ("lm.cu", "emf_lm_step", [_I, _I, _P, _P]),
@@ -95,7 +100,8 @@ KERNELS = {
 # a source's C helpers besides its kernels' entries and ``emf_max_items``
 # (which takes nothing): source stem -> {entry: argument types}; each
 # returns an int
-HELPERS = {"lm": {"emf_lm_run_blocks": [_I, _I], "emf_lm_spans": [_I]}}
+HELPERS = {"lm": {"emf_lm_run_blocks": [_I, _I], "emf_lm_spans": [_I],
+                  "emf_lm_cluster_size": [_I]}}
 
 
 class FuseArgs(ctypes.Structure):

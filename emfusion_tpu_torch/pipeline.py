@@ -22,8 +22,9 @@ resolve_params`): one LM per slot over every tracking point, one after
 the other, as the JAX package's reference-exact serial path does; or,
 under ``band``, one batched LM over every live slot's top
 ``obj_track_points`` points, with one K3 launch per LM stage for all
-slots and the stage's LM iterations on the device, one ``lm_run`` over
-the slots' window caches and one read a stage (``pipeline.py:513-539``;
+slots and the stage's LM iterations on the device, one ``lm_cluster``
+launch over the slots' window caches (a thread-block cluster a slot) and
+one read a stage (``pipeline.py:513-539``;
 :func:`~emfusion_tpu_torch.tracking.track_volumes_batched`). Each slot
 runs its own raycast (K4). The
 lifecycle (match, spawn, resize, delete) runs on the host at the mask

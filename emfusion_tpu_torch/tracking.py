@@ -86,10 +86,11 @@ relevant points and those outside their windows at the trial pose
 (:func:`~emfusion_tpu_torch.geometry.capture.drift_counts`, words
 ``SI_NREL`` and ``SI_NBAD``); if more than ``DRIFT_TOL`` of them left,
 decide flags it (``SI_PEND``), counts the re-capture (``SI_RECAP``) and
-leaves its iteration undecided, and the launch ends after that
-iteration. The host reads the state, captures the flagged items' windows
-at their trial poses (one K3 launch, into the items' own cache tensors)
-and launches again; a flagged item then skips to its trial on the new
+leaves its iteration undecided, and that LM leaves the launch after
+that iteration (the others run on to their stop or their own flag). The
+host reads the state once the launch has ended, captures the flagged
+items' windows at their trial poses (one K3 launch, into the items' own
+cache tensors) and launches again; a flagged item then skips to its trial on the new
 windows, with no second drift test, and decides. So a call reads the
 device at most 1 + its table's re-captures times. With a budget of 0 (the
 batched object LM's stages) an item is the fixed-cache item above.
@@ -106,9 +107,12 @@ gradient test, the 6x6 solve, the step test and the trial pose),
 :func:`lm_trial` (the trial error) and :func:`lm_step` phase 1 (accept
 or reject, the damping, ``it += 1``); an LM that has stopped ignores
 them. :func:`lm_run` runs up to ``max_iter`` iterations of the table
-and stops early once every LM has stopped: on a CUDA tensor one
-cooperative launch of ``csrc/lm.cu``'s ``emf_lm_run``, which runs the
-four steps as phases with grid-wide barriers between them; on the CPU
+and stops early once every LM has stopped: on a CUDA tensor one launch
+of ``csrc/lm.cu``, which runs the four steps as phases with barriers
+between them (the cooperative ``emf_lm_run``, grid-wide barriers; or,
+for a table of cache items of at most 16 spans of points each,
+``emf_lm_cluster``, one thread-block cluster an LM, the cluster's
+barriers); on the CPU
 :func:`lm_iteration` over the plain versions (:func:`lm_system_plain`,
 :func:`lm_trial_plain`, :func:`lm_step_plain`), which compute every
 per-point value and every scalar step with the kernel's float32
@@ -467,8 +471,9 @@ def track_volumes_batched(tsdfs, weights, voxel_sizes, points: torch.Tensor,
     No re-capture runs inside a stage (the JAX package's
     ``_lm_fixed_cache``, ``tracking.py:394-498``): points that drift out
     of their windows drop out through the window test. On a CUDA device
-    each stage is one cooperative launch of ``lm.cu``'s ``emf_lm_run``
-    over cache items; on the CPU the plain iteration. Each LM starts
+    each stage is one launch over cache items (:func:`lm_run`: at
+    ``obj_track_points`` 4096, ``lm.cu``'s ``emf_lm_cluster``, a cluster a
+    slot); on the CPU the plain iteration. Each LM starts
     afresh at a stage (``mu`` 0, ``nu`` ``nu_init``, a first iteration).
 
     Args: ``tsdfs``/``weights`` S (Z, Y, X) volumes of one shape on the
@@ -607,9 +612,14 @@ class LMRun:
     point buffers ``w``, ``hub`` and ``scratch`` (5, total), LM ``k``'s
     points at ``p0[k]``; on a CUDA device also the kernels' span
     partials, the split kernels' tickets, the ctypes arguments and
-    ``grid``, the blocks of an ``lm_run`` launch (min(spans, the blocks
-    the card holds at once)). Every LM starts
-    afresh (``mu`` 0, ``nu`` ``nu_init``, a first iteration, a gradient
+    ``kernel``, the entry point that runs the table (``lm_cluster`` for
+    cache items whose largest has at most 16 spans, else ``lm_run``), and
+    ``grid``, the blocks of its launch: ``lm_run``'s min(spans, the
+    blocks the card holds at once), ``lm_cluster``'s S clusters of
+    ``cluster`` blocks (the most spans of an item). ``held`` (S,) host
+    bool: the LMs that have left
+    the launch :func:`lm_run` is running (the plain loop's mark). Every
+    LM starts afresh (``mu`` 0, ``nu`` ``nu_init``, a first iteration, a gradient
     to evaluate), as the JAX loop's ``init`` (``tracking.py:392-401``).
     ``recaps``: a table of cache items' re-capture budget (each item's;
     see "Re-capturing cache items" in the module's docstring), 0 for
@@ -649,6 +659,7 @@ class LMRun:
         self.hub = torch.zeros(total, dtype=f32, **z)
         self.scratch = torch.zeros((5, total), dtype=f32, **z)
         self.reads = 0
+        self.held = torch.zeros(S, dtype=torch.bool)
         self.cuda = self.dev.type == "cuda"
         if self.cuda:
             self._bind(cfg)
@@ -662,10 +673,18 @@ class LMRun:
         S = len(self.items)
         lib = kernels.library("lm_run")
         spans = sum(lib.emf_lm_spans(n) for n in self.n)
-        resident = kernels.lm_run_blocks(self.dev, self.cached)
-        if resident < 1:
-            raise RuntimeError("lm_run: the device's occupancy query failed")
-        self.grid = min(spans, resident)
+        self.cluster = lib.emf_lm_cluster_size(
+            max(lib.emf_lm_spans(n) for n in self.n)) if self.cached else 0
+        if self.cluster:
+            self.kernel = "lm_cluster"
+            self.grid = S * self.cluster
+        else:
+            self.kernel = "lm_run"
+            resident = kernels.lm_run_blocks(self.dev, self.cached)
+            if resident < 1:
+                raise RuntimeError("lm_run: the device's occupancy query "
+                                   "failed")
+            self.grid = min(spans, resident)
         self.part = torch.empty((spans, LM_PART), dtype=torch.float64,
                                 device=self.dev)
         self.count = torch.zeros(S, dtype=torch.int32, device=self.dev)
@@ -738,9 +757,10 @@ class LMRun:
 
 def _items_with(run: LMRun, cfg: TrackConfig, word: int) -> List[int]:
     """The LMs whose state word ``word`` is set (with SI_EVAL: those that
-    also run), read from the state (a plain version's host read)."""
+    also run), read from the state (a plain version's host read), but
+    those that have left the launch (``run.held``)."""
     si = run.si.cpu()
-    on = si[:, word] != 0
+    on = (si[:, word] != 0) & ~run.held
     if word == SI_EVAL:
         on &= run.running(si, cfg)
     return [int(k) for k in torch.nonzero(on).flatten()]
@@ -1101,7 +1121,10 @@ def lm_step_plain(run: LMRun, cfg: TrackConfig, phase: int) -> None:
     ``SI_NBAD`` and ``SI_NREL``) is not decided: it is flagged for a
     re-capture at its trial pose (``SI_PEND``, ``SI_RECAP`` += 1, no
     gradient to evaluate), its ``it`` and trial kept; a flagged trial's
-    next decide clears the flag and decides."""
+    next decide clears the flag and decides. A cache item that stopped
+    in this iteration has its ``ran`` flag cleared (``lm.cu``'s cluster
+    leaves its loop before a later phase 0 would clear it). An LM that
+    has left the launch (``run.held``) is left as it is in both phases."""
     si, sf = run.si, run.sf
     f32 = torch.float32
     if phase == 0:
@@ -1153,8 +1176,9 @@ def lm_step_plain(run: LMRun, cfg: TrackConfig, phase: int) -> None:
         si[:, SI_TRIAL] = torch.where(wait, si[:, SI_TRIAL],
                                       trial.to(torch.int32))
         return
-    ran = si[:, SI_RAN] != 0
-    trial = si[:, SI_TRIAL] != 0
+    held = run.held.to(si.device)
+    ran = (si[:, SI_RAN] != 0) & ~held
+    trial = (si[:, SI_TRIAL] != 0) & ~held
     flag = torch.zeros_like(ran)
     if run.cached:
         flag = (ran & trial & (si[:, SI_PEND] == 0)
@@ -1168,7 +1192,7 @@ def lm_step_plain(run: LMRun, cfg: TrackConfig, phase: int) -> None:
         ran = ran & ~flag
         trial = trial & ~flag
     si[:, SI_IT] += ran.to(torch.int32)
-    si[:, SI_TRIAL] = torch.where(flag, si[:, SI_TRIAL], 0)
+    si[:, SI_TRIAL] = torch.where(flag | held, si[:, SI_TRIAL], 0)
     err_new = run.trial.to(f32)
     sf[:, SF_ERRN] = torch.where(trial, err_new, sf[:, SF_ERRN])
     mu0, mu, nu = sf[:, SF_MU0], sf[:, SF_MU], sf[:, SF_NU]
@@ -1196,6 +1220,8 @@ def lm_step_plain(run: LMRun, cfg: TrackConfig, phase: int) -> None:
                                torch.where(reject, nu * cfg.nu_init, nu))
     si[:, SI_EVAL] = torch.where(trial, accept.to(torch.int32),
                                  si[:, SI_EVAL])
+    if run.cached:   # a cache LM that stopped here: its last run is over
+        si[:, SI_RAN] = torch.where(run.running(si, cfg), si[:, SI_RAN], 0)
 
 
 def _split_only_gathers(run: LMRun, name: str) -> None:
@@ -1259,24 +1285,31 @@ def lm_iteration(run: LMRun, cfg: TrackConfig, group=None) -> None:
 
 
 def lm_run(run: LMRun, cfg: TrackConfig, iters: int) -> None:
-    """Up to ``iters`` LM iterations of every LM of ``run``, stopping once
-    every LM has stopped, or after an iteration (not the first) that
-    starts with a cache item flagged for a re-capture (``SI_PEND``): on a
-    CUDA device one cooperative launch of ``lm.cu``'s ``emf_lm_run`` over
-    ``run.grid`` blocks, enqueued; else :func:`lm_iteration` over the
-    plain versions, ``iters`` times at most (the stop read from the
+    """Up to ``iters`` LM iterations of every LM of ``run``, each LM
+    leaving once it has stopped or, after the launch's first iteration,
+    once it is flagged for a re-capture (``SI_PEND``: a cache item); the
+    others run on, and the launch ends once none runs. On a CUDA device
+    one launch of ``run.kernel``, enqueued: the cooperative ``lm.cu``
+    ``emf_lm_run`` over ``run.grid`` blocks, or for cache items that fit
+    a cluster ``emf_lm_cluster``, one thread-block cluster an LM. Else
+    :func:`lm_iteration` over the plain versions, ``iters`` times at most,
+    the LMs that left marked in ``run.held`` (the stop read from the
     state, a plain version's host read)."""
     if not run.cuda:
+        run.held[:] = False
         for i in range(iters):
-            if not bool(run.running(run.si, cfg).any()):
-                break
-            if i and run.cached and bool((run.si[:, SI_PEND] != 0).any()):
+            si = run.si.cpu()
+            if i and run.cached:
+                run.held |= si[:, SI_PEND] != 0
+            if not bool((run.running(si, cfg) & ~run.held).any()):
                 break
             lm_iteration(run, cfg)
+        run.held[:] = False
         return
-    kernels.launch("lm_run", ctypes.addressof(run.table), len(run.items),
+    grid = (run.grid,) if run.kernel == "lm_run" else ()
+    kernels.launch(run.kernel, ctypes.addressof(run.table), len(run.items),
                    iters, ctypes.addressof(run.bufs),
-                   ctypes.addressof(run.cfg_args), run.grid, device=run.dev,
+                   ctypes.addressof(run.cfg_args), *grid, device=run.dev,
                    shapes=run.shapes)
 
 
@@ -1413,8 +1446,9 @@ def track_volumes_capture(items: Sequence[LMItem], cfg: TrackConfig):
     ``emf_max_items()`` on a CUDA device, ``LM_MAX_ITEMS`` on the CPU).
     The JAX package's capture loop (``tracking.py:224-352`` there): the
     camera's LM, or every serial object LM of a frame (its ``lax.scan``
-    over the slots). On a CUDA device ``lm_run`` launches, K3 launches
-    and at most 1 + the table's re-captures reads; on the CPU the plain
+    over the slots). On a CUDA device :func:`lm_run` launches (the
+    accelerator camera's 34,240 points: ``lm_run``), K3 launches and at
+    most 1 + the table's re-captures reads; on the CPU the plain
     versions.
 
     Returns per item ``(pose (4, 4) host float32, stats)``:

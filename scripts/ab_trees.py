@@ -17,7 +17,9 @@ kernels there and, on one seed's scene, drives:
     the LMs' stop);
   * the accelerator path, float32 then with bf16 backgrounds
     (``chip_smoke.accel_path``, 40 frames each; its gates as that
-    tree's script sets them).
+    tree's script sets them), then its cache LMs on the next frame
+    (:func:`cache_lm_times`: the camera's capture LM and the batched
+    LM's first stage, device ms an iteration).
 
 Prints one line per tree, ``ab {json}``: the e2e ms a frame (frames 1..)
 and ``track_camera`` / ``track_objects`` ms a call of each path, the
@@ -35,6 +37,63 @@ import os
 import subprocess
 import sys
 import time
+
+
+def cache_lm_times(torch, cs, pipe, scene, reps=15):
+    """Device ms an iteration (CUDA events, median of ``reps`` runs from
+    a fresh state) of the accelerator path's cache LMs on the next
+    frame's points: the camera's capture LM from ``CAPTURE_HOLD_OFFSET``
+    voxels off its start (``tracking.capture_table``: its launches, K3
+    and reads) and the batched LM's first-stage table of the live slots
+    (one ``lm_run`` of ``max_iter`` iterations)."""
+    import dataclasses
+
+    import numpy as np
+
+    from emfusion_tpu_torch import tracking as tr
+    f = pipe.frame
+    rng = np.random.default_rng(f)
+    _, points = pipe.preprocess(cs.sensor_depth(scene.render(
+        cs.gt_pose(f), cs.movers_at(f))[0], rng))
+    it = pipe.camera_lm_item(points)
+    start = torch.as_tensor(it.rel_pose, dtype=torch.float32).clone()
+    start[0, 3] += cs.CAPTURE_HOLD_OFFSET * pipe.voxel
+    cam = tr.capture_items([dataclasses.replace(it, rel_pose=start)])
+    cfg = pipe.track_cfg
+    live = [int(k) for k in np.nonzero(pipe._h_active)[0]]
+    items, stage_cfg = cs.stage_table(torch, pipe, points, live)
+
+    def timed(fn):
+        times, iters = [], 0
+        for _ in range(reps + 1):        # the first run loads the kernel
+            run = fn()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run = run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            iters = int(run.si[:, tr.SI_IT].max())
+        return float(np.median(times[1:])) / max(iters, 1), iters
+
+    def camera():
+        fresh = [dataclasses.replace(c, cache=c.cache.clone(),
+                                     anchor=c.anchor.clone()) for c in cam]
+        return lambda: tr.capture_table(fresh, cfg)[0]
+
+    def stage():
+        run = tr.LMRun(items, stage_cfg)
+
+        def go():
+            tr.lm_run(run, stage_cfg, stage_cfg.max_iter)
+            return run
+        return go
+    cam_ms, cam_it = timed(camera)
+    stage_ms, stage_it = timed(stage)
+    return dict(camera_lm_ms=cam_ms, camera_lm_iterations=cam_it,
+                stage_lm_ms=stage_ms, stage_lm_iterations=stage_it)
 
 
 def one(tree):
@@ -98,6 +157,8 @@ def one(tree):
                     f"{key}_phases": ph,
                     f"{key}_recovery": {o: v["recovery"] for o, v in
                                         r["recovery"].items()}})
+        out.update({f"{key}_{k}": v for k, v in
+                    cache_lm_times(torch, cs, pipe, scene).items()})
         poses[key] = dict(
             camera={int(f): np.asarray(q).tolist()
                     for f, q in pipe.poses.items()},

@@ -329,8 +329,9 @@ def test_table_holds_one_kind(scene):
 
 # ---------------------------------------------------------------------
 # lm.cu's cache phase compiled for the host: the CUDA qualifiers and
-# intrinsics it uses as plain C++, launches and cooperative groups as
-# no-ops (only the per-point functions are called)
+# intrinsics it uses as plain C++, launches, cooperative groups and the
+# cluster API (cudaLaunchKernelExC and its configuration) as no-ops
+# (only the per-point functions are called)
 HOST_CUDA = r"""
 #pragma once
 #include <math.h>
@@ -361,7 +362,10 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorCooperativeLaunchTooLarge = 2,
-       cudaDevAttrMultiProcessorCount = 3 };
+       cudaDevAttrMultiProcessorCount = 3,
+       cudaErrorLaunchOutOfResources = 4,
+       cudaLaunchAttributeClusterDimension = 5,
+       cudaFuncAttributeNonPortableClusterSizeAllowed = 6 };
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaSetDevice(int) { return 0; }
 template <class F>
@@ -372,10 +376,34 @@ inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 struct dim3 { dim3(unsigned = 1, unsigned = 1, unsigned = 1) {} };
 inline int cudaLaunchCooperativeKernel(const void*, dim3, dim3, void**, int,
                                        void*) { return 0; }
+struct cudaLaunchAttribute {
+  int id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline int cudaFuncSetAttribute(const void*, int, int) { return 0; }
+inline int cudaOccupancyMaxActiveClusters(int* n, const void*,
+                                          const cudaLaunchConfig_t*) {
+  *n = 1; return 0;
+}
+inline int cudaLaunchKernelExC(const cudaLaunchConfig_t*, const void*,
+                               void**) { return 0; }
 inline int cudaGetLastError() { return 0; }
 namespace cooperative_groups {
 struct grid_group { void sync() {} };
 inline grid_group this_grid() { return {}; }
+struct cluster_group {
+  void sync() {}
+  unsigned num_blocks() { return 1; }
+  unsigned block_rank() { return 0; }
+};
+inline cluster_group this_cluster() { return {}; }
 }
 """
 
@@ -389,20 +417,21 @@ static void emf_points(const EmfLmItem* it, const float* pose,
   for (int i = 0; i < it->n; ++i) {
     const float px = it->pts[i], py = it->pts[st + i],
                 pz = it->pts[2 * st + i];
+    const EmfAnchor a = emf_anchor(*it, i);
     if (trial == 2) {  // drift_counts' flags: relevant, then outside
       int rel = 0, bad = 0;
-      emf_lm_drift(*it, P, px, py, pz, i, rel, bad);
+      emf_lm_drift(*it, P, px, py, pz, a, rel, bad);
       out[i] = (float)rel;
       out[n + i] = (float)bad;
       continue;
     }
     if (trial) {  // the trial psi, then whether it is valid
       bool valid;
-      out[i] = emf_lm_psi_cache<T>(*it, P, px, py, pz, i, valid);
+      out[i] = emf_lm_psi_cache<T>(*it, P, px, py, pz, i, a, valid);
       out[n + i] = valid ? 1.0f : 0.0f;
       continue;
     }
-    const EmfLmPoint r = emf_lm_point_cache<T>(*it, P, px, py, pz, i, *C);
+    const EmfLmPoint r = emf_lm_point_cache<T>(*it, P, px, py, pz, i, a, *C);
     const float v[6] = {r.psi, r.gx, r.gy, r.gz, r.intw, r.hub};
     for (int c = 0; c < 6; ++c) out[c * n + i] = v[c];
   }

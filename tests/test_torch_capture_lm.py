@@ -7,8 +7,9 @@ its plain capture.
 
 The new form runs the JAX package's capture loop (``emfusion_tpu/
 tracking.py:224-352``) as the card does: an ``lm_run`` of ``max_iter``
-iterations that ends after the iteration in which an item's trial found
-its points drifted out of their windows (flagged, undecided), one read,
+iterations which an item leaves after the iteration in which its trial
+found its points drifted out of their windows (flagged, undecided), the
+others running on to their stop, one read after it,
 the flagged items' windows captured at their trial poses, and the table
 run on from their trials; so a call reads the device at most 1 + its
 table's re-captures times. The host loop reads every evaluation and every
@@ -139,6 +140,38 @@ def test_a_table_runs_each_lm_as_alone(scene, runs):
         assert int(st["dropped_points"]) == int(alone["dropped_points"])
         for key in ("track_weights", "huber_weights"):
             assert torch.equal(st[key], alone[key]), (name, key)
+
+
+def test_a_launch_ends_for_each_lm_on_its_own(scene, runs):
+    """``lm_run`` (the plain iteration) over a table of the start that
+    re-captures once and the one that takes none: in the first launch the
+    first LM is flagged and leaves it, while the second runs on and
+    reaches its stop in that same launch, at the iterations it takes
+    alone; the launch ends then, not after the flag. Through
+    ``track_volumes_capture`` each LM ends on the bits it has alone
+    (pose, counts, weights), in at most 1 + its re-captures reads."""
+    names = ("one", "none")
+    run = tr.LMRun(tr.capture_items([item(scene, STARTS[n][0])
+                                     for n in names]),
+                   CFG, recaps=CFG.max_recaptures)
+    tr.lm_run(run, CFG, CFG.max_iter)
+    si = run.si
+    alone = runs["none"][0][1]
+    assert int(si[0, tr.SI_PEND]) == 1 and int(si[0, tr.SI_RECAP]) == 1
+    assert int(si[1, tr.SI_CONV]) == 1 and not run.held.any()
+    assert int(si[1, tr.SI_IT]) == alone["iterations"]
+    assert int(si[1, tr.SI_IT]) > int(si[0, tr.SI_IT]) + 1
+    table = tr.track_volumes_capture(
+        [item(scene, STARTS[n][0]) for n in names], CFG)
+    for name, (pose, st) in zip(names, table):
+        alone_pose, alone = runs[name][0]
+        assert torch.equal(pose, alone_pose), name
+        for key in ("iterations", "converged", "recaptures", "grad_norm"):
+            assert st[key] == alone[key], (name, key)
+        for key in ("track_weights", "huber_weights"):
+            assert torch.equal(st[key], alone[key]), (name, key)
+        assert st["host_reads"] == 2 <= 1 + sum(
+            s["recaptures"] for _, s in table)
 
 
 def test_budget_zero_is_the_fixed_cache_run(scene):

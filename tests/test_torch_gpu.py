@@ -18,13 +18,17 @@ points; the cooperative ``lm_run`` iteration by iteration against the
 plain iteration over tables of 1 and 17 LMs (bf16 items among them, an
 item of 0 points), on its own grid and on grids smaller than the span
 count, a table that stops in its first iteration and one that runs into
-``max_iter``; ``lm_run`` over tables of 2 and 16 cache items (the batched
-object LM's stages: K3 window caches of float32 and bf16, ragged point
-counts, an empty item, part of the points outside their windows)
-iteration by iteration and in one launch, and the split kernels refusing
-them; ``lm_run`` over re-capturing cache items (the capture sampler's LM:
-K3 at each flagged trial pose between launches) in lockstep and as
-``tracking.capture_table``; and whole LMs (the device LM, the batched
+``max_iter``; ``lm_cluster`` (a thread-block cluster an LM) over tables
+of 2, 16 and 17 cache items (the batched object LM's stages: K3 window
+caches of float32 and bf16, ragged point counts, an empty item, part of
+the points outside their windows) and the cooperative ``lm_run`` over
+cache items with one of 34 spans, iteration by iteration and in one
+launch, each LM kernel and the split kernels refusing the others'
+tables; ``lm_cluster`` over re-capturing cache items (the capture
+sampler's LM: K3 at each flagged trial pose between launches) in
+lockstep, as ``tracking.capture_table``, and, with ``lm_run`` too, in
+one launch where a flagged LM leaves while the others run on; and whole
+LMs (the device LM, the batched
 object LM, the capture LM) on the card against the plain versions on the
 CPU.
 
@@ -660,8 +664,9 @@ def test_batched_lm_card_matches_cpu(cuda):
     per-point arithmetic is the same on both; the CPU's sin and cos round
     apart from the card's, so the poses are held within 1e-5, the int
     words (iterations, converged flags, re-captures) equal, the last
-    weights within 1e-5. The card call launches K3 and ``lm_run`` at most
-    twice each, no split LM kernel, and reads the card at most twice."""
+    weights within 1e-5. The card call launches K3 and ``lm_cluster`` at
+    most twice each, no cooperative ``lm_run`` and no split LM kernel, and
+    reads the card at most twice."""
     o = build_object_scene((64, 64, 64), 0.009)
     sc = SyntheticScene(H=H, W=W, f=0.8 * W, floor_y=0.6)
     cam, T = obj_to_cam(1)
@@ -689,7 +694,8 @@ def test_batched_lm_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     ran = {n: kernels.launches[n] - before[n] for n in kernels.launches}
     stages = 1 + int(ks["recaptures"].any())
-    assert ran["capture"] == stages and ran["lm_run"] == stages
+    assert ran["capture"] == stages and ran["lm_cluster"] == stages
+    assert ran["lm_run"] == 0
     assert ran["lm_system"] == ran["lm_trial"] == ran["lm_step"] == 0
     assert ks["host_reads"] == stages <= 2
     for s in range(3):
@@ -1062,7 +1068,7 @@ def hold_lm_run(k, q, cfg, iters):
     takes the kernel's state."""
     from emfusion_tpu_torch import tracking as tr
     for _ in range(iters):
-        launched("lm_run", lambda: tr.lm_run(k, cfg, 1))
+        launched(k.kernel, lambda: tr.lm_run(k, cfg, 1))
         plain_iteration(q, cfg)
         for a, b in ((k.w, q.w), (k.hub, q.hub), (k.scratch, q.scratch),
                      (k.wmax, q.wmax)):
@@ -1168,24 +1174,33 @@ def cache_lm_items(cuda, scene, ns, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ns", [(4097, 1000),
-                                tuple([0] + [31 + 263 * k for k in range(15)])])
+                                tuple([0] + [31 + 263 * k for k in range(15)]),
+                                tuple(31 + 950 * k for k in range(17)),
+                                (34000, 500)])
 def test_lm_run_cache_matches_plain(cuda, scene, ns, dtype):
-    """``lm_run`` over 2 and 16 cache items of ragged point counts (one
-    of 0), float32 and bf16 caches: eight iterations a launch each in
+    """``lm_run`` over 2, 16 and 17 cache items of ragged point counts
+    (one of 0), which ``lm_cluster`` runs (a cluster of the most spans of
+    an item, at most 16, blocks an item), and over 2 with one of 34 spans,
+    which the cooperative ``lm_run`` runs (a block a span), float32 and
+    bf16 caches: eight iterations a launch each in
     lockstep with the plain iteration on the card (per-point values and
     weight maxima bit-equal, sums equal once rounded to float32, int
     words equal, float words within 1e-5); then one launch of all eight
     from the fresh state ends on the same bits, and the plain iteration
     alone ends on the same int words and poses within 1e-5. Part of the
-    points lie outside their windows (they drop out), and the kernels'
-    cache instantiation runs (the ``cached`` table on its own grid)."""
+    points lie outside their windows (they drop out)."""
     from emfusion_tpu_torch import tracking as tr
     cfg = TrackConfig(max_iter=8)
     items = cache_lm_items(cuda, scene, list(ns), dtype)
     k, q = tr.LMRun(items, cfg), tr.LMRun(items, cfg)
     assert k.cached
-    spans = sum(max(1, -(-m // 1024)) for m in k.n)
-    assert k.grid == min(spans, kernels.lm_run_blocks(k.dev, True))
+    spans = [max(1, -(-m // 1024)) for m in k.n]
+    if max(spans) <= 16:
+        assert k.kernel == "lm_cluster" and k.cluster == max(spans)
+        assert k.grid == len(ns) * k.cluster
+    else:
+        assert k.kernel == "lm_run" and k.cluster == 0
+        assert k.grid == min(sum(spans), kernels.lm_run_blocks(k.dev, True))
     out = sum(int(capture.out_of_window_count(
         it.anchor, it.points, it.rel_pose[:3, :3].to(cuda),
         it.rel_pose[:3, 3].to(cuda), VOXEL, SHAPE)) for it in items)
@@ -1193,7 +1208,7 @@ def test_lm_run_cache_matches_plain(cuda, scene, ns, dtype):
     hold_lm_run(k, q, cfg, cfg.max_iter)
     assert int(k.si[:, tr.SI_IT].max()) >= 2 and (k.w != 0).any()
     whole = tr.LMRun(items, cfg)
-    launched("lm_run", lambda: tr.lm_run(whole, cfg, cfg.max_iter))
+    launched(k.kernel, lambda: tr.lm_run(whole, cfg, cfg.max_iter))
     for name in ("si", "sf", "sys", "trial", "w", "hub", "scratch", "wmax"):
         assert torch.equal(getattr(whole, name), getattr(k, name)), name
     alone = tr.LMRun(items, cfg)
@@ -1203,6 +1218,32 @@ def test_lm_run_cache_matches_plain(cuda, scene, ns, dtype):
         plain_iteration(alone, cfg)
     assert torch.equal(alone.si, whole.si)
     assert (alone.sf[:, :tr.SF_X] - whole.sf[:, :tr.SF_X]).abs().max() <= 1e-5
+
+
+def test_lm_kernels_refuse_the_other_kind(cuda, scene):
+    """Each LM kernel's C entry refuses the others' tables: the
+    cooperative ``lm_run`` a table of cache items that fits a cluster,
+    ``lm_cluster`` a table of gather items and one of cache items with an
+    item of 34 spans; the launch raises and counts nothing."""
+    import ctypes
+    from emfusion_tpu_torch import tracking as tr
+    cfg = TrackConfig(max_iter=4)
+    cache = tr.LMRun(cache_lm_items(cuda, scene, [64, 64], torch.float32),
+                     cfg)
+    large = tr.LMRun(cache_lm_items(cuda, scene, [34000, 64],
+                                    torch.float32), cfg)
+    gather = tr.LMRun(lm_items(cuda, scene, 64, 2), cfg)
+    assert (cache.kernel, large.kernel) == ("lm_cluster", "lm_run")
+    before = dict(kernels.launches)
+    for run, name, grid in ((cache, "lm_run", (1,)), (gather, "lm_cluster",
+                                                      ()),
+                            (large, "lm_cluster", ())):
+        with pytest.raises(RuntimeError):
+            kernels.launch(name, ctypes.addressof(run.table), 2, 1,
+                           ctypes.addressof(run.bufs),
+                           ctypes.addressof(run.cfg_args), *grid,
+                           device=run.dev)
+    assert kernels.launches == before
 
 
 def test_split_kernels_refuse_cache_items(cuda, scene):
@@ -1227,13 +1268,13 @@ def test_split_kernels_refuse_cache_items(cuda, scene):
 CAPTURE_STARTS = (0.5, 2.0, 4.0)   # voxels along x off each LM's start
 
 
-def capture_lm_items(cuda, scene, dtype):
-    """Three LMs of ``lm_items`` (4,097 points) on the scene's volumes in
+def capture_lm_items(cuda, scene, dtype, n=4097):
+    """Three LMs of ``lm_items`` (``n`` points) on the scene's volumes in
     ``dtype``, their starts moved ``CAPTURE_STARTS`` voxels along x, as
     gather items (``tracking.capture_items`` captures their windows)."""
     from emfusion_tpu_torch.tracking import LMItem
     items = []
-    for it, dx in zip(lm_items(cuda, scene, 4097, 3), CAPTURE_STARTS):
+    for it, dx in zip(lm_items(cuda, scene, n, 3), CAPTURE_STARTS):
         start = it.rel_pose.clone()
         start[0, 3] += dx * VOXEL
         items.append(LMItem(scene["tsdf"].to(cuda).to(dtype),
@@ -1293,6 +1334,63 @@ def test_capture_lm_matches_plain(cuda, scene, dtype):
     assert run.reads <= 1 + int(si[:, tr.SI_RECAP].sum())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, kernel", [(4097, "lm_cluster"),
+                                       (17000, "lm_run")])
+def test_cache_lm_runs_each_lm_on_its_own(cuda, scene, dtype, n, kernel):
+    """One launch of ``max_iter`` iterations over the three re-capturing
+    cache items of ``n`` points (5 spans: ``lm_cluster``; 17: the
+    cooperative ``lm_run``): an LM flagged for a re-capture leaves it
+    while the others run on, so the launch ends with an LM flagged and
+    another stopped at more iterations (each LM leaves the loop on its
+    own record). Held against a chain of one-iteration launches in
+    lockstep with the plain iteration under the same rule (the plain
+    LMs that left marked ``held``; the launch would resume a flagged
+    trial, so a left LM's record and trial error are put back after
+    each): per-point values bit-equal, sums equal once rounded to
+    float32, records as ``assert_states_agree`` states; then the one
+    launch ends on the chain's bits."""
+    from emfusion_tpu_torch import tracking as tr
+    cfg = TrackConfig(max_iter=30, sampler="capture")
+    start = tr.capture_items(capture_lm_items(cuda, scene, dtype, n))
+
+    def table():
+        return tr.LMRun([dataclasses.replace(
+            it, cache=it.cache.clone(), anchor=it.anchor.clone())
+            for it in start], cfg, recaps=cfg.max_recaptures)
+    k, q, whole = table(), table(), table()
+    assert k.kernel == kernel
+    held = torch.zeros(len(start), dtype=torch.bool)
+    for i in range(cfg.max_iter):
+        if i:
+            held |= q.si[:, tr.SI_PEND].cpu() != 0
+        if not bool((q.running(q.si.cpu(), cfg) & ~held).any()):
+            break
+        keep = [x.clone() for x in (k.si, k.sf, k.trial)]
+        launched(kernel, lambda: tr.lm_run(k, cfg, 1))
+        q.held[:] = held
+        plain_iteration(q, cfg)
+        q.held[:] = False
+        h = held.to(cuda)
+        for x, y in zip((k.si, k.sf, k.trial), keep):
+            x[h] = y[h]
+        for a, b in ((k.w, q.w), (k.hub, q.hub), (k.scratch, q.scratch),
+                     (k.wmax, q.wmax)):
+            assert torch.equal(a, b)
+        assert_sums_agree(k.sys, q.sys)
+        assert_sums_agree(k.trial, q.trial)
+        assert_states_agree(k, q)
+        q.si.copy_(k.si)
+    launched(kernel, lambda: tr.lm_run(whole, cfg, cfg.max_iter))
+    for name in ("si", "sf", "sys", "trial", "w", "hub", "scratch", "wmax"):
+        assert torch.equal(getattr(whole, name), getattr(k, name)), name
+    si = whole.si.cpu()
+    flagged = si[:, tr.SI_PEND] != 0
+    stopped = ~whole.running(si, cfg)
+    assert flagged.any() and stopped.any()
+    assert int(si[stopped, tr.SI_IT].max()) > int(si[flagged, tr.SI_IT].min())
+
+
 def test_capture_lm_card_matches_cpu(cuda, scene):
     """Whole capture LMs: ``track_volumes_capture`` on the card (K3 and
     ``lm_run``) against the plain versions on the CPU, a table of the
@@ -1311,7 +1409,8 @@ def test_capture_lm_card_matches_cpu(cuda, scene):
     kres = tr.track_volumes_capture(items, cfg)
     torch.cuda.synchronize()
     qres = tr.track_volumes_capture(cpu, cfg)
-    assert kernels.launches["lm_run"] > before["lm_run"]
+    assert kernels.launches["lm_cluster"] > before["lm_cluster"]
+    assert kernels.launches["lm_run"] == before["lm_run"]
     assert kernels.launches["capture"] > before["capture"]
     recaps = sum(st["recaptures"] for _, st in kres)
     assert kres[0][1]["host_reads"] <= 1 + recaps and recaps >= 1
