@@ -230,10 +230,46 @@ under ``torchrun``.)
    512^3, ``configs/default.cfg``) on 4 ranks: under ``torchrun`` (the
    CLI's own entry) with NCCL on 4 cards, or as 4 gloo ranks sharing one
    card.
+12. Object deletion and slot re-use at full width (``configs/default.cfg``
+   as published, 40 frames): movers A (r 0.10 m, leaving the view to the
+   left at 1.2 cm a frame, out of it from frame 13) and B (the object
+   path's second mover) spawn at frame 0; A is deleted once the raycast
+   sees too little of it; C (r 0.13 m) enters at the mask frame 30 and
+   spawns into the first free slot, A's. Prints the lifecycle frame by
+   frame (live ids and slots, A's true pixels, each slot's visible
+   pixels, the object raycasts and object LMs, slot 0's largest weight,
+   ms), e2e ms a frame and peak memory; fails if A is not deleted, is
+   deleted by another rule than the not-visible one, or before it is
+   leaving the view (fewer than twice ``visibilityThresh`` of its true
+   pixels inside the boundary), if B is lost, if B's or C's x-motion
+   recovers outside 0.35-2.0 of the truth, if C does not take slot 0, if
+   slot 0 is not zero at C's spawn or holds a weight above one frame's
+   after C's first fusion, if the camera ATE reaches a voxel, if a
+   frame's K4 object raycasts and object LMs do not follow the slots
+   live at its start (one fewer after A's deletion, one more after C's
+   spawn), if a kernel of the path never ran, or on a NaN in a live
+   volume.
+13. The same scene at ``tests/test_torch_pipeline_objects.py``'s
+   ``SMALL`` size (160x120, 96^3 at 3 cm, masks every third frame), every
+   other frame, on the card and on the CPU (plain versions): fails unless
+   A is deleted and C takes slot 0, the live ids and slots are equal
+   after every frame, the camera within 0.1 background voxel, and each
+   object within 0.1 object voxel at its sphere's centre and 0.5 at its
+   volume's origin (a sphere's rotation about its centre is
+   unobservable; step 10's bound).
+14. ``configs/room4.cfg`` (1.5 cm voxels, ``volumePose`` z 3.84, its
+   intrinsics: fx 564.3, principal point (480, 270)) through the CLI: a
+   40-frame TUM sequence of the object path's scene seen through that
+   camera, ``apps.run_emfusion`` with its masks and a checkpoint, then
+   ``apps.evaluate`` and the checkpoint's 512^3 background mesh; fails on
+   a camera ATE of 1.5 cm or more or a mesh whose median distance to the
+   scene's surfaces is half a voxel or more.
 
 Kernel K6 (the projective warp) is not on either path: the port's
 fusion kernel makes its nearest-pixel pick per voxel. Step 2 holds it
-against its plain version at the main path's image and grid sizes.
+against its plain version at the main path's image and grid sizes, and
+times it beside ``emf_warp_floor``, an empty kernel on its grid and
+block (the ``floor_ms`` of its rows).
 
 Prints the card's name and power limit, one JSON line with the numbers
 of every kernel (K6 with 0 launches; ``fusion_slab`` with rank 0's
@@ -270,6 +306,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -480,9 +517,11 @@ boundary = 5
 # ---------------------------------------------------------------------
 # analytic scene: a numpy copy of the tests' ray-sphere/plane renderer
 class Scene:
-    def __init__(self, H, W, f, spheres, planes, max_depth=4.0):
+    def __init__(self, H, W, f, spheres, planes, max_depth=4.0, cx=None,
+                 cy=None):
         self.H, self.W, self.f = H, W, f
-        self.cx, self.cy = W / 2 - 0.5, H / 2 - 0.5
+        self.cx = W / 2 - 0.5 if cx is None else cx
+        self.cy = H / 2 - 0.5 if cy is None else cy
         self.spheres = spheres          # [(centre (3,), radius)]
         self.planes = planes            # [(unit normal (3,), point (3,))]
         self.max_depth = max_depth
@@ -536,8 +575,11 @@ def sensor_depth(depth, rng):
     return np.where(keep, noisy, 0.0).astype(np.float32)
 
 
-def make_scene(H, W, f):
-    return Scene(H, W, f,
+def make_scene(H, W, f, cx=None, cy=None):
+    """The analytic scene seen through a camera of focal length ``f``
+    (pixels) and principal point (``cx``, ``cy``), the image centre by
+    default."""
+    return Scene(H, W, f, cx=cx, cy=cy,
                  spheres=[(np.array([-0.45, 0.05, 1.4]), 0.35),
                           (np.array([0.5, -0.3, 1.7]), 0.3),
                           (np.array([0.1, 0.35, 2.3]), 0.4)],
@@ -562,6 +604,32 @@ def gt_pose(i):
 # motion per frame), 1.3 and 1.5 m away, clear of the scene's spheres
 MOVERS = [(np.array([-0.05, -0.35, 1.3]), 0.15, np.array([0.005, 0, 0])),
           (np.array([0.2, 0.3, 1.5]), 0.12, np.array([-0.005, 0, 0]))]
+
+
+# steps 12-13, the respawn scene: (centre at frame 0, radius, motion per
+# frame) of mover A, which leaves the view to the left (out of it from
+# frame 13) and is deleted, B (the object path's second mover), and C,
+# which enters the scene at RESPAWN_C, a mask frame, and spawns into A's
+# freed slot; RESPAWN_FROM: the frame each enters the scene
+RESPAWN_MOVERS = [
+    (np.array([-0.5, -0.42, 1.3]), 0.10, np.array([-0.012, 0.0, 0.0])),
+    MOVERS[1],
+    (np.array([-0.1, -0.35, 1.3]), 0.13, np.array([0.005, 0.0, 0.0]))]
+RESPAWN_FROM = (0, 0, 30)
+RESPAWN_C = RESPAWN_FROM[2]
+RESPAWN_FRAMES = 40
+# step 13: the scene at tests/test_torch_pipeline_objects.py's SMALL size,
+# every RESPAWN_SMALL_STEP-th frame, on the card and on the CPU
+RESPAWN_SMALL = dict(frameSize=(160, 120), fx=120.0, fy=120.0, cx=79.5,
+                     cy=59.5, globalVolumeDims=(96, 96, 96),
+                     globalVoxelSize=0.03, volumePose=(0.0, 0.0, 1.4),
+                     objVolumeDims=(32, 32, 32), maxTrackingIter=30,
+                     maskRCNNFrames=3, visibilityThresh=60,
+                     mask_min_pixels=60, raycast_max_steps=384,
+                     max_objects=4)
+RESPAWN_SMALL_STEP = 2
+RESPAWN_SMALL_FRAMES = 18
+ROOM4_FRAMES = 40             # step 14: configs/room4.cfg through the CLI
 
 
 def movers_at(i, movers=MOVERS):
@@ -1572,6 +1640,8 @@ def print_row(name, r):
                  f"{r['shares']['changed']:.3f}")
     if "stopped_ms" in r:
         extra = f", once every LM has stopped {r['stopped_ms']:.4f} ms"
+    if "floor_ms" in r:
+        extra = f", the empty kernel on its grid {r['floor_ms']:.4f} ms"
     if "call_ms" in r:
         extra += (f"; a whole call {r['call_ms']:.4f} ms (its launches, K3 "
                   f"and reads) over {r['run_iterations']} iterations with "
@@ -1606,16 +1676,11 @@ def kernel_phases(torch, pipe, depth_raw, report):
         bilateral_filter, bilateral_filter_plain,
     )
     from emfusion_tpu_torch.geometry.se3 import pose_inverse
-    from emfusion_tpu_torch.ops.warp import (
-        grid_index_homography, select_grid_at_pixels, warp_homography_plain,
-        warp_image_to_grid,
-    )
 
     p = pipe.params
     s = pipe.state
     H, W = pipe.H, pipe.W
     HW = H * W
-    Z, Y, X = s.bg_tsdf.shape
     vs, td = pipe.voxel, pipe.trunc
     rows = {}
     raw = torch.as_tensor(depth_raw).cuda()
@@ -1651,22 +1716,71 @@ def kernel_phases(torch, pipe, depth_raw, report):
     # the camera LM of the next frame, as track_camera builds it
     rows.update(hold_lm(torch, [pipe.camera_lm_item(points)],
                         pipe.track_cfg))
-    inv = pose_inverse(s.cam_pose) @ s.bg_pose
-    Ro, to = inv[:3, :3], inv[:3, 3]
+    rows.update(hold_warp(torch, *warp_inputs(torch, pipe, depth), report))
+    return rows
 
-    # K6 warp, both ways (exact: the same picks of the same float32
-    # values): the filtered depth onto the reference-plane grid of the
-    # volume's centre slice (as the TPU fusion warps it), and that grid
-    # back onto the pixels (as the TPU raycast warps its t* grid back)
+
+def warp_inputs(torch, pipe, depth):
+    """K6's inputs at the main path's sizes, as the TPU fusion and
+    raycast use the warp: the filtered ``depth`` and the homography of
+    the volume's centre slice (voxel indices -> pixels) at the state's
+    camera pose, with the slice's plane."""
+    from emfusion_tpu_torch.geometry.se3 import pose_inverse
+
+    s = pipe.state
+    Z, Y, X = s.bg_tsdf.shape
+    inv = pose_inverse(s.cam_pose) @ s.bg_pose
+    Bmat = centre_slice_homography(torch, inv[:3, :3], inv[:3, 3],
+                                   pipe.intr, pipe.voxel, (Z, Y, X))
+    return depth, Bmat, (-0.5, -0.5, float(X), float(Y))
+
+
+def warp_floor_ms(torch, img, M, nS, nL, plane, round_half, mask_oob):
+    """Device ms of ``emf_warp_floor``: an empty kernel on K6's grid and
+    block with K6's arguments (timed as K6 is, not counted as a
+    launch)."""
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch.ops.warp import _homography_args
+
+    out = torch.empty((nS, nL), dtype=torch.float32, device=img.device)
+    H, W = img.shape
+    args = (img.data_ptr(), out.data_ptr(), H, W, nS, nL,
+            *_homography_args(M, plane), int(plane is not None),
+            int(round_half), int(mask_oob))
+    fn = kernels.library("warp").emf_warp_floor
+
+    def call():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"emf_warp_floor: cudaError {err}")
+    return graph_ms(torch, call, 50)
+
+
+def hold_warp(torch, depth, Bmat, plane, report=None):
+    """K6 both ways against its plain version (exact: the same picks of
+    the same float32 values): ``depth`` onto the ``GRID`` reference-plane
+    grid of ``plane`` through ``Bmat`` (as the TPU fusion warps it), and
+    that grid back onto the pixels (as the TPU raycast warps its t* grid
+    back). Each row also has ``floor_ms``, the empty kernel on K6's grid
+    and block. Returns the ``warp_to_grid`` and ``warp_to_pixels``
+    rows."""
+    from emfusion_tpu_torch.ops.warp import (
+        grid_index_homography, select_grid_at_pixels, warp_homography_plain,
+        warp_image_to_grid,
+    )
+
+    H, W = depth.shape
+    HW = H * W
     nS, nL = GRID
-    Bmat = centre_slice_homography(torch, Ro, to, pipe.intr, vs, (Z, Y, X))
-    plane = (-0.5, -0.5, float(X), float(Y))
+    rows = {}
     kg = warp_image_to_grid(depth, Bmat, H, W, *plane, nS, nL)
     qg = warp_homography_plain(depth, Bmat, nS, nL, plane)
     rows["warp_to_grid"] = dict(
         max_abs_err=max_err(kg, qg), tol=0.0,
         ms=graph_ms(torch, lambda: warp_image_to_grid(
             depth, Bmat, H, W, *plane, nS, nL), 50),
+        floor_ms=warp_floor_ms(torch, depth, Bmat, nS, nL, plane, True,
+                               True),
         plain_ms=time_ms(torch, lambda: warp_homography_plain(
             depth, Bmat, nS, nL, plane), 20),
         bound=bound(4 * HW + 4 * nS * nL, 25 * nS * nL), library_ms=None)
@@ -1679,10 +1793,12 @@ def kernel_phases(torch, pipe, depth_raw, report):
         max_abs_err=max_err(kp, qp), tol=0.0,
         ms=graph_ms(torch, lambda: select_grid_at_pixels(
             kg, Binv, *plane, H, W), 50),
+        floor_ms=warp_floor_ms(torch, kg, M, H, W, None, False, False),
         plain_ms=time_ms(torch, lambda: warp_homography_plain(
             kg, M, H, W, None, round_half=False, mask_oob=False), 20),
         bound=bound(4 * nS * nL + 4 * HW, 20 * HW), library_ms=None)
-    report["warp_grid_cells_seen"] = float((qg > 0).float().mean())
+    if report is not None:
+        report["warp_grid_cells_seen"] = float((qg > 0).float().mean())
     return rows
 
 
@@ -2167,10 +2283,10 @@ def anchored_track(traj, offsets):
     return out
 
 
-def motion_recovery(pipe, step=1):
-    """For each live object: the mover it was spawned on (the nearest
-    centre), and its x-motion from spawn to the last frame over the
-    mover's true x-motion (the JAX object gate's measure,
+def motion_recovery(pipe, step=1, movers=MOVERS):
+    """For each live object: the mover of ``movers`` it was spawned on
+    (the nearest centre), and its x-motion from spawn to the last frame
+    over the mover's true x-motion (the JAX object gate's measure,
     ``tests/test_accuracy_gate_objects.py:134-146``)."""
     out = {}
     for oid in pipe.active_object_ids:
@@ -2178,9 +2294,9 @@ def motion_recovery(pipe, step=1):
                                pipe.meta[oid].pose_offsets)
         fs = sorted(track)
         j = int(np.argmin([np.linalg.norm(track[fs[0]] - c) for c, _ in
-                           movers_at(step * fs[0])]))
-        true = (movers_at(step * fs[-1])[j][0][0]
-                - movers_at(step * fs[0])[j][0][0])
+                           movers_at(step * fs[0], movers)]))
+        true = (movers_at(step * fs[-1], movers)[j][0][0]
+                - movers_at(step * fs[0], movers)[j][0][0])
         out[oid] = dict(mover=j, frames=[fs[0], fs[-1]],
                         dx_est=float(track[fs[-1]][0] - track[fs[0]][0]),
                         dx_true=float(true))
@@ -3716,6 +3832,389 @@ def small_reference(torch, rng, report):
 
 
 # ---------------------------------------------------------------------
+# steps 12-14: object deletion and slot re-use at full width and at the
+# small size (card against CPU), and configs/room4.cfg through the CLI
+def respawn_scene(scene, params, n_frames, rng, step=1):
+    """Depth frames of the scene with the ``RESPAWN_MOVERS`` present at
+    frame ``step * i`` (``RESPAWN_FROM``) for frame ``i``, their
+    ground-truth masks on the mask frames (every ``maskRCNNFrames``, in
+    the movers' order), and per frame mover A's pixels inside the
+    ``boundary`` (where the raycast counts an object visible)."""
+    frames, masks, a_pixels = [], {}, []
+    b, H, W = params.boundary, scene.H, scene.W
+    for i in range(n_frames):
+        f = step * i
+        movers = [m for m, f0 in zip(movers_at(f, RESPAWN_MOVERS),
+                                     RESPAWN_FROM) if f >= f0]
+        depth, ms = scene.render(gt_pose(f), movers)
+        frames.append(sensor_depth(depth, rng))
+        a_pixels.append(int(ms[0][b:H - b, b:W - b].sum()))
+        if i % params.maskRCNNFrames == 0:
+            masks[i] = ms
+    return frames, masks, a_pixels
+
+
+def respawn_frames(torch, pipe, frames, spawn_frame, after=None):
+    """Drive ``pipe`` over ``frames`` (calling ``after()`` after each);
+    per frame its host ms around a synchronised frame (on the card) and
+    its lifecycle: the live ids, their slots and voxel sizes, the slots
+    live at the frame's start, each slot's visible pixels in the frame's
+    raycast, the object raycasts (K4 launches at the object shape) and
+    the object LMs of the frame, the largest weight of slot 0, and
+    whether a live slot's volume holds a NaN. Also returns, for each
+    slot spawned at frame ``spawn_frame``, the largest magnitude of its
+    tsdf, weights and fg counts as the spawn left them, before the
+    frame's fusion."""
+    from emfusion_tpu_torch import kernels
+
+    cuda = pipe.device.type == "cuda"
+    obj_shape = tuple(pipe.state.objs.tsdf.shape[1:])
+    zeroed = {}
+    fuse = pipe.integrate
+
+    def integrate(depth):
+        if pipe.frame == spawn_frame:
+            o = pipe.state.objs
+            for k in pipe._frame_spawned:
+                zeroed[k] = max(float(t[k].abs().max())
+                                for t in (o.tsdf, o.weights, o.fg_counts))
+        return fuse(depth)
+
+    pipe.integrate = integrate
+    life, e2e = [], []
+    try:
+        for depth in frames:
+            before = dict(kernels.launches_by_shape)
+            live = [int(k) for k in np.nonzero(pipe._h_active)[0]]
+            first = pipe.frame == 0
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.process_frame(None, depth, timestamp=float(pipe.frame))
+            if cuda:
+                torch.cuda.synchronize()
+            e2e.append(1e3 * (time.perf_counter() - t0))
+            o, rc = pipe.state.objs, pipe._last_raycast
+            ids = pipe.active_object_ids
+            life.append(dict(
+                ids=ids, slots={j: pipe._slot_of(j) for j in ids},
+                vs={j: float(o.voxel_size[pipe._slot_of(j)]) for j in ids},
+                live_before=live,
+                vis=(None if first
+                     else rc["vis_counts"].cpu().numpy().tolist()),
+                obj_raycasts=kernels.launches_by_shape[
+                    ("raycast", obj_shape)] - before.get(
+                        ("raycast", obj_shape), 0),
+                object_lms=0 if first else len(pipe.last_obj_track_stats),
+                slot0_max_weight=float(o.weights[0].max()),
+                nan=any(bool(torch.isnan(t[pipe._slot_of(j)]).any())
+                        for j in ids for t in (o.tsdf, o.weights))))
+            if after is not None:
+                after()
+    finally:
+        pipe.integrate = fuse
+    return life, e2e, zeroed
+
+
+def respawn_lifecycle(life, a_pixels, thresh, spawn_frame):
+    """A's deletion frame; the frame from which it is leaving the view
+    (fewer than ``2 * thresh`` of its true pixels inside the boundary: the
+    raycast of a fused sphere misses the rim of its silhouette, 10-40% of
+    its true pixels as it leaves, so the not-visible rule may fire a frame
+    before the truth falls under ``thresh``) and the frame from which it
+    is out of it (at most ``thresh``); the rule that deleted it (its
+    slot's raycast count at most ``thresh``: not visible); C's id and
+    slot."""
+    a = 1                          # the first spawn: mover A, slot 0
+    deleted = next((i for i, r in enumerate(life) if a not in r["ids"]),
+                   None)
+    leaving = next((i for i, n in enumerate(a_pixels) if n < 2 * thresh),
+                   None)
+    left = next((i for i, n in enumerate(a_pixels) if n <= thresh), None)
+    rule = None
+    if deleted is not None:
+        rule = ("not visible" if life[deleted]["vis"][0] <= thresh
+                else "association or existence")
+    new = [j for j in life[spawn_frame]["ids"]
+           if j not in life[spawn_frame - 1]["ids"]]
+    c = new[0] if len(new) == 1 else None
+    return dict(a_deleted=deleted, a_leaving=leaving, a_left=left,
+                rule=rule, c=c, c_slot=life[spawn_frame]["slots"].get(c))
+
+
+def respawn_path(torch, params, scene, rng, report):
+    """Step 12: ``RESPAWN_FRAMES`` frames of the respawn scene at full
+    width (``configs/default.cfg``): movers A and B spawn at frame 0, A
+    leaves the view for good and is deleted, C enters at ``RESPAWN_C`` (a
+    mask frame) and spawns into the first free slot, A's. Fails if A is
+    not deleted, or is deleted by another rule than the not-visible one
+    or before it is leaving the view (:func:`respawn_lifecycle`), if B is
+    lost, if B's or C's x-motion recovers outside 0.35-2.0 of the truth,
+    if C does not take slot 0, if slot 0 is not zero at C's spawn or
+    holds a weight above one frame's (1) after C's first fusion, if the
+    camera ATE reaches a voxel, if the object raycasts and the object LMs
+    of a frame do not follow the slots live at its start, if a kernel of
+    the path never ran, or on a NaN in a live volume."""
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    n = RESPAWN_FRAMES
+    frames, masks, a_px = respawn_scene(scene, params, n, rng)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()    # what earlier steps hold
+    pipe = EMFusionPipeline(params, mask_provider(masks))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    life, e2e, zeroed = respawn_frames(torch, pipe, frames, RESPAWN_C)
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    thresh = params.visibilityThresh
+    lc = respawn_lifecycle(life, a_px, thresh, RESPAWN_C)
+    rec = motion_recovery(pipe, movers=RESPAWN_MOVERS)
+    ate = camera_ate(pipe, n)
+    for i, r in enumerate(life):
+        print(f"respawn path frame {i}: live {r['slots']} (id: slot), A's "
+              f"pixels {a_px[i]}, visible {r['vis']}, object raycasts "
+              f"{r['obj_raycasts']}, object LMs {r['object_lms']}, slot 0's "
+              f"largest weight {r['slot0_max_weight']:.3f}, "
+              f"{e2e[i]:.3f} ms", flush=True)
+    report["respawn_path"] = dict(
+        frames=n, mask_frames=sorted(masks), lifecycle=lc, life=life,
+        a_pixels=a_px, e2e_ms=e2e,
+        e2e_ms_per_frame=float(np.mean(e2e[1:])),
+        max_memory_allocated=peak, memory_held_before=base,
+        launches=launches, ate=ate, recovery=rec,
+        spawn_slot_max_abs=zeroed,
+        phase_ms_per_call=pipe.timer.ms_per_call())
+    print(f"respawn path: {n} frames 640x480 into 512^3; A deleted at frame "
+          f"{lc['a_deleted']} (rule: {lc['rule']}), leaving the view from "
+          f"frame {lc['a_leaving']}, out of it from frame {lc['a_left']}; "
+          f"C (id {lc['c']}) spawned at frame {RESPAWN_C} "
+          f"into slot {lc['c_slot']}, its volumes' largest magnitude at the "
+          f"spawn {zeroed}, slot 0's largest weight before / after C's "
+          f"first fusion {life[RESPAWN_C - 1]['slot0_max_weight']:.3f} / "
+          f"{life[RESPAWN_C]['slot0_max_weight']:.3f}; e2e "
+          f"{np.mean(e2e[1:]):.3f} ms/frame (frames 1..); peak memory "
+          f"{peak / 2**30:.3f} GiB (above the {base / 2**30:.3f} GiB "
+          f"earlier steps hold); camera ATE rmse {ate['rmse'] * 1e3:.3f} "
+          f"mm; x-motion recovery " + ", ".join(
+              f"object {oid} (mover {'ABC'[r['mover']]}) {r['recovery']:.3f}"
+              for oid, r in rec.items()), flush=True)
+    check_launches("respawn path", launches, PATH_KERNELS, pipe.timer,
+                   forbidden=LM_SPLIT_KERNELS + [LM_CLUSTER])
+    bad = []
+    if lc["a_deleted"] is None:
+        bad.append("A was not deleted")
+    elif lc["a_leaving"] is None or lc["a_deleted"] < lc["a_leaving"] \
+            or lc["rule"] != "not visible":
+        bad.append(f"A was deleted at frame {lc['a_deleted']} by the "
+                   f"{lc['rule']} rule, before it left the view (from "
+                   f"frame {lc['a_leaving']})")
+    if sorted(r["mover"] for r in rec.values()) != [1, 2]:
+        bad.append(f"B or C lost: {rec}")
+    bad += [f"object {o} x-motion not recovered: {r}"
+            for o, r in rec.items() if not 0.35 < r["recovery"] < 2.0]
+    if lc["c_slot"] != 0:
+        bad.append(f"C took slot {lc['c_slot']}, not A's freed slot 0")
+    if zeroed.get(0) != 0.0:
+        bad.append(f"slot 0 not zero at C's spawn: {zeroed}")
+    if not life[RESPAWN_C]["slot0_max_weight"] <= 1.0:
+        bad.append("slot 0 holds a weight that C's first frame did not "
+                   "fuse")
+    if not ate["rmse"] < VOXEL_CUT:
+        bad.append(f"ATE {ate['rmse']} m >= {VOXEL_CUT} m")
+    follow = [i for i, r in enumerate(life[1:], 1)
+              if r["obj_raycasts"] != len(r["live_before"])
+              or r["object_lms"] != len(r["live_before"])]
+    if follow:
+        bad.append(f"object raycasts or LMs do not follow the live slots "
+                   f"at frames {follow}")
+    if lc["a_deleted"] is not None and lc["a_deleted"] + 1 < n and (
+            len(life[lc["a_deleted"] + 1]["live_before"])
+            != len(life[lc["a_deleted"]]["live_before"]) - 1
+            or len(life[RESPAWN_C + 1]["live_before"])
+            != len(life[RESPAWN_C]["live_before"]) + 1):
+        bad.append("the live slots did not fall by one after A's deletion "
+                   "and rise by one after C's spawn")
+    nan = [i for i, r in enumerate(life) if r["nan"]]
+    if nan:
+        bad.append(f"NaN in a live volume at frames {nan}")
+    if bad:
+        raise RuntimeError("respawn path: " + "; ".join(bad))
+
+
+def host_snapshot(pipe):
+    """``pipe``'s state copied to the host, with the bookkeeping that
+    ``load_state`` takes."""
+    from emfusion_tpu_torch.pipeline import ObjectPool, PipelineState
+
+    s = pipe.state
+    objs = ObjectPool(**{f.name: getattr(s.objs, f.name).cpu().clone()
+                         for f in dataclasses.fields(ObjectPool)})
+    state = PipelineState(objs=objs, **{
+        f.name: getattr(s, f.name).cpu().clone()
+        for f in dataclasses.fields(PipelineState) if f.name != "objs"})
+    return dict(state=state, frame=pipe.frame,
+                meta=copy.deepcopy(pipe.meta), next_id=pipe._next_id,
+                poses=dict(pipe.poses))
+
+
+def respawn_small(torch, rng, report):
+    """Step 13: the respawn scene at ``tests/test_torch_pipeline_objects.
+    py``'s ``SMALL`` size (160x120, 96^3 at 3 cm, 32^3 objects, masks
+    every third frame), every ``RESPAWN_SMALL_STEP``-th frame of step
+    12's, on the card, and on the CPU (plain versions) frame by frame
+    from the card's states: the CPU's frame ``f`` from the card's state
+    after frame ``f - 1``. Fails unless A is deleted and C spawns into
+    slot 0, every frame's live ids and slots are the card's, a spawn
+    finds its slot zeroed on both, and every frame's camera position is
+    within 0.1 background voxel of the card's and each object's within
+    0.1 object voxel. (Run free, the two drift apart at mover B: its
+    position moves by up to 0.44 object voxel when the CPU run's depth is
+    scaled by 1 + 2e-7, ``scripts/respawn_spread.py``.)"""
+    from emfusion_tpu_torch.config import Params
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    params = Params(**RESPAWN_SMALL)
+    scene = make_scene(120, 160, 120.0)
+    step = RESPAWN_SMALL_STEP
+    spawn = RESPAWN_C // step
+    frames, masks, a_px = respawn_scene(scene, params, RESPAWN_SMALL_FRAMES,
+                                        rng, step=step)
+    t0 = time.perf_counter()
+    card = EMFusionPipeline(params, mask_provider(masks))
+    snaps = []
+    life, _, zeroed = respawn_frames(
+        torch, card, frames, spawn,
+        after=lambda: snaps.append(host_snapshot(card)))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_life, cpu_zeroed, cam, obj = [], {}, [], {}
+    for i, depth in enumerate(frames):
+        pipe = EMFusionPipeline(params, mask_provider(masks), device="cpu")
+        if i:
+            snap = snaps[i - 1]
+            pipe.load_state(snap["state"], frame=snap["frame"],
+                            meta=snap["meta"], next_id=snap["next_id"],
+                            poses=snap["poses"])
+        r, _, z = respawn_frames(torch, pipe, [depth], spawn)
+        cpu_life += r
+        cpu_zeroed.update(z)
+        cam.append(float(np.linalg.norm(pipe.poses[i][:3, 3]
+                                        - card.poses[i][:3, 3])))
+        for o, traj in pipe.obj_poses.items():
+            if i in traj:
+                vs = r[0]["vs"].get(o, life[i - 1]["vs"].get(o))
+                theirs = card.obj_poses.get(o, {}).get(i)
+                obj.setdefault(o, []).append(float("inf") if theirs is None
+                                             else float(np.linalg.norm(
+                                                 traj[i][:3, 3]
+                                                 - theirs[:3, 3])) / vs)
+    cpu_s = time.perf_counter() - t0
+    lc = respawn_lifecycle(life, a_px, params.visibilityThresh, spawn)
+    same = [i for i, (x, y) in enumerate(zip(life, cpu_life))
+            if (x["ids"], x["slots"]) != (y["ids"], y["slots"])]
+    worst = {o: max(g) for o, g in obj.items()}
+    report["respawn_small"] = dict(
+        frames=RESPAWN_SMALL_FRAMES, step=step, lifecycle=lc,
+        slots=[r["slots"] for r in life], frames_differing=same,
+        spawn_slot_max_abs=dict(card=zeroed, cpu=cpu_zeroed),
+        camera_translation_diff=cam, object_translation_diff_voxels=obj,
+        seconds=dict(card=card_s, cpu=cpu_s))
+    print(f"respawn scene at 160x120, the CPU frame by frame from the "
+          f"card's states: live (id: slot) per frame "
+          f"{[r['slots'] for r in life]}; A deleted at frame "
+          f"{lc['a_deleted']} ({lc['rule']}), C (id {lc['c']}) into slot "
+          f"{lc['c_slot']} at frame {spawn}, zeroed at its spawn "
+          f"{zeroed} / {cpu_zeroed}; frames whose lifecycle differs "
+          f"{same}; max camera translation difference {max(cam):.3e} m "
+          f"(limit {0.1 * params.globalVoxelSize:.3e}); max object "
+          f"translation difference in object voxels {worst} (limit 0.1); "
+          f"card {card_s:.1f} s, CPU {cpu_s:.1f} s", flush=True)
+    if lc["a_deleted"] is None or lc["c_slot"] != 0 or same or \
+            zeroed.get(0) != 0.0 or cpu_zeroed.get(0) != 0.0:
+        raise RuntimeError(f"respawn scene at 160x120: lifecycle {lc}, "
+                           f"card and CPU differ at frames {same}, zeroed "
+                           f"at the spawn {zeroed} / {cpu_zeroed}")
+    if not max(cam) < 0.1 * params.globalVoxelSize or not all(
+            v < 0.1 for v in worst.values()):
+        raise RuntimeError("respawn scene at 160x120: card and CPU poses "
+                           "disagree")
+
+
+def room4_cli(torch, rng, report):
+    """Step 14: ``configs/room4.cfg`` (1.5 cm voxels, ``volumePose`` z
+    3.84, its intrinsics) through the CLI: a ``ROOM4_FRAMES``-frame TUM
+    sequence of the object path's scene seen through room4's camera
+    (:func:`write_tum_sequence`), ``apps.run_emfusion`` with its masks
+    and a checkpoint at the end, ``apps.evaluate``, then the 512^3
+    background mesh of the checkpoint. Fails on a camera ATE of a voxel
+    or more, or a mesh whose median distance to the scene's surfaces is
+    half a voxel or more."""
+    from emfusion_tpu_torch import kernels
+    from emfusion_tpu_torch.apps import evaluate, run_emfusion
+    from emfusion_tpu_torch.checkpoint import load_checkpoint
+    from emfusion_tpu_torch.config import load_config
+    from emfusion_tpu_torch.io.writers import background_mesh
+    from emfusion_tpu_torch.pipeline import EMFusionPipeline
+
+    config = os.path.join(HERE, "configs", "room4.cfg")
+    params = load_config(config)
+    vs = params.globalVoxelSize
+    scene = make_scene(params.height, params.width, params.fx, params.cx,
+                       params.cy)
+    work = os.path.join(HERE, "chip_smoke_work")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        seq, out = os.path.join(work, "seq"), os.path.join(work, "out")
+        ck = os.path.join(work, "ck.npz")
+        write_tum_sequence(seq, params, scene, ROOM4_FRAMES, rng)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        text, run_s = run_cli(run_emfusion, [
+            "-t", seq, "-m", os.path.join(seq, "masks"), "-c", config,
+            "-e", out, "--checkpoint", ck, "--checkpoint-every",
+            str(ROOM4_FRAMES)])
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        steady = [float(line.split()[1]) for line in text.splitlines()
+                  if line.startswith("steady-state:")]
+        ev, _ = run_cli(evaluate, [out, os.path.join(seq, "groundtruth.txt"),
+                                   "--json"])
+        ate = json.loads(ev)["camera"]
+        live = sorted(int(f[5:-4]) for f in os.listdir(out)
+                      if f.startswith("mesh_") and f[5:-4].isdigit())
+        pipe = EMFusionPipeline(params)
+        load_checkpoint(pipe, ck)
+        verts, _, tris = background_mesh(pipe)
+        world = verts @ pipe.state.bg_pose[:3, :3].numpy().T \
+            + pipe.state.bg_pose[:3, 3].numpy()
+        dist = scene_distance(scene, world, movers_at(ROOM4_FRAMES - 1))
+        med = float(np.median(dist)) if len(dist) else float("inf")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report["room4_cli"] = dict(
+        frames=ROOM4_FRAMES, voxel_size=vs, run_s=run_s,
+        steady_ms_per_frame=steady, launches=launches, ate=ate,
+        live_objects=live, mesh_vertices=len(verts),
+        mesh_triangles=len(tris), mesh_median_scene_distance_m=med)
+    print(f"room4 cli: {ROOM4_FRAMES} frames 640x480 (fx {params.fx}, cx "
+          f"{params.cx}, cy {params.cy}) into 512^3 at {vs * 1e3:.1f} mm, "
+          f"{run_s:.3f} s, steady-state {steady} ms/frame; camera ATE rmse "
+          f"{ate['ate_rmse'] * 1e3:.3f} mm ({ate['pairs']} pairs, limit "
+          f"{vs * 1e3:.1f}); live objects {live}; mesh {len(verts)} "
+          f"vertices, median distance to the scene {med * 1e3:.3f} mm "
+          f"(limit {0.5 * vs * 1e3:.2f})", flush=True)
+    check_launches("room4 cli", launches, PATH_KERNELS,
+                   forbidden=LM_SPLIT_KERNELS)
+    if not ate["ate_rmse"] < vs:
+        raise RuntimeError(f"room4 cli: ATE {ate['ate_rmse']} m >= {vs} m")
+    if not len(verts) or not med < 0.5 * vs:
+        raise RuntimeError(f"room4 cli: the background mesh lies {med} m "
+                           "(median) from the scene")
+
+
+# ---------------------------------------------------------------------
 # step 11: the distributed path
 def hold_fusion_slab(torch, pipe, depth_raw):
     """K1's slab form: the background of ``pipe``'s fusion table cut into
@@ -4408,6 +4907,8 @@ def table_row(name, src, replaces, r, launches):
            "library_ms": r["library_ms"]}
     if "bound_all" in r:
         row["bound_all_ms"] = r["bound_all"][0]
+    if "floor_ms" in r:
+        row["floor_ms"] = r["floor_ms"]
     return row
 
 
@@ -4473,7 +4974,7 @@ def only_distributed(torch, args, params, scene, rng, report, stress_path,
 
 def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
               card):
-    """Steps 1-11."""
+    """Steps 1-14."""
     from emfusion_tpu_torch.config import Params
     from emfusion_tpu_torch.pipeline import EMFusionPipeline
 
@@ -4649,6 +5150,14 @@ def whole_run(torch, args, params, scene, rng, report, stress_path, lap,
     slab_launches, group_lm = distributed_step(torch, params, stress, life,
                                                report)
     lap("distributed")
+    # steps 12-14, each with noise of its own
+    respawn_path(torch, params, scene, np.random.default_rng(args.seed + 3),
+                 report)
+    lap("respawn (full width)")
+    respawn_small(torch, np.random.default_rng(args.seed + 4), report)
+    lap("respawn (160x120, card vs CPU)")
+    room4_cli(torch, np.random.default_rng(args.seed + 5), report)
+    lap("room4 cli")
 
     row_launches = {name: (obj_launches if name in obj_rows
                            else launches)[kernel]

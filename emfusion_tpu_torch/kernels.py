@@ -101,7 +101,9 @@ KERNELS = {
 # (which takes nothing): source stem -> {entry: argument types}; each
 # returns an int
 HELPERS = {"lm": {"emf_lm_run_blocks": [_I, _I], "emf_lm_spans": [_I],
-                  "emf_lm_cluster_size": [_I]}}
+                  "emf_lm_cluster_size": [_I]},
+           # K6's grid launched empty, for timing only (no path calls it)
+           "warp": {"emf_warp_floor": KERNELS["warp"][2] + [_P]}}
 
 
 class FuseArgs(ctypes.Structure):

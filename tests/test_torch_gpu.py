@@ -30,7 +30,8 @@ lockstep, as ``tracking.capture_table``, and, with ``lm_run`` too, in
 one launch where a flagged LM leaves while the others run on; and whole
 LMs (the device LM, the batched
 object LM, the capture LM) on the card against the plain versions on the
-CPU.
+CPU; K6 at ragged sizes with cells behind the plane; and a deletion with
+its slot re-used by a new object, card against CPU.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; without a card every
 test skips. On a machine with a card::
@@ -273,6 +274,37 @@ def test_warp_kernel(cuda):
     k = launched("warp", lambda: warp.warp_image_to_grid(
         img, Bmat, Hh, Ww, *plane, nS, nL))
     q = warp.warp_homography_plain(img, Bmat, nS, nL, plane)
+    assert torch.equal(k, q) and (k == 0).any() and (k > 0).any()
+    Binv = torch.linalg.inv(Bmat)
+    k2 = launched("warp", lambda: warp.select_grid_at_pixels(
+        k, Binv, *plane, Hh, Ww))
+    M = warp.grid_index_homography(Binv, *plane, nS, nL)
+    q2 = warp.warp_homography_plain(k, M, Hh, Ww, None, round_half=False,
+                                    mask_oob=False)
+    assert torch.equal(k2, q2)
+
+
+@pytest.mark.parametrize("nL", [67, 68])
+def test_warp_kernel_ragged(cuda, nL):
+    """K6 at ragged sizes, exact both ways: a 37x53 image onto a 41 x
+    ``nL`` grid (67: rows that are no multiple of four cells; 68: rows of
+    whole four-cell groups) through a homography that sends part of the
+    grid behind the plane (those cells read 0) and part outside the
+    image, and the grid back onto the pixels."""
+    Hh, Ww, nS = 37, 53, 41
+    rng = np.random.RandomState(5)
+    img = torch.tensor((0.5 + rng.rand(Hh, Ww)).astype(np.float32),
+                       device=cuda)
+    Bmat = torch.tensor([[Ww * 0.12, 2.0, Ww * 0.3],
+                         [1.5, Hh * 0.11, Hh * 0.25], [-0.3, 0.007, 1.0]])
+    plane = (-2.5, -2.0, 9.0, 8.0)
+    k = launched("warp", lambda: warp.warp_image_to_grid(
+        img, Bmat, Hh, Ww, *plane, nS, nL))
+    q = warp.warp_homography_plain(img, Bmat, nS, nL, plane)
+    ag = (torch.arange(nL) + 0.5) / nL * plane[2] + plane[0]
+    bg = (torch.arange(nS) + 0.5) / nS * plane[3] + plane[1]
+    hz = Bmat[2, 0] * ag[None, :] + Bmat[2, 1] * bg[:, None] + Bmat[2, 2]
+    assert (hz <= 0).any() and (hz > 0).any()   # cells behind the plane
     assert torch.equal(k, q) and (k == 0).any() and (k > 0).any()
     Binv = torch.linalg.inv(Bmat)
     k2 = launched("warp", lambda: warp.select_grid_at_pixels(
@@ -1420,6 +1452,85 @@ def test_capture_lm_card_matches_cpu(cuda, scene):
         assert abs(ks["iterations"] - qs["iterations"]) <= 1
         assert ks["converged"] == qs["converged"]
         assert torch.allclose(kp, qp, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# a deletion and the freed slot re-used, card against CPU
+# tests/test_torch_pipeline_objects.py's SMALL configuration
+SMALL = dict(frameSize=(160, 120), fx=120.0, fy=120.0, cx=79.5, cy=59.5,
+             globalVolumeDims=(96, 96, 96), globalVoxelSize=0.03,
+             volumePose=(0.0, 0.0, 1.4), objVolumeDims=(32, 32, 32),
+             maxTrackingIter=30, maskRCNNFrames=3, visibilityThresh=60,
+             mask_min_pixels=60, raycast_max_steps=384, max_objects=4)
+
+
+def respawn_run(dev):
+    """``tests/test_torch_pipeline_objects.respawn_sequence`` on ``dev``:
+    a static camera, object A seen at frames 0-2 (masked at 0), far out
+    of view at 3-5, object C elsewhere at frame 6, masked there. Per
+    frame the live ids and their slots; the camera and object poses, the
+    object voxel sizes, and slot 0's largest tsdf, weight and fg count
+    magnitude as C's spawn left it, before its first fusion."""
+    from emfusion_tpu_torch.segmentation import (
+        CallableMaskProvider, Detection, make_score_vector,
+    )
+    sc = SyntheticScene()
+    cam = np.eye(4, dtype=np.float32)
+    shots = [sc.render(cam, np.array(c)) for c in
+             [(0.22, 0.1, 1.05)] * 3 + [(50.0, 50.0, 50.0)] * 3
+             + [(-0.1, -0.2, 1.0)]]
+
+    def detect(rgb, frame):
+        return [Detection(mask=shots[frame][1],
+                          scores=make_score_vector(3, 0.9))
+                ] if frame in (0, 6) else []
+    pipe = EMFusionPipeline(Params(**SMALL), CallableMaskProvider(detect),
+                            device=dev)
+    fuse, spawned = pipe.integrate, {}
+
+    def integrate(depth):
+        if pipe.frame == 6:
+            o = pipe.state.objs
+            spawned[0] = max(float(t[0].abs().max())
+                             for t in (o.tsdf, o.weights, o.fg_counts))
+        return fuse(depth)
+    pipe.integrate = integrate
+    life, vs = [], {}
+    for d, _ in shots:
+        pipe.process_frame(None, d)
+        ids = pipe.active_object_ids
+        life.append({i: pipe._slot_of(i) for i in ids})
+        vs.update({i: float(pipe.state.objs.voxel_size[pipe._slot_of(i)])
+                   for i in ids})
+    return dict(life=life, poses=dict(pipe.poses), vs=vs,
+                obj_poses={i: dict(t) for i, t in pipe.obj_poses.items()},
+                spawned=spawned)
+
+
+def test_respawn_card_matches_cpu(cuda):
+    """A deletion and the freed slot re-used (the respawn scene of
+    ``tests/test_torch_pipeline_objects.py``) on the card and on the CPU:
+    A deleted at frame 3, C spawned at frame 6 into slot 0 from zeroed
+    volumes, the same ids in the same slots after every frame, camera
+    positions within 0.1 background voxel and object positions within
+    0.1 object voxel."""
+    before = dict(kernels.launches)
+    card = respawn_run(cuda)
+    for name in ("fusion", "sample", "raycast", "bilateral", "lm_run"):
+        assert kernels.launches[name] > before[name], name
+    cpu = respawn_run(torch.device("cpu"))
+    assert card["life"] == cpu["life"] \
+        == [{1: 0}] * 3 + [{}] * 3 + [{2: 0}]
+    assert card["spawned"] == cpu["spawned"] == {0: 0.0}
+    for f, q in cpu["poses"].items():
+        assert np.linalg.norm(card["poses"][f][:3, 3] - q[:3, 3]) \
+            < 0.1 * SMALL["globalVoxelSize"], f
+    assert card["obj_poses"].keys() == cpu["obj_poses"].keys()
+    for i, traj in cpu["obj_poses"].items():
+        assert card["obj_poses"][i].keys() == traj.keys()
+        for f, q in traj.items():
+            assert np.linalg.norm(card["obj_poses"][i][f][:3, 3] - q[:3, 3]) \
+                < 0.1 * cpu["vs"][i], (i, f)
 
 
 # ---------------------------------------------------------------------

@@ -2,9 +2,10 @@
 provider (spawn, E-step object terms, object LMs, the raycast composite,
 object fusion, mask integration, match, resize and delete) against the
 JAX pipeline on the CPU, frame by frame, over the rigid and growing
-scenes of ``tests/test_accuracy_gate_objects.py`` and the deletion scene
-of ``tests/test_pipeline.py``; and the carry-over of a JAX state with a
-live object into the port."""
+scenes of ``tests/test_accuracy_gate_objects.py``, the deletion scene
+of ``tests/test_pipeline.py`` and a deletion followed by a spawn into
+the freed slot; and the carry-over of a JAX state with a live object
+into the port."""
 
 import dataclasses
 
@@ -64,6 +65,21 @@ def deletion_sequence():
     return frames, masks
 
 
+def respawn_sequence():
+    """A deletion, then the freed slot re-used: the deletion scene (object
+    A seen at frames 0-2, masked at 0, far out of view at frames 3-4, so
+    deleted) run on with A still gone at frame 5 and another object, C,
+    elsewhere in view at frame 6, masked there (the next mask frame),
+    where it spawns into A's slot, the first free one."""
+    frames, masks = deletion_sequence()
+    scene = SyntheticScene()
+    cam = np.eye(4, dtype=np.float32)
+    frames.append(scene.render(cam, np.array([50.0, 50.0, 50.0]))[0])
+    depth, masks[6] = scene.render(cam, np.array([-0.1, -0.2, 1.0]))
+    frames.append(depth)
+    return frames, masks
+
+
 def jax_arrays(pipe):
     s, o = pipe.state, pipe.state.objs
     out = {k: np.array(getattr(s, k)) for k in
@@ -81,20 +97,22 @@ def snapshot(pipe, f):
 
 
 def record(pipe, voxel_of):
-    """The active ids, the voxel size of each and the rendered image."""
+    """The active ids, the slot and voxel size of each and the rendered
+    image."""
     ids = pipe.active_object_ids
-    return dict(ids=ids, vs={i: voxel_of(pipe, pipe._slot_of(i)) for i in ids},
+    return dict(ids=ids, slots={i: pipe._slot_of(i) for i in ids},
+                vs={i: voxel_of(pipe, pipe._slot_of(i)) for i in ids},
                 img=pipe.render())
 
 
-def drive(pipe, frames, voxel_of, snap_at=None):
-    """Run ``frames``; after each, :func:`record`, and of a JAX pipeline
-    a :func:`snapshot` (``snaps``; ``snap`` the one after frame
-    ``snap_at``). (The JAX pipeline defers a frame's end to the next
-    frame's start; it is consumed at once, with the same results. The
-    port ends its frames itself.)"""
+def drive(pipe, frames, voxel_of, snap_at=None, start=0):
+    """Run ``frames`` (frame numbers from ``start``); after each,
+    :func:`record`, and of a JAX pipeline a :func:`snapshot` (``snaps``;
+    ``snap`` the one after frame ``snap_at``). (The JAX pipeline defers a
+    frame's end to the next frame's start; it is consumed at once, with
+    the same results. The port ends its frames itself.)"""
     rec, snaps = [], []
-    for f, depth in enumerate(frames):
+    for f, depth in enumerate(frames, start):
         pipe.process_frame(None, depth, timestamp=float(f))
         if isinstance(pipe, JaxPipeline):
             pipe.flush()
@@ -106,50 +124,82 @@ def drive(pipe, frames, voxel_of, snap_at=None):
                 else None, pipe=pipe)
 
 
+def detector(masks, detection):
+    """A mask provider's function: on frame ``f``, one ``detection`` of
+    ``masks[f]`` (class 'car'), if there is one."""
+    def detect(rgb, f):
+        return [detection(mask=masks[f], scores=make_score_vector(3, 0.9))
+                ] if f in masks else []
+    return detect
+
+
+def jax_voxel(p, k):
+    return float(np.asarray(p.state.objs.voxel_size)[k])
+
+
+def port_voxel(p, k):
+    return float(p.state.objs.voxel_size[k])
+
+
 def both(frames, masks, cfg, snap_at=None):
-    def jax_provider(rgb, f):
-        return [JaxDetection(mask=masks[f], scores=make_score_vector(3, 0.9))
-                ] if f in masks else []
-
-    def provider(rgb, f):
-        return [Detection(mask=masks[f], scores=make_score_vector(3, 0.9))
-                ] if f in masks else []
-
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("EMF_TRACK_SAMPLER", "capture")
-        jax_pipe = JaxPipeline(JaxParams(**cfg), JaxProvider(jax_provider))
+        jax_pipe = JaxPipeline(JaxParams(**cfg),
+                               JaxProvider(detector(masks, JaxDetection)))
     assert jax_pipe.track_cfg.sampler == "capture"
-    jax_run = drive(jax_pipe, frames,
-                    lambda p, k: float(np.asarray(p.state.objs.voxel_size)[k]),
-                    snap_at)
-    pipe = EMFusionPipeline(Params(**cfg), CallableMaskProvider(provider),
+    jax_run = drive(jax_pipe, frames, jax_voxel, snap_at)
+    pipe = EMFusionPipeline(Params(**cfg),
+                            CallableMaskProvider(detector(masks, Detection)),
                             device="cpu", sampler="capture")
     before = dict(kernels.launches)
-    port_run = drive(pipe, frames,
-                     lambda p, k: float(p.state.objs.voxel_size[k]))
+    port_run = drive(pipe, frames, port_voxel)
     assert kernels.launches == before      # the CPU takes the plain twins
     return dict(jax=jax_run, port=port_run, frames=frames, masks=masks,
                 cfg=cfg)
 
 
-def stepped(run):
+def extend(run, frames, masks):
+    """``run`` (what :func:`both` returns) continued: both of its
+    pipelines, their mask providers handing out ``masks``, run on over
+    ``frames``, which follow its own; what :func:`both` returns for the
+    whole sequence."""
+    n = len(run["frames"])
+    out = dict(run, frames=run["frames"] + list(frames), masks=masks)
+    for key, provider, voxel_of in (
+            ("jax", JaxProvider(detector(masks, JaxDetection)), jax_voxel),
+            ("port", CallableMaskProvider(detector(masks, Detection)),
+             port_voxel)):
+        pipe = run[key]["pipe"]
+        pipe.mask_provider = provider
+        before = dict(kernels.launches)
+        more = drive(pipe, frames, voxel_of, start=n)
+        assert kernels.launches == before
+        out[key] = dict(more, rec=run[key]["rec"] + more["rec"],
+                        snaps=run[key]["snaps"] + more["snaps"])
+    return out
+
+
+def stepped(run, first=0, prior=None):
     """The port frame by frame from the JAX pipeline's states: frame 0
     from the start, each later frame ``f`` from the JAX state after frame
     ``f - 1`` (moved with ``state_from_numpy`` and its host bookkeeping,
     as ``test_state_carry_over_from_jax`` moves one); per frame what
-    :func:`drive` records, and the frame's camera and object poses."""
+    :func:`drive` records, and the frame's camera and object poses.
+    Frames before ``first`` are taken from ``prior``, the stepped run of
+    a run that ``run`` extends (:func:`extend`)."""
     masks = run["masks"]
-
-    def provider(rgb, f):
-        return [Detection(mask=masks[f], scores=make_score_vector(3, 0.9))
-                ] if f in masks else []
-
     jax = run["jax"]
-    rec, poses, obj_poses = [], {}, {}
-    for f, depth in enumerate(run["frames"]):
+    rec = list(prior["rec"][:first]) if first else []
+    poses = {f: q for f, q in prior["poses"].items() if f < first} \
+        if first else {}
+    obj_poses = {i: {f: q for f, q in t.items() if f < first}
+                 for i, t in prior["obj_poses"].items()} if first else {}
+    for f in range(first, len(run["frames"])):
+        depth = run["frames"][f]
         pipe = EMFusionPipeline(Params(**run["cfg"]),
-                                CallableMaskProvider(provider), device="cpu",
-                                sampler="capture")
+                                CallableMaskProvider(detector(masks,
+                                                              Detection)),
+                                device="cpu", sampler="capture")
         if f:
             snap = jax["snaps"][f - 1]
             pipe.load_state(state_from_numpy(snap["arrays"], device="cpu"),
@@ -159,8 +209,7 @@ def stepped(run):
                             next_id=snap["next_id"],
                             poses={g: jax["poses"][g] for g in range(f)})
         pipe.process_frame(None, depth, timestamp=float(f))
-        rec.append(record(pipe,
-                          lambda p, k: float(p.state.objs.voxel_size[k])))
+        rec.append(record(pipe, port_voxel))
         poses[f] = pipe.poses[f]
         for i, t in pipe.obj_poses.items():
             if f in t:
@@ -188,23 +237,28 @@ def deletion():
     return both(frames, masks, dict(SMALL, **EXACT))
 
 
+@pytest.fixture(scope="module")
+def deletion_respawn(deletion):
+    """The deletion scene's two pipelines run on over the respawn
+    scene's last two frames (the first five are the deletion scene's)."""
+    frames, masks = respawn_sequence()
+    n = len(deletion["frames"])
+    assert all(np.array_equal(a, b)
+               for a, b in zip(frames, deletion["frames"]))
+    return extend(deletion, frames[n:], masks)
+
+
 def jittered(run, scale):
     """The JAX pipeline against itself: ``run``'s scene with every depth
     scaled by ``scale``, a change of one or two float32 ulps; what
     :func:`drive` returns."""
     frames = [(d * np.float32(scale)).astype(np.float32)
               for d in run["frames"]]
-    masks = run["masks"]
-
-    def provider(rgb, f):
-        return [JaxDetection(mask=masks[f], scores=make_score_vector(3, 0.9))
-                ] if f in masks else []
-
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("EMF_TRACK_SAMPLER", "capture")
-        pipe = JaxPipeline(JaxParams(**run["cfg"]), JaxProvider(provider))
-    return drive(pipe, frames,
-                 lambda p, k: float(np.asarray(p.state.objs.voxel_size)[k]))
+        pipe = JaxPipeline(JaxParams(**run["cfg"]), JaxProvider(
+            detector(run["masks"], JaxDetection)))
+    return drive(pipe, frames, jax_voxel)
 
 
 @pytest.fixture(scope="module")
@@ -215,6 +269,11 @@ def rigid_jitter(rigid):
 @pytest.fixture(scope="module")
 def growing_jitter(growing):
     return jittered(growing, 1 - 2e-7)
+
+
+@pytest.fixture(scope="module")
+def deletion_respawn_jitter(deletion_respawn):
+    return jittered(deletion_respawn, 1 - 1e-7)
 
 
 @pytest.fixture(scope="module")
@@ -232,9 +291,15 @@ def deletion_steps(deletion):
     return stepped(deletion)
 
 
+@pytest.fixture(scope="module")
+def deletion_respawn_steps(deletion_respawn, deletion_steps):
+    return stepped(deletion_respawn, len(deletion_steps["rec"]),
+                   deletion_steps)
+
+
 # the scenes held to the full per-frame tolerances; the growing one is
 # ill-conditioned (test_growing_scene_*)
-SCENES = ["rigid", "deletion"]
+SCENES = ["rigid", "deletion", "deletion_respawn"]
 
 
 def angle(a, b):
@@ -263,10 +328,12 @@ def check_camera(run, f):
 @pytest.mark.parametrize("scene", SCENES)
 def test_lifecycle_matches_jax(scene, request):
     """The same active ids after every frame (so the same spawn and
-    deletion frames), and the same voxel sizes (rel 1e-6)."""
+    deletion frames) in the same slots, and the same voxel sizes (rel
+    1e-6)."""
     run = request.getfixturevalue(scene)
     jr, pr = run["jax"]["rec"], run["port"]["rec"]
     assert [r["ids"] for r in pr] == [r["ids"] for r in jr]
+    assert [r["slots"] for r in pr] == [r["slots"] for r in jr]
     for f, (a, b) in enumerate(zip(pr, jr)):
         for oid, vs in b["vs"].items():
             assert abs(a["vs"][oid] - vs) <= 1e-6 * vs, (f, oid)
@@ -274,6 +341,10 @@ def test_lifecycle_matches_jax(scene, request):
     assert spawned == sorted(min(t) for t in run["jax"]["obj_poses"].values())
     if scene == "deletion":
         assert [r["ids"] for r in pr] == [[1]] * 3 + [[]] * 2
+    elif scene == "deletion_respawn":
+        # C, a new id, in A's freed slot 0
+        assert [r["ids"] for r in pr] == [[1]] * 3 + [[]] * 3 + [[2]]
+        assert [r["slots"] for r in pr][-1] == {2: 0}
     else:
         assert all(r["ids"] == [1] for r in pr)
 
@@ -312,19 +383,27 @@ def test_render_matches_jax(scene, request):
     port run frame by frame from the JAX pipeline's states
     (:func:`stepped`) and for the free-running port. The free-running
     port is not held at a frame where the JAX pipeline against itself
-    breaks that bound: on the rigid scene, its depth scaled by 1 - 1e-7
-    (test_rigid_scene_spread_in_jax)."""
+    breaks that bound: on the rigid scene and the respawn scene, its
+    depth scaled by 1 - 1e-7 (test_rigid_scene_spread_in_jax,
+    test_respawn_scene_spread_in_jax). On the respawn scene the stepped
+    port is not held there either: at C's first frame the camera LM,
+    with C not yet in any model, stops at the float32 noise floor, and
+    one frame of other rounding moves its pose by a few 1e-6 m, as the
+    scaled depth moves JAX's."""
     run = request.getfixturevalue(scene)
     steps = request.getfixturevalue(scene + "_steps")
     jr, pr, sr = run["jax"]["rec"], run["port"]["rec"], steps["rec"]
-    own = (request.getfixturevalue(scene + "_jitter")["rec"]
-           if scene == "rigid" else jr)
+    spread = scene in ("rigid", "deletion_respawn")
+    own = (request.getfixturevalue(scene + "_jitter")["rec"] if spread
+           else jr)
     assert len(pr) == len(sr) == len(own) == len(jr)
     for f, b in enumerate(jr):
         assert pr[f]["img"].shape == sr[f]["img"].shape == b["img"].shape \
             == (120, 160, 3)
-        assert same_pixels(sr[f], b) >= 0.999, (f, same_pixels(sr[f], b))
-        if same_pixels(own[f], b) >= 0.999:
+        held = same_pixels(own[f], b) >= 0.999
+        if held or scene != "deletion_respawn":
+            assert same_pixels(sr[f], b) >= 0.999, (f, same_pixels(sr[f], b))
+        if held:
             assert same_pixels(pr[f], b) >= 0.999, (f, same_pixels(pr[f], b))
     assert (pr[-1]["img"].sum(-1) > 0).mean() > 0.3
 
@@ -385,15 +464,10 @@ def test_growing_scene_spread_in_jax(growing):
     to that bound there (test_growing_scene_lifecycle_and_poses)."""
     frames = [(d * np.float32(1 + 3e-7)).astype(np.float32)
               for d in growing["frames"]]
-    masks = growing["masks"]
-
-    def provider(rgb, f):
-        return [JaxDetection(mask=masks[f], scores=make_score_vector(3, 0.9))
-                ] if f in masks else []
-
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("EMF_TRACK_SAMPLER", "capture")
-        pipe = JaxPipeline(JaxParams(**growing["cfg"]), JaxProvider(provider))
+        pipe = JaxPipeline(JaxParams(**growing["cfg"]), JaxProvider(
+            detector(growing["masks"], JaxDetection)))
     for f, depth in enumerate(frames):
         pipe.process_frame(None, depth, timestamp=float(f))
     a, b = pipe.obj_poses[1], growing["jax"]["obj_poses"][1]
@@ -441,6 +515,29 @@ def test_rigid_scene_spread_in_jax(rigid, rigid_jitter):
     assert min(same) < 0.999, same
 
 
+def test_respawn_scene_spread_in_jax(deletion_respawn,
+                                     deletion_respawn_jitter):
+    """The JAX pipeline against itself on the respawn scene, its depth
+    scaled by 1 - 1e-7: the same ids in the same slots, camera and object
+    positions within the 0.1 voxel of test_poses_match_jax, yet its
+    rendered images differ at more than 0.1% of the pixels at some frame
+    (C's first), where test_render_matches_jax does not hold the port to
+    that bound."""
+    run, own = deletion_respawn, deletion_respawn_jitter
+    jr = run["jax"]["rec"]
+    assert [r["ids"] for r in own["rec"]] == [r["ids"] for r in jr]
+    assert [r["slots"] for r in own["rec"]] == [r["slots"] for r in jr]
+    for f in range(len(jr)):
+        check_camera(dict(run, port=own), f)
+    for oid, traj in run["jax"]["obj_poses"].items():
+        for f, b in traj.items():
+            a = own["obj_poses"][oid][f]
+            assert np.linalg.norm(a[:3, 3] - b[:3, 3]) \
+                < 0.1 * voxel_sizes(run)[oid], (oid, f)
+    same = [same_pixels(a, b) for a, b in zip(own["rec"], jr)]
+    assert min(same) < 0.999, same
+
+
 def test_rigid_object_motion_recovered(rigid):
     """As the JAX gate: the port's object x-motion recovers 0.35-2.0 of
     the ground truth."""
@@ -471,14 +568,9 @@ def test_state_carry_over_from_jax(rigid):
     snap = rigid["jax"]["snap"]
     frame = snap["frame"]
     cfg = rigid["cfg"]
-    masks = rigid["masks"]
-
-    def provider(rgb, f):
-        return [Detection(mask=masks[f], scores=make_score_vector(3, 0.9))
-                ] if f in masks else []
-
-    pipe = EMFusionPipeline(Params(**cfg), CallableMaskProvider(provider),
-                            device="cpu", sampler="capture")
+    pipe = EMFusionPipeline(Params(**cfg), CallableMaskProvider(
+        detector(rigid["masks"], Detection)), device="cpu",
+        sampler="capture")
     state = state_from_numpy(snap["arrays"], device="cpu")
     assert state.objs.tsdf.shape == (4, 32, 32, 32)
     pipe.load_state(state, frame=frame,
