@@ -1,0 +1,15 @@
+"""Settings of the benchmark's own tests (``python -m pytest benchmark/tests``
+from the checkout's root). Nothing here imports JAX."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
